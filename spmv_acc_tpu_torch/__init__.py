@@ -1,0 +1,73 @@
+"""spmv_acc_tpu_torch — the PyTorch/CUDA port of spmv_acc_tpu.
+
+The JAX package (``spmv_acc_tpu``) is the reference; this package keeps its
+module paths and public names.  Ported so far: the CSR container, matrix ingest
+(csr/mtx/bin2) and generators, golden verification, the analyze pass, and the
+``swell`` strategy in float64, whose SpMV runs on an NVIDIA Hopper card in a
+hand-written CUDA kernel (``csrc/swell_spmv.cu``) and on the CPU in its plain
+PyTorch version.
+
+Public API::
+
+    from spmv_acc_tpu_torch import CSR, spmv, example_like
+    csr = example_like("af23560").to("cuda")
+    y = spmv(csr, x, y, alpha=1.0, beta=1.0, strategy="adaptive")
+"""
+
+from .config import DEFAULT_TUNE, TuneConfig
+from .dispatch import (
+    PORTED_STRATEGIES,
+    STRATEGIES,
+    Handle,
+    make_spmv_fn,
+    pick_strategy,
+    sparse_csr_spmv,
+    spmv,
+)
+from .formats import (
+    CSR,
+    banded_csr,
+    example_like,
+    powerlaw_csr,
+    random_csr,
+    random_x_y,
+    sparse_operation,
+)
+from .io import load_csr, load_matrix, read_bin2, read_csr_text, read_mtx, write_bin2
+from .ops.golden import host_spmv
+from .plan import Plan, analyze, get_plan
+from .utils import verify, verify_y
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DEFAULT_TUNE",
+    "TuneConfig",
+    "Handle",
+    "PORTED_STRATEGIES",
+    "STRATEGIES",
+    "make_spmv_fn",
+    "pick_strategy",
+    "sparse_csr_spmv",
+    "spmv",
+    "CSR",
+    "banded_csr",
+    "example_like",
+    "powerlaw_csr",
+    "random_csr",
+    "random_x_y",
+    "sparse_operation",
+    "load_csr",
+    "load_matrix",
+    "read_bin2",
+    "read_csr_text",
+    "read_mtx",
+    "write_bin2",
+    "host_spmv",
+    "Plan",
+    "analyze",
+    "get_plan",
+    "verify",
+    "verify_y",
+    "__version__",
+]

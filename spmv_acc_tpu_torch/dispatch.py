@@ -1,0 +1,203 @@
+"""Public SpMV API + runtime strategy picker.
+
+Counterpart of the JAX package's ``spmv_acc_tpu/dispatch.py``.  ``spmv(...,
+strategy=...)`` runs one strategy; ``strategy='adaptive'`` picks one.  The port
+has ``swell`` (the H1 kernel), ``default`` (plain PyTorch) and ``adaptive`` so
+far; every other name of the reference's zoo raises ``NotImplementedError``
+naming itself until it is ported — nothing is substituted silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+from .config import (DEFAULT_TUNE, FLAT_NNZ, IMBALANCE_RATIO, SHORT_ROW_AVG_NNZ,
+                     SMALL_NNZ, TuneConfig)
+from .formats.containers import CSR, sparse_operation
+from .formats.convert import csr_transpose_arrays
+from .ops import xla as _xla
+from .plan import Plan, get_plan
+from .utils.timer import sync
+
+__all__ = ["Handle", "spmv", "pick_strategy", "make_spmv_fn", "sparse_csr_spmv",
+           "STRATEGIES", "PORTED_STRATEGIES", "SWELL_MIN_FILL"]
+
+
+@dataclasses.dataclass
+class Handle:
+    """Profiling handle (SpMVAccHanele analog, src/acc/api/handle.h:8-13): carries
+    analyze/kernel phase times in µs out of a call.  The device is synchronised
+    before each time is taken."""
+
+    analyze_time_us: float = 0.0
+    kernel_time_us: float = 0.0
+    destroy_time_us: float = 0.0  # plan eviction; ~0 (GC'd), kept for parity
+    strategy_used: str = ""
+
+
+# Swell fill gate (the JAX package's value): every matrix whose slab layout
+# keeps at least this share of its padded slots busy goes to swell, on any
+# device.  Every corpus matrix has fill >= 0.1.
+SWELL_MIN_FILL = 0.001
+
+# The reference's eleven-strategy zoo (src/acc/CMakeLists.txt:2-14) plus the JAX
+# package's swell/ell/acsr.  Only PORTED_STRATEGIES run here so far.
+_ZOO = {"thread_row", "wf_row", "block_row", "light", "line_enhance", "acsr"}
+STRATEGIES = {
+    "adaptive", "default", "line", "ell", "flat", "vector_row",
+    "adaptive_plus", "swell",
+} | _ZOO
+PORTED_STRATEGIES = {"adaptive", "default", "swell"}
+
+# Transposes for trans='T', keyed like the plan cache: the entry holds the keyed
+# tensor, so a recycled id() never serves another matrix's transpose.
+_T_CACHE: dict = {}
+
+
+def _get_transposed(csr: CSR) -> CSR:
+    key = (id(csr.row_ptr), id(csr.col_idx), id(csr.values), csr.shape)
+    hit = _T_CACHE.get(key)
+    if (hit is not None and hit[0] is csr.row_ptr and hit[1] is csr.col_idx
+            and hit[2] is csr.values):
+        return hit[3]
+    rp, ci, v, shape = csr.to_numpy()
+    trp, tci, tv = csr_transpose_arrays(rp, ci, v, shape)
+    t = CSR.from_numpy(trp, tci, tv, (shape[1], shape[0]), device=csr.device)
+    _T_CACHE[key] = (csr.row_ptr, csr.col_idx, csr.values, t)
+    return t
+
+
+def clear_caches() -> None:
+    """Drop every cached plan, layout and transpose."""
+    from .ops.swell import clear_swell_cache
+    from .plan import clear_plan_cache
+
+    clear_plan_cache()
+    clear_swell_cache()
+    _T_CACHE.clear()
+
+
+def pick_strategy(plan: Plan, csr: Optional[CSR] = None) -> str:
+    """Strategy selection.  Empty matrices go to ``default``; every matrix whose
+    swell layout reaches ``SWELL_MIN_FILL`` goes to ``swell``; the rest walk the
+    reference's adaptive decision tree (hip-adaptive/adaptive.cpp:16-67) exactly
+    as the JAX package maps it:
+
+      ① half-nnz imbalance ≥ 4×   → 'flat'
+      ② avg nnz/row ≤ 4           → 'line'
+      ③ nnz ≤ 0xC00000 (12.6M)    → 'ell' when rows are near-uniform else 'flat'
+      ④ nnz > 2^23                → 'flat'
+      ⑤ else                      → 'flat'
+    """
+    s = plan.stats
+    if s.rows == 0 or s.nnz == 0:
+        return "default"
+    if csr is not None:
+        from .ops.swell import get_swell_plan
+
+        if get_swell_plan(csr, csr.values.dtype).fill >= SWELL_MIN_FILL:
+            return "swell"
+    if s.half_imbalance >= IMBALANCE_RATIO:
+        return "flat"
+    if s.avg_nnz_per_row <= SHORT_ROW_AVG_NNZ:
+        return "line"
+    if s.nnz <= SMALL_NNZ:
+        if s.row_len_cv < 0.5 and s.max_nnz_per_row <= 4 * s.avg_nnz_per_row:
+            return "ell"
+        return "flat"
+    if s.nnz > FLAT_NNZ:
+        return "flat"
+    return "flat"
+
+
+def _run(strategy: str, alpha, beta, csr: CSR, x, y, plan: Plan):
+    if strategy == "default":
+        return _xla.spmv_default(alpha, beta, csr, x, y, plan)
+    if strategy == "swell":
+        from .ops.swell import spmv_swell
+
+        return spmv_swell(alpha, beta, csr, x, y, plan)
+    if strategy in STRATEGIES:
+        raise NotImplementedError(strategy)
+    raise ValueError(f"unknown strategy {strategy!r} (one of {sorted(STRATEGIES)})")
+
+
+def spmv(
+    csr: CSR,
+    x: torch.Tensor,
+    y: Optional[torch.Tensor] = None,
+    alpha=1.0,
+    beta=0.0,
+    trans: str = sparse_operation.SPARSE_OPERATION_NON_TRANSPOSE,
+    strategy: str = "adaptive",
+    tune: TuneConfig = DEFAULT_TUNE,
+    handle: Optional[Handle] = None,
+) -> torch.Tensor:
+    """``y_out = alpha * op(A) @ x + beta * y`` — the public entry point
+    (analog of ``sparse_csr_spmv``, src/acc/api/spmv.h:20-21).
+
+    ``csr``, ``x`` and ``y`` lie on one device, which is where the work runs.
+    ``trans='T'`` computes A^T@x via a cached host transpose.
+    """
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r} (one of {sorted(STRATEGIES)})")
+    if trans == sparse_operation.SPARSE_OPERATION_TRANSPOSE:
+        csr = _get_transposed(csr)
+    if y is None:
+        y = torch.zeros(csr.rows, dtype=csr.values.dtype, device=csr.device)
+        beta = 0.0
+    if handle is not None:
+        sync(csr.device)
+    t0 = time.perf_counter()
+    plan = get_plan(csr, tune)
+    chosen = pick_strategy(plan, csr) if strategy == "adaptive" else strategy
+    t1 = time.perf_counter()
+    out = _run(chosen, alpha, beta, csr, x, y, plan)
+    if handle is not None:
+        sync(csr.device)
+        t2 = time.perf_counter()
+        handle.analyze_time_us = (t1 - t0) * 1e6
+        handle.kernel_time_us = (t2 - t1) * 1e6
+        handle.strategy_used = chosen
+    return out
+
+
+def make_spmv_fn(
+    csr: CSR,
+    alpha=1.0,
+    beta=1.0,
+    strategy: str = "adaptive",
+    tune: TuneConfig = DEFAULT_TUNE,
+):
+    """``step(x, y) -> y_out`` with the plan built and the strategy chosen up
+    front, so a loop (CG, the CLI's timed run) pays no analysis per call.
+
+    Returns (step, chosen_strategy_name)."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r} (one of {sorted(STRATEGIES)})")
+    plan = get_plan(csr, tune)
+    chosen = pick_strategy(plan, csr) if strategy == "adaptive" else strategy
+    if chosen not in PORTED_STRATEGIES:
+        raise NotImplementedError(chosen)
+    if chosen == "swell":
+        from .ops.swell import get_swell_plan, swell_ax
+
+        layout = get_swell_plan(csr, csr.values.dtype)
+
+        def step(x, y):
+            return _xla.axpby_finish(alpha, beta, swell_ax(layout, x), y)
+    else:
+        def step(x, y):
+            return _run(chosen, alpha, beta, csr, x, y, plan)
+
+    return step, chosen
+
+
+def sparse_csr_spmv(trans, alpha, beta, csr: CSR, x, y, strategy: str = "adaptive"):
+    """Signature-compatible shim mirroring the reference's public API
+    (src/acc/api/spmv.h:20-21): ``sparse_csr_spmv(trans, alpha, beta, desc, dx, dy)``."""
+    return spmv(csr, x, y, alpha=alpha, beta=beta, trans=trans, strategy=strategy)

@@ -1,0 +1,125 @@
+"""ctypes access to the repo's native C++ host library (``native/spmv_native.cpp``),
+the same shared ``native/libspmv_native.so`` the JAX package loads.
+
+This is host code, not a device kernel: the swell analyze pass
+(csr_adaptive_plus_analyze.cpp analog) in one OpenMP pass over row-blocks.  The
+library is built with ``make -C native`` at first use; without a compiler the
+callers take their numpy paths, which compute the same decomposition.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+__all__ = ["get_lib", "swell_analyze_native", "available"]
+
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libspmv_native.so")
+_ABI_VERSION = 5  # native/spmv_native.cpp spmv_native_abi_version()
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+# The Makefile's flags without -fopenmp: a compiler without OpenMP support (no
+# libgomp) still builds the same library, serial (the source guards every pragma).
+_SERIAL_FLAGS = "CXXFLAGS=-O3 -std=c++17 -fPIC -shared -Wall"
+
+
+def _build(force: bool = False) -> bool:
+    for extra in ([], [_SERIAL_FLAGS]):
+        cmd = ["make", "-C", _NATIVE_DIR, "-s", *extra] + (["-B"] if force else [])
+        try:
+            r = subprocess.run(cmd, capture_output=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        if r.returncode == 0 and os.path.exists(_LIB_PATH):
+            return True
+    return False
+
+
+def _load_fresh():
+    """CDLL via a temp copy: re-CDLL of the same path can return the already-
+    mapped stale handle, so a rebuilt .so is loaded under a new path."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.NamedTemporaryFile(prefix="spmv_native_", suffix=".so", delete=False)
+    tmp.close()
+    shutil.copy2(_LIB_PATH, tmp.name)
+    return ctypes.CDLL(tmp.name)
+
+
+def get_lib():
+    """Load (building if needed) the native library; None if unavailable."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if not os.path.exists(_LIB_PATH) and not _build():
+            return None
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+            lib.spmv_native_abi_version.restype = ctypes.c_int32
+            if lib.spmv_native_abi_version() != _ABI_VERSION:
+                if not _build(force=True):
+                    return None
+                lib = _load_fresh()
+                lib.spmv_native_abi_version.restype = ctypes.c_int32
+                if lib.spmv_native_abi_version() != _ABI_VERSION:
+                    return None
+        except OSError:
+            return None
+        p = ctypes.c_void_p
+        lib.swell_analyze.restype = ctypes.c_int64
+        lib.swell_analyze.argtypes = [p, p, ctypes.c_int64, ctypes.c_int32, p, p, p, p,
+                                      ctypes.c_int64, p, p, p, p, ctypes.c_int32]
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+def swell_analyze_native(row_ptr, col_idx, m, delta):
+    """Native swell analyze pass (OpenMP over row-blocks).
+
+    Returns (slab_of_nnz i32, lidx u8, slot_in_slab u8, layer_k i8,
+             slab_rb i32, slab_w i32, slab_k i8, slab_wide bool) or None.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    rp = np.ascontiguousarray(row_ptr, dtype=np.int64)
+    ci = np.ascontiguousarray(col_idx, dtype=np.int32)
+    nnz = int(rp[-1])
+    if nnz == 0 or nnz >= 2**31:
+        return None
+    slab_of_nnz = np.empty(nnz, dtype=np.int32)
+    lidx = np.empty(nnz, dtype=np.uint8)
+    slot = np.empty(nnz, dtype=np.uint8)
+    layer_k = np.empty(nnz, dtype=np.int8)
+    cap = nnz
+    slab_rb = np.empty(cap, dtype=np.int32)
+    slab_w = np.empty(cap, dtype=np.int32)
+    slab_k = np.empty(cap, dtype=np.int8)
+    slab_wide = np.empty(cap, dtype=np.uint8)
+    ns = lib.swell_analyze(
+        rp.ctypes.data, ci.ctypes.data, m, delta,
+        slab_of_nnz.ctypes.data, lidx.ctypes.data, slot.ctypes.data, layer_k.ctypes.data,
+        cap, slab_rb.ctypes.data, slab_w.ctypes.data, slab_k.ctypes.data,
+        slab_wide.ctypes.data, min(os.cpu_count() or 1, 16),
+    )
+    if ns < 0:
+        return None
+    return (slab_of_nnz, lidx, slot, layer_k,
+            slab_rb[:ns].copy(), slab_w[:ns].copy(), slab_k[:ns].copy(),
+            slab_wide[:ns].astype(bool))

@@ -1,0 +1,29 @@
+"""Plain PyTorch strategies — the counterparts of the JAX package's pure-XLA
+``spmv_acc_tpu/ops/xla.py`` (no hand-written kernel behind them, as there was
+none in the reference).
+
+  * ``axpby_finish`` — y_out = alpha*(A@x) + beta*y, the one combiner every
+    strategy funnels through, so true alpha/beta semantics always hold.
+  * ``spmv_default`` — gather, multiply and ``index_add_`` over the plan's row
+    ids: the sanity strategy (analog of src/acc/hip/spmv_hip_acc_imp.cpp:15-35)
+    and what ``spmv-cli --device-verify`` checks against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["axpby_finish", "spmv_default"]
+
+
+def axpby_finish(alpha, beta, ax: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y_out = alpha*(A@x) + beta*y (the reference's line/flat kernels silently
+    assume beta == 1, SURVEY.md §7.3; here the contract always holds)."""
+    return alpha * ax + beta * y.to(ax.dtype)
+
+
+def spmv_default(alpha, beta, csr, x, y, plan):
+    """Scatter-add over (value, col, row_id) triplets."""
+    ax = torch.zeros(csr.rows, dtype=csr.values.dtype, device=csr.device)
+    ax.index_add_(0, plan.row_ids[: csr.nnz], csr.values * x[csr.col_idx.long()])
+    return axpby_finish(alpha, beta, ax, y)

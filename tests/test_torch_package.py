@@ -1,0 +1,89 @@
+"""Package-level checks of the port: it never imports JAX, its kernel is built for
+Hopper from the repo's CUDA source, and (on a card) H1 matches its plain version.
+
+The ``cuda`` tests need an NVIDIA GPU and skip without one; run them there with
+``python -m pytest tests/test_torch_package.py -m cuda --noconftest`` (the
+shared conftest imports JAX, which the card's machine need not have)."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from spmv_acc_tpu_torch.ops import _build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "spmv_acc_tpu_torch")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _port_sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def test_port_never_imports_jax():
+    sources = list(_port_sources()) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(sources) > 15
+    for path in sources:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "spmv_acc_tpu"), f"{path} imports {mod}"
+
+
+def test_nvcc_command_targets_hopper():
+    cmd = _build.nvcc_command(_build.SWELL_SRC, "out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    assert cmd[-1] == _build.SWELL_SRC
+
+
+def test_swell_kernel_source_exists():
+    with open(os.path.join(PKG, "csrc", "swell_spmv.cu")) as f:
+        src = f.read()
+    assert 'extern "C" int swell_spmv_f64(' in src
+    assert "cudaGetLastError" in src
+    assert _build.SWELL_SRC == os.path.join(PKG, "csrc", "swell_spmv.cu")
+    assert _build.BUILD_DIR == os.path.join(REPO, "build")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 300, 1500), (40000, 300, 9000), (300, 40000, 9000)])
+def test_h1_matches_plain_on_card(cuda_device, shape):
+    from spmv_acc_tpu_torch.formats import random_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import swell
+
+    m, n, nnz = shape
+    csr = random_csr(m, n, nnz, seed=m + n).to(cuda_device)
+    x = torch.from_numpy(random_x_y(n, m, seed=1)[0]).to(cuda_device)
+    layout = swell.get_swell_plan(csr)
+    before = swell.swell_ax.launches
+    a = swell.swell_ax(layout, x)
+    p = swell.swell_ax_plain(layout, x)
+    torch.cuda.synchronize()
+    assert swell.swell_ax.launches == before + 1
+    rp, ci, v, _ = csr.to_numpy()
+    bound = np.zeros(m)
+    np.add.at(bound, np.repeat(np.arange(m), np.diff(rp)), np.abs(v * x.cpu().numpy()[ci]))
+    assert (np.abs(a.cpu().numpy() - p.cpu().numpy()) <= 1e-12 * bound).all()
