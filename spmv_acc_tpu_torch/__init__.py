@@ -1,17 +1,19 @@
 """spmv_acc_tpu_torch — the PyTorch/CUDA port of spmv_acc_tpu.
 
 The JAX package (``spmv_acc_tpu``) is the reference; this package keeps its
-module paths and public names.  Ported so far: the CSR container, matrix ingest
-(csr/mtx/bin2) and generators, golden verification, the analyze pass, and the
-``swell`` strategy in float64, whose SpMV runs on an NVIDIA Hopper card in a
+module paths and public names.  Ported so far: the CSR, BSR and ELL containers,
+matrix ingest (csr/mtx/bin2) and generators, golden verification, the analyze
+pass, the ``swell`` strategy (float64 and float32, BSR r x r micro-blocks, k
+right-hand sides), whose SpMV and SpMM run on an NVIDIA Hopper card in a
 hand-written CUDA kernel (``csrc/swell_spmv.cu``) and on the CPU in its plain
-PyTorch version.
+PyTorch version, and the plain-PyTorch ``spmm`` strategies and BSR products.
 
 Public API::
 
-    from spmv_acc_tpu_torch import CSR, spmv, example_like
+    from spmv_acc_tpu_torch import CSR, spmv, spmm, example_like
     csr = example_like("af23560").to("cuda")
     y = spmv(csr, x, y, alpha=1.0, beta=1.0, strategy="adaptive")
+    Y = spmm(csr, X)            # X of shape (n, k)
 """
 
 from .config import DEFAULT_TUNE, TuneConfig
@@ -25,8 +27,12 @@ from .dispatch import (
     spmv,
 )
 from .formats import (
+    BSR,
     CSR,
+    ELL,
     banded_csr,
+    csr_to_bsr,
+    csr_to_ell,
     example_like,
     powerlaw_csr,
     random_csr,
@@ -34,7 +40,9 @@ from .formats import (
     sparse_operation,
 )
 from .io import load_csr, load_matrix, read_bin2, read_csr_text, read_mtx, write_bin2
-from .ops.golden import host_spmv
+from .ops.bsr import bsr_spmm, bsr_spmv
+from .ops.golden import host_spmm, host_spmv
+from .ops.spmm import spmm
 from .plan import Plan, analyze, get_plan
 from .utils import verify, verify_y
 
@@ -51,7 +59,11 @@ __all__ = [
     "sparse_csr_spmv",
     "spmv",
     "CSR",
+    "BSR",
+    "ELL",
     "banded_csr",
+    "csr_to_bsr",
+    "csr_to_ell",
     "example_like",
     "powerlaw_csr",
     "random_csr",
@@ -64,6 +76,10 @@ __all__ = [
     "read_mtx",
     "write_bin2",
     "host_spmv",
+    "host_spmm",
+    "bsr_spmv",
+    "bsr_spmm",
+    "spmm",
     "Plan",
     "analyze",
     "get_plan",

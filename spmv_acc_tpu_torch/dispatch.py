@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``spmv_acc_tpu/dispatch.py``.  ``spmv(...,
 strategy=...)`` runs one strategy; ``strategy='adaptive'`` picks one.  The port
-has ``swell`` (the H1 kernel), ``default`` (plain PyTorch) and ``adaptive`` so
-far; every other name of the reference's zoo raises ``NotImplementedError``
-naming itself until it is ported — nothing is substituted silently.
+has ``swell`` (the Hopper swell kernel, float64 and float32, BSR micro-blocks
+included), ``default`` (plain PyTorch) and ``adaptive`` so far; every other
+name of the reference's zoo raises ``NotImplementedError`` naming itself until
+it is ported — nothing is substituted silently.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 
 from .config import (DEFAULT_TUNE, FLAT_NNZ, IMBALANCE_RATIO, SHORT_ROW_AVG_NNZ,
                      SMALL_NNZ, TuneConfig)
-from .formats.containers import CSR, sparse_operation
-from .formats.convert import csr_transpose_arrays
+from .formats.containers import CSR, ELL, sparse_operation
+from .formats.convert import csr_to_ell, csr_transpose_arrays
 from .ops import xla as _xla
 from .plan import Plan, get_plan
 from .utils.timer import sync
@@ -39,9 +40,11 @@ class Handle:
     strategy_used: str = ""
 
 
-# Swell fill gate (the JAX package's value): every matrix whose slab layout
-# keeps at least this share of its padded slots busy goes to swell, on any
-# device.  Every corpus matrix has fill >= 0.1.
+# Swell fill gate: every matrix whose slab layout keeps at least this share of
+# its padded slots busy goes to swell, on any device, unless the layout would
+# pass ops.swell.SWELL_MAX_SLOTS.  Every corpus matrix has fill >= 0.1.  The
+# value was fitted on the TPU (the JAX package's dispatch.py:53-59) and is kept
+# for parity until H100 measurements refit it.
 SWELL_MIN_FILL = 0.001
 
 # The reference's eleven-strategy zoo (src/acc/CMakeLists.txt:2-14) plus the JAX
@@ -53,9 +56,23 @@ STRATEGIES = {
 } | _ZOO
 PORTED_STRATEGIES = {"adaptive", "default", "swell"}
 
-# Transposes for trans='T', keyed like the plan cache: the entry holds the keyed
-# tensor, so a recycled id() never serves another matrix's transpose.
+# Transposes for trans='T' and ELL slabs for spmm, keyed like the plan cache:
+# the entry holds the keyed tensors, so a recycled id() never serves another
+# matrix's transpose.
 _T_CACHE: dict = {}
+_ELL_CACHE: dict = {}
+
+
+def _get_ell(csr: CSR, tune: TuneConfig) -> ELL:
+    key = (id(csr.row_ptr), id(csr.col_idx), id(csr.values), csr.shape,
+           tune.ell_width_multiple)
+    hit = _ELL_CACHE.get(key)
+    if (hit is not None and hit[0] is csr.row_ptr and hit[1] is csr.col_idx
+            and hit[2] is csr.values):
+        return hit[3]
+    e = csr_to_ell(csr, width_multiple=tune.ell_width_multiple)
+    _ELL_CACHE[key] = (csr.row_ptr, csr.col_idx, csr.values, e)
+    return e
 
 
 def _get_transposed(csr: CSR) -> CSR:
@@ -72,20 +89,22 @@ def _get_transposed(csr: CSR) -> CSR:
 
 
 def clear_caches() -> None:
-    """Drop every cached plan, layout and transpose."""
+    """Drop every cached plan, layout, transpose and ELL slab."""
     from .ops.swell import clear_swell_cache
     from .plan import clear_plan_cache
 
     clear_plan_cache()
     clear_swell_cache()
     _T_CACHE.clear()
+    _ELL_CACHE.clear()
 
 
 def pick_strategy(plan: Plan, csr: Optional[CSR] = None) -> str:
     """Strategy selection.  Empty matrices go to ``default``; every matrix whose
-    swell layout reaches ``SWELL_MIN_FILL`` goes to ``swell``; the rest walk the
-    reference's adaptive decision tree (hip-adaptive/adaptive.cpp:16-67) exactly
-    as the JAX package maps it:
+    swell layout reaches ``SWELL_MIN_FILL`` and stays within
+    ``ops.swell.SWELL_MAX_SLOTS`` goes to ``swell`` (its block size r chosen by
+    the reference's detector); the rest walk the reference's adaptive decision
+    tree (hip-adaptive/adaptive.cpp:16-67) exactly as the JAX package maps it:
 
       ① half-nnz imbalance ≥ 4×   → 'flat'
       ② avg nnz/row ≤ 4           → 'line'
@@ -97,9 +116,10 @@ def pick_strategy(plan: Plan, csr: Optional[CSR] = None) -> str:
     if s.rows == 0 or s.nnz == 0:
         return "default"
     if csr is not None:
-        from .ops.swell import get_swell_plan
+        from .ops.swell import swell_plan_within_cap
 
-        if get_swell_plan(csr, csr.values.dtype).fill >= SWELL_MIN_FILL:
+        layout = swell_plan_within_cap(csr)
+        if layout is not None and layout.fill >= SWELL_MIN_FILL:
             return "swell"
     if s.half_imbalance >= IMBALANCE_RATIO:
         return "flat"
@@ -186,7 +206,7 @@ def make_spmv_fn(
     if chosen == "swell":
         from .ops.swell import get_swell_plan, swell_ax
 
-        layout = get_swell_plan(csr, csr.values.dtype)
+        layout = get_swell_plan(csr)
 
         def step(x, y):
             return _xla.axpby_finish(alpha, beta, swell_ax(layout, x), y)

@@ -1,7 +1,14 @@
-"""Sparse formats: the CSR container, host conversions and generators."""
+"""Sparse formats: the CSR, BSR and ELL containers, host conversions and generators."""
 
-from .containers import CSR, sparse_operation
-from .convert import coo_to_csr_arrays, csr_transpose_arrays
+from .containers import BSR, CSR, ELL, sparse_operation
+from .convert import (
+    coo_to_csr_arrays,
+    csr_to_bsr,
+    csr_to_dense,
+    csr_to_ell,
+    csr_to_ell_arrays,
+    csr_transpose_arrays,
+)
 from .generate import (
     EXAMPLE_SHAPES,
     banded_csr,
@@ -15,8 +22,14 @@ from .generate import (
 
 __all__ = [
     "CSR",
+    "BSR",
+    "ELL",
     "sparse_operation",
     "coo_to_csr_arrays",
+    "csr_to_bsr",
+    "csr_to_dense",
+    "csr_to_ell",
+    "csr_to_ell_arrays",
     "csr_transpose_arrays",
     "EXAMPLE_SHAPES",
     "banded_csr",

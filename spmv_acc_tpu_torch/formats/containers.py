@@ -2,7 +2,7 @@
 
 The port's counterpart of ``spmv_acc_tpu/formats/containers.py``: the reference's
 ``csr_desc<I,T>`` (``src/acc/api/types.h:8-41``) as three tensors on one device
-plus the static shape.  COO, BSR and ELL are still to port.
+plus the static shape, and the JAX package's BSR and ELL.  COO is still to port.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["CSR", "sparse_operation"]
+__all__ = ["CSR", "BSR", "ELL", "sparse_operation"]
 
 
 class sparse_operation:
@@ -104,3 +104,51 @@ class CSR:
             self.values.cpu().numpy(),
             self.shape,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block-CSR with dense ``(bh, bw)`` blocks stored as ``values[nblocks, bh, bw]``
+    (new scope relative to the reference, which is scalar CSR only)."""
+
+    row_ptr: torch.Tensor  # (mb + 1,) int32 — block-row pointer
+    col_idx: torch.Tensor  # (nblocks,) int32 — block-column index
+    values: torch.Tensor   # (nblocks, bh, bw)
+    shape: Tuple[int, int]  # element shape (m, n); multiples of (bh, bw)
+    blocksize: Tuple[int, int]
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.values.shape[0])
+
+    @property
+    def block_rows(self) -> int:
+        return self.shape[0] // self.blocksize[0]
+
+    @property
+    def nnz(self) -> int:
+        """Stored element count (incl. explicit zeros inside blocks)."""
+        return self.nblocks * self.blocksize[0] * self.blocksize[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    """Row-padded ELLPACK slab: ``col_idx``/``values`` are ``(m_padded, width)``;
+    padding entries point at column 0 with value 0, so gathers stay in bounds.
+    Produced by :func:`spmv_acc_tpu_torch.formats.convert.csr_to_ell`."""
+
+    col_idx: torch.Tensor  # (m_padded, width) int32
+    values: torch.Tensor   # (m_padded, width)
+    shape: Tuple[int, int]  # logical (m, n)
+
+    @property
+    def width(self) -> int:
+        return int(self.values.shape[1])
+
+    @property
+    def padded_rows(self) -> int:
+        return int(self.values.shape[0])

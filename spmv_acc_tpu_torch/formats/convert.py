@@ -1,13 +1,18 @@
 """Host-side (numpy) format conversions, the same functions as the JAX package's
-``spmv_acc_tpu/formats/convert.py`` (reference ``cli/sparse_format.h:100-128``)."""
+``spmv_acc_tpu/formats/convert.py`` (reference ``cli/sparse_format.h:100-128``).
+``csr_to_ell`` and ``csr_to_bsr`` put their result on the CSR's device."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["coo_to_csr_arrays", "csr_transpose_arrays"]
+from .containers import BSR, CSR, ELL
+
+__all__ = ["coo_to_csr_arrays", "csr_transpose_arrays", "csr_to_dense", "csr_to_ell_arrays",
+           "csr_to_ell", "csr_to_bsr"]
 
 
 def coo_to_csr_arrays(
@@ -47,3 +52,61 @@ def csr_transpose_arrays(row_ptr, col_idx, values, shape):
     m, n = shape
     rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(np.asarray(row_ptr)))
     return coo_to_csr_arrays(np.asarray(col_idx), rows, np.asarray(values), (n, m))
+
+
+def csr_to_dense(row_ptr, col_idx, values, shape) -> np.ndarray:
+    m, n = shape
+    row_ptr = np.asarray(row_ptr)
+    dense = np.zeros((m, n), dtype=np.asarray(values).dtype)
+    rows = np.repeat(np.arange(m), np.diff(row_ptr))
+    dense[rows, np.asarray(col_idx)] = np.asarray(values)
+    return dense
+
+
+def csr_to_ell_arrays(row_ptr, col_idx, values, shape, width_multiple=8, sublanes=8):
+    """Pad each row to a uniform width (multiple of ``width_multiple``) and the
+    rows to a multiple of ``sublanes``; pad entries point at column 0 with value
+    0 (the vector-per-row analog, hip-vector-row/vector_row.cpp:15-27).
+    Returns (ell_cols, ell_vals, width, padded_rows)."""
+    row_ptr = np.asarray(row_ptr)
+    col_idx = np.asarray(col_idx)
+    values = np.asarray(values)
+    m = shape[0]
+    lens = np.diff(row_ptr)
+    width = int(lens.max()) if m else 0
+    width = max(width_multiple, -(-width // width_multiple) * width_multiple)
+    mp = max(sublanes, -(-m // sublanes) * sublanes)
+    ell_cols = np.zeros((mp, width), dtype=np.int32)
+    ell_vals = np.zeros((mp, width), dtype=values.dtype)
+    if len(col_idx):
+        rows = np.repeat(np.arange(m), lens)
+        offs = np.arange(len(col_idx)) - np.repeat(row_ptr[:-1], lens)
+        ell_cols[rows, offs] = col_idx
+        ell_vals[rows, offs] = values
+    return ell_cols, ell_vals, width, mp
+
+
+def csr_to_ell(csr: CSR, width_multiple=8, sublanes=8) -> ELL:
+    rp, ci, v, shape = csr.to_numpy()
+    ec, ev, _, _ = csr_to_ell_arrays(rp, ci, v, shape, width_multiple, sublanes)
+    return ELL(torch.from_numpy(ec).to(csr.device), torch.from_numpy(ev).to(csr.device),
+               csr.shape)
+
+
+def csr_to_bsr(csr: CSR, blocksize=(8, 128)) -> BSR:
+    """Group nnz into dense (bh, bw) blocks, zero-filled (host numpy)."""
+    bh, bw = blocksize
+    rp, ci, v, (m, n) = csr.to_numpy()
+    mb, nb = -(-m // bh), -(-n // bw)
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(rp))
+    ci = ci.astype(np.int64)
+    key = (rows // bh) * nb + ci // bw
+    uniq = np.unique(key)
+    vals = np.zeros((len(uniq), bh, bw), dtype=v.dtype)
+    vals[np.searchsorted(uniq, key), rows % bh, ci % bw] = v
+    row_ptr = np.zeros(mb + 1, dtype=np.int32)
+    np.cumsum(np.bincount(uniq // nb, minlength=mb), out=row_ptr[1:])
+    dev = csr.device
+    return BSR(torch.from_numpy(row_ptr).to(dev),
+               torch.from_numpy((uniq % nb).astype(np.int32)).to(dev),
+               torch.from_numpy(vals).to(dev), (mb * bh, nb * bw), (bh, bw))

@@ -2,9 +2,10 @@
 the same shared ``native/libspmv_native.so`` the JAX package loads.
 
 This is host code, not a device kernel: the swell analyze pass
-(csr_adaptive_plus_analyze.cpp analog) in one OpenMP pass over row-blocks.  The
-library is built with ``make -C native`` at first use; without a compiler the
-callers take their numpy paths, which compute the same decomposition.
+(csr_adaptive_plus_analyze.cpp analog) in one OpenMP pass over row-blocks, and
+the r x r block condense of the BSR plans.  The library is built with
+``make -C native`` at first use; without a compiler the callers take their
+numpy paths, which compute the same results.
 """
 
 from __future__ import annotations
@@ -16,11 +17,12 @@ import threading
 
 import numpy as np
 
-__all__ = ["get_lib", "swell_analyze_native", "available"]
+__all__ = ["get_lib", "swell_analyze_native", "bsr_condense_native", "available"]
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_NATIVE_DIR = os.path.join(_ROOT, "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libspmv_native.so")
+_LOCK_PATH = os.path.join(_ROOT, "build", "native.lock")
 _ABI_VERSION = 5  # native/spmv_native.cpp spmv_native_abi_version()
 _lock = threading.Lock()
 _lib = None
@@ -32,15 +34,44 @@ _tried = False
 _SERIAL_FLAGS = "CXXFLAGS=-O3 -std=c++17 -fPIC -shared -Wall"
 
 
-def _build(force: bool = False) -> bool:
-    for extra in ([], [_SERIAL_FLAGS]):
-        cmd = ["make", "-C", _NATIVE_DIR, "-s", *extra] + (["-B"] if force else [])
+def _open():
+    """The library at ``_LIB_PATH`` if it loads and has the expected ABI, else
+    None.  A stale ABI is retried on a copy under a new path: re-CDLL of the
+    same path returns the already-mapped handle even after a rebuild."""
+    if not os.path.exists(_LIB_PATH):
+        return None
+    for load in (lambda: ctypes.CDLL(_LIB_PATH), _load_fresh):
         try:
-            r = subprocess.run(cmd, capture_output=True, timeout=120)
-        except (OSError, subprocess.TimeoutExpired):
-            return False
-        if r.returncode == 0 and os.path.exists(_LIB_PATH):
+            lib = load()
+        except OSError:  # e.g. a file another process is still writing
+            return None
+        lib.spmv_native_abi_version.restype = ctypes.c_int32
+        if lib.spmv_native_abi_version() == _ABI_VERSION:
+            return lib
+    return None
+
+
+def _build() -> bool:
+    """``make -C native`` under an exclusive lock file in ``build/``, into a
+    temporary name moved into place, so concurrent processes (test workers)
+    build the library once and no loader sees a half-written file."""
+    import fcntl
+
+    os.makedirs(os.path.dirname(_LOCK_PATH), exist_ok=True)
+    with open(_LOCK_PATH, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _open() is not None:  # built by another process meanwhile
             return True
+        tmp = f"libspmv_native.tmp{os.getpid()}.so"
+        for extra in ([], [_SERIAL_FLAGS]):
+            cmd = ["make", "-C", _NATIVE_DIR, "-s", f"TARGET={tmp}", *extra]
+            try:
+                r = subprocess.run(cmd, capture_output=True, timeout=120)
+            except (OSError, subprocess.TimeoutExpired):
+                return False
+            if r.returncode == 0 and os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+                os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+                return True
     return False
 
 
@@ -63,24 +94,22 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH) and not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-            lib.spmv_native_abi_version.restype = ctypes.c_int32
-            if lib.spmv_native_abi_version() != _ABI_VERSION:
-                if not _build(force=True):
-                    return None
-                lib = _load_fresh()
-                lib.spmv_native_abi_version.restype = ctypes.c_int32
-                if lib.spmv_native_abi_version() != _ABI_VERSION:
-                    return None
-        except OSError:
-            return None
+        lib = _open()
+        if lib is None:  # missing, half-written by a concurrent build, or stale
+            if not _build():
+                return None
+            lib = _open()
+            if lib is None:
+                return None
         p = ctypes.c_void_p
         lib.swell_analyze.restype = ctypes.c_int64
         lib.swell_analyze.argtypes = [p, p, ctypes.c_int64, ctypes.c_int32, p, p, p, p,
                                       ctypes.c_int64, p, p, p, p, ctypes.c_int32]
+        lib.bsr_count.restype = ctypes.c_int64
+        lib.bsr_count.argtypes = [p, p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, p]
+        lib.bsr_fill.restype = ctypes.c_int32
+        lib.bsr_fill.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                                 p, p, p]
         _lib = lib
         return _lib
 
@@ -123,3 +152,29 @@ def swell_analyze_native(row_ptr, col_idx, m, delta):
     return (slab_of_nnz, lidx, slot, layer_k,
             slab_rb[:ns].copy(), slab_w[:ns].copy(), slab_k[:ns].copy(),
             slab_wide[:ns].astype(bool))
+
+
+def bsr_condense_native(rp, ci, v, m, r, mb):
+    """Native r x r block condense (node-row-parallel r-way merge) of canonical
+    float64 CSR.  Returns (rp_b int64 (mb+1,), ci_b int64, vals2d (nnzb, r*r)
+    float64), or None for other value types, r outside [2, 16], or without the
+    library."""
+    if np.dtype(v.dtype) != np.float64 or not 2 <= r <= 16:
+        return None
+    lib = get_lib()
+    if lib is None:
+        return None
+    rp = np.ascontiguousarray(rp, dtype=np.int64)
+    ci = np.ascontiguousarray(ci, dtype=np.int32)
+    v = np.ascontiguousarray(v, dtype=np.float64)
+    rpb = np.zeros(mb + 1, dtype=np.int64)
+    nnzb = lib.bsr_count(rp.ctypes.data, ci.ctypes.data, m, r, mb, rpb.ctypes.data)
+    if nnzb < 0:
+        return None
+    cib = np.empty(nnzb, dtype=np.int64)
+    vals2d = np.zeros((nnzb, r * r), dtype=np.float64)
+    rc = lib.bsr_fill(rp.ctypes.data, ci.ctypes.data, v.ctypes.data, m, r, mb,
+                      rpb.ctypes.data, cib.ctypes.data, vals2d.ctypes.data)
+    if rc != 0:
+        return None
+    return rpb, cib, vals2d

@@ -66,13 +66,14 @@ def build(src: str) -> str:
 
 
 def load_swell_lib():
-    """The swell kernel library (H1), built at first use."""
+    """The swell kernel library (``swell_spmm``), built at first use."""
     with _lock:
         lib = _libs.get(SWELL_SRC)
         if lib is None:
             lib = ctypes.CDLL(build(SWELL_SRC))
-            p, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.swell_spmv_f64.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, p]
-            lib.swell_spmv_f64.restype = ctypes.c_int
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            lib.swell_spmm.argtypes = [i32, i32, i32, p, p, p, p, p, p, p, p,
+                                       i64, i64, i64, i64, p]
+            lib.swell_spmm.restype = ctypes.c_int
             _libs[SWELL_SRC] = lib
         return lib

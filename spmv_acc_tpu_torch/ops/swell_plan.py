@@ -16,6 +16,10 @@ A global column shift ``delta`` (scored on a block sample) aligns the dominant
 block phase to a window start, and sparse (out-window, x-chunk) cells may spill
 to a COO tail under the reference's economic rule, so tails match too.
 
+The same decomposition runs on a BSR node pattern (``ops.bsr_block``): values
+of shape ``(nnzb, r*r)``, one r x r cell block per node nnz.  As in the
+reference, such a plan never spills to a tail.
+
 What the TPU did next (step packing, one-hot scatter tables, out-tile copies,
 the cost model) is replaced by :func:`build_swell_layout`: slabs grouped by
 row-block, each stored slot-major at a flat offset, ``[off + slot*128 + lane]``,
@@ -32,8 +36,7 @@ import numpy as np
 
 from ..config import LANES  # rows per row-block
 
-__all__ = ["SwellSlabs", "SwellLayout", "swell_slabs", "build_swell_layout",
-           "build_swell_plan"]
+__all__ = ["SwellSlabs", "SwellLayout", "swell_slabs", "build_swell_layout"]
 
 CW = 128             # columns per window
 CHUNK_W = 128        # windows per x-chunk (chunk = 16384 columns)
@@ -54,13 +57,23 @@ class SwellSlabs:
     lidx: np.ndarray           # (nkept,) uint8 — col + delta - 128*slab_w
     slot_in_slab: np.ndarray   # (nkept,) int64, < 2^k
     lane: np.ndarray           # (nkept,) int64 — row & 127
-    values: np.ndarray         # (nkept,) source dtype
+    values: np.ndarray         # (nkept,) or (nkept, r*r) BSR cells, source dtype
     slab_rb: np.ndarray        # (nslabs,) int64
     slab_w: np.ndarray         # (nslabs,) int64
     slab_k: np.ndarray         # (nslabs,) int64 — depth = 2^k
     tail_rows: np.ndarray      # (tnnz,) int32 — COO tail of spilled cells, row-sorted
     tail_ci: np.ndarray        # (tnnz,) int32
     tail_v: np.ndarray         # (tnnz,) source dtype
+
+    @property
+    def r(self) -> int:
+        """Micro-block size: 1 for scalar values, r for (nnzb, r*r) cells."""
+        return 1 if self.values.ndim == 1 else int(round(self.values.shape[1] ** 0.5))
+
+    @property
+    def padded_slots(self) -> int:
+        """Slots the layout will hold, sum of 128 * 2^k over slabs; each holds r*r values."""
+        return int((np.int64(LANES) << self.slab_k.astype(np.int64)).sum())
 
 
 @dataclasses.dataclass
@@ -70,14 +83,18 @@ class SwellLayout:
 
     Slab s of row-block rb (``rb_slab_ptr[rb] <= s < rb_slab_ptr[rb+1]``) holds
     ``2**slab_log2d[s]`` slots of 128 lanes; slot t of lane l sits at
-    ``slab_off[s] + t*128 + l`` in ``vals``/``lidx`` and multiplies
-    ``x[slab_col_base[s] + lidx[...]]`` into row ``rb*128 + l``.  Padded slots
-    are zeros."""
+    ``p = slab_off[s] + t*128 + l`` in ``lidx`` and multiplies its r x r cells
+    by rows ``c*r .. c*r+r-1`` of x, ``c = slab_col_base[s] + lidx[p]``, into
+    rows ``(rb*128 + l)*r + i``.  Cell (i, j) of slot p sits at
+    ``vals[((p - l)*r*r + i*r + j)*128 + l]``: each 128-slot row stores its
+    cells as r*r lane-contiguous planes (for r = 1, ``vals[p]``).  Rows and
+    columns count nodes (r rows or columns each); padded slots are zeros."""
 
     rows: int
     cols: int
-    nnz: int                   # total nnz, kernel + tail
-    vals: np.ndarray           # (slots,) float64
+    r: int
+    nnz: int                   # total nnz, kernel + tail (node nnz for r > 1)
+    vals: np.ndarray           # (slots*r*r,) source dtype
     lidx: np.ndarray           # (slots,) uint8
     slab_off: np.ndarray       # (nslabs,) int64
     slab_log2d: np.ndarray     # (nslabs,) int8
@@ -184,7 +201,7 @@ def _canonicalize(rp, ci, v, m):
     key_new[1:] = (rs[1:] != rs[:-1]) | (cs[1:] != cs[:-1])
     starts = np.flatnonzero(key_new)
     uid = np.cumsum(key_new) - 1
-    v2 = np.zeros(len(starts), dtype=np.float64)
+    v2 = np.zeros((len(starts),) + v.shape[1:], dtype=np.float64)
     np.add.at(v2, uid, vs.astype(np.float64))
     r2, c2 = rs[starts], cs[starts]
     rp2 = np.zeros(m + 1, dtype=np.int64)
@@ -312,13 +329,12 @@ def _numpy_analyze(ci, rows, rb, nnz, delta):
 
 
 def swell_slabs(row_ptr, col_idx, values, shape) -> SwellSlabs:
-    """The slab decomposition of a CSR matrix (host numpy).  Takes the native
-    analyze pass unless SPMV_TPU_NO_NATIVE is set or the library is missing."""
+    """The slab decomposition of a CSR matrix, or of a BSR node pattern with
+    (nnzb, r*r) values (host numpy).  Takes the native analyze pass unless
+    SPMV_TPU_NO_NATIVE is set or the library is missing."""
     rp = np.asarray(row_ptr, dtype=np.int64)
     ci = np.asarray(col_idx, dtype=np.int64)
     v = np.asarray(values)
-    if v.ndim != 1:
-        raise NotImplementedError("BSR micro-block swell plans (r > 1) are not ported yet")
     m, n = int(shape[0]), int(shape[1])
     rp, ci, v = _canonicalize(rp, ci, v, m)
     nnz = int(rp[-1])
@@ -342,7 +358,8 @@ def swell_slabs(row_ptr, col_idx, values, shape) -> SwellSlabs:
     delta = _choose_delta(rp, ci, rows, rb, m)
     nchunks = max(nchunks, -(-(n + delta) // (CW * CHUNK_W)))
 
-    spill = _spill_mask(rb, ci, delta, tile_rb, nchunks)
+    # the reference spills scalar plans only (swell_plan.py:294)
+    spill = _spill_mask(rb, ci, delta, tile_rb, nchunks) if v.ndim == 1 else None
     if spill is not None:
         tail = (rows[spill].astype(np.int32), ci[spill].astype(np.int32), v[spill])
         keep = ~spill
@@ -378,7 +395,10 @@ def swell_slabs(row_ptr, col_idx, values, shape) -> SwellSlabs:
 def build_swell_layout(sl: SwellSlabs) -> SwellLayout:
     """Lay the slabs out for the GPU kernel: grouped by row-block in a fixed
     order (row-block, window, deeper layer first), each slab slot-major at a flat
-    offset, zero-padded."""
+    offset, zero-padded, values in the source dtype."""
+    r = sl.r
+    if r > 1 and len(sl.tail_v):
+        raise ValueError("a BSR swell plan has no COO tail")
     mrb = max(1, -(-sl.rows // LANES))
     order = np.lexsort((-sl.slab_k, sl.slab_w, sl.slab_rb))
     nslabs = len(order)
@@ -391,22 +411,20 @@ def build_swell_layout(sl: SwellSlabs) -> SwellLayout:
         np.cumsum(size[:-1], out=off[1:])
     slots = int(size.sum())
     pos = off[new_id[sl.slab_of_nnz]] + sl.slot_in_slab * LANES + sl.lane
-    vals = np.zeros(slots, dtype=np.float64)
-    vals[pos] = sl.values
+    lane = pos % LANES
+    cell0 = (pos - lane) * (r * r) + lane  # cell q of the slot at cell0 + q*128
+    vals = np.zeros(slots * r * r, dtype=sl.values.dtype)
+    vals[cell0[:, None] + np.arange(r * r) * LANES] = sl.values.reshape(len(pos), r * r)
     lidx = np.zeros(slots, dtype=np.uint8)
     lidx[pos] = sl.lidx
     rb_slab_ptr = np.zeros(mrb + 1, dtype=np.int64)
     np.cumsum(np.bincount(sl.slab_rb, minlength=mrb), out=rb_slab_ptr[1:])
     kernel_nnz = int(len(sl.values))
     return SwellLayout(
-        rows=sl.rows, cols=sl.cols, nnz=sl.nnz, vals=vals, lidx=lidx, slab_off=off, slab_log2d=k.astype(np.int8),
+        rows=sl.rows, cols=sl.cols, r=r, nnz=sl.nnz, vals=vals, lidx=lidx,
+        slab_off=off, slab_log2d=k.astype(np.int8),
         slab_col_base=(sl.slab_w[order] * CW - sl.delta).astype(np.int32),
         rb_slab_ptr=rb_slab_ptr,
         tail_rows=sl.tail_rows, tail_ci=sl.tail_ci, tail_v=sl.tail_v,
         kernel_nnz=kernel_nnz, fill=kernel_nnz / slots if slots else 1.0,
     )
-
-
-def build_swell_plan(row_ptr, col_idx, values, shape) -> SwellLayout:
-    """Slab decomposition + GPU layout of a CSR matrix (host numpy)."""
-    return build_swell_layout(swell_slabs(row_ptr, col_idx, values, shape))

@@ -7,13 +7,15 @@ none in the reference).
   * ``spmv_default`` — gather, multiply and ``index_add_`` over the plan's row
     ids: the sanity strategy (analog of src/acc/hip/spmv_hip_acc_imp.cpp:15-35)
     and what ``spmv-cli --device-verify`` checks against.
+  * ``spmm_ell`` — multi-RHS SpMM on the padded ELL format: gather rows of X,
+    contract the width.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["axpby_finish", "spmv_default"]
+__all__ = ["axpby_finish", "spmv_default", "spmm_ell"]
 
 
 def axpby_finish(alpha, beta, ax: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -27,3 +29,10 @@ def spmv_default(alpha, beta, csr, x, y, plan):
     ax = torch.zeros(csr.rows, dtype=csr.values.dtype, device=csr.device)
     ax.index_add_(0, plan.row_ids[: csr.nnz], csr.values * x[csr.col_idx.long()])
     return axpby_finish(alpha, beta, ax, y)
+
+
+def spmm_ell(alpha, beta, ell, X, Y, num_rows):
+    """Multi-RHS SpMM on the padded format; the gather amortises over RHS columns."""
+    gathered = X[ell.col_idx.long()]  # (m_pad, width, k)
+    ax = torch.einsum("mw,mwk->mk", ell.values.to(X.dtype), gathered)[:num_rows]
+    return axpby_finish(alpha, beta, ax, Y)

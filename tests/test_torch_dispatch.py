@@ -12,7 +12,7 @@ from spmv_acc_tpu.cli.main import main as ref_cli_main
 from spmv_acc_tpu.formats import random_csr
 from spmv_acc_tpu.formats.generate import example_like, random_x_y
 from spmv_acc_tpu.ops.golden import host_spmv
-from spmv_acc_tpu_torch import dispatch
+from spmv_acc_tpu_torch import dispatch, spmm
 from spmv_acc_tpu_torch.cli.main import main as cli_main
 from spmv_acc_tpu_torch.formats.containers import CSR
 from spmv_acc_tpu_torch.io import write_bin2, write_csr_text, write_mtx
@@ -116,6 +116,29 @@ def test_below_fill_gate_raises_reference_tree_choice(monkeypatch):
         dispatch.spmv(csr, torch.zeros(csr.cols, dtype=torch.float64))
 
 
+def test_slot_cap_passes_swell_over_without_building(monkeypatch):
+    """Past SWELL_MAX_SLOTS the picker takes the reference's tree choice, an
+    explicit swell request raises ValueError, and no layout is ever built."""
+    ref = example_like("rajat03")
+    csr = _port(ref)
+    built = []
+    monkeypatch.setattr(swell, "build_swell_layout", built.append)
+    monkeypatch.setattr(swell, "SWELL_MAX_SLOTS", 1000)
+    expect = ref_dispatch.pick_strategy(ref_dispatch.get_plan(ref), ref)
+    assert dispatch.pick_strategy(dispatch.get_plan(csr), csr) == expect != "swell"
+    assert swell.swell_plan_within_cap(csr) is None
+    x = torch.zeros(csr.cols, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match=expect):
+        dispatch.spmv(csr, x)
+    with pytest.raises(ValueError, match="SWELL_MAX_SLOTS"):
+        dispatch.spmv(csr, x, strategy="swell")
+    with pytest.raises(ValueError, match="SWELL_MAX_SLOTS"):
+        dispatch.make_spmv_fn(csr, strategy="swell")
+    with pytest.raises(ValueError, match="SWELL_MAX_SLOTS"):
+        spmm(csr, torch.zeros(csr.cols, 2, dtype=torch.float64), strategy="swell")
+    assert built == []
+
+
 def test_make_spmv_fn_matches_spmv():
     ref = example_like("dw4096")
     rp, ci, v, (m, n) = ref.to_numpy()
@@ -124,7 +147,7 @@ def test_make_spmv_fn_matches_spmv():
     fn, chosen = dispatch.make_spmv_fn(csr, ALPHA, BETA)
     assert chosen == "swell"
     assert torch.equal(fn(x, y), dispatch.spmv(csr, x, y, ALPHA, BETA))
-    assert swell.swell_ax.launches == 0
+    assert sum(swell.LAUNCHES.values()) == 0
 
 
 @pytest.fixture
@@ -161,5 +184,4 @@ def test_cli_alpha_beta_and_device_verify(files, capsys):
 def test_cli_exit_codes(tmp_path, files, capsys):
     assert cli_main([str(tmp_path / "nope.csr"), "-f", "csr"]) == 2
     assert cli_main([files["csr"], "-f", "csr", "-s", "flat"]) == 2
-    assert cli_main([files["csr"], "-f", "csr", "--dtype", "float32"]) == 2
     assert "not ported yet" in capsys.readouterr().err

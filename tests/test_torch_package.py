@@ -1,5 +1,6 @@
 """Package-level checks of the port: it never imports JAX, its kernel is built for
-Hopper from the repo's CUDA source, and (on a card) H1 matches its plain version.
+Hopper from the repo's CUDA source, and (on a card) the swell kernel matches its
+plain version.
 
 The ``cuda`` tests need an NVIDIA GPU and skip without one; run them there with
 ``python -m pytest tests/test_torch_package.py -m cuda --noconftest`` (the
@@ -55,7 +56,7 @@ def test_nvcc_command_targets_hopper():
 def test_swell_kernel_source_exists():
     with open(os.path.join(PKG, "csrc", "swell_spmv.cu")) as f:
         src = f.read()
-    assert 'extern "C" int swell_spmv_f64(' in src
+    assert 'extern "C" int swell_spmm(' in src
     assert "cudaGetLastError" in src
     assert _build.SWELL_SRC == os.path.join(PKG, "csrc", "swell_spmv.cu")
     assert _build.BUILD_DIR == os.path.join(REPO, "build")
@@ -78,12 +79,40 @@ def test_h1_matches_plain_on_card(cuda_device, shape):
     csr = random_csr(m, n, nnz, seed=m + n).to(cuda_device)
     x = torch.from_numpy(random_x_y(n, m, seed=1)[0]).to(cuda_device)
     layout = swell.get_swell_plan(csr)
-    before = swell.swell_ax.launches
+    before = swell.LAUNCHES[("f64", 1, 1)]
     a = swell.swell_ax(layout, x)
     p = swell.swell_ax_plain(layout, x)
     torch.cuda.synchronize()
-    assert swell.swell_ax.launches == before + 1
+    assert swell.LAUNCHES[("f64", 1, 1)] == before + 1
     rp, ci, v, _ = csr.to_numpy()
     bound = np.zeros(m)
     np.add.at(bound, np.repeat(np.arange(m), np.diff(rp)), np.abs(v * x.cpu().numpy()[ci]))
     assert (np.abs(a.cpu().numpy() - p.cpu().numpy()) <= 1e-12 * bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("r,k", [(1, 1), (1, 3), (1, 8), (2, 3), (3, 5), (4, 1), (4, 8)])
+def test_kernel_variants_match_plain_on_card(cuda_device, dtype, r, k):
+    """Every (dtype, r, column group) the port launches, against the plain
+    version: float64 within 1e-12 (|A|·|X|); float32 within one float32 ulp of
+    the plain version plus that bound (both round an FP64 sum once)."""
+    from spmv_acc_tpu_torch.formats import fem_like_csr
+    from spmv_acc_tpu_torch.ops import swell
+
+    csr = fem_like_csr(3001, 3001, 90000, block=6, seed=5, dtype=dtype).to(cuda_device)
+    X = np.random.default_rng(2).standard_normal((3001, k)).astype(dtype)
+    layout = swell.get_swell_plan(csr, r=r)
+    dX = torch.from_numpy(X).to(cuda_device)
+    before = swell.LAUNCHES[("f64" if dtype == np.float64 else "f32", r, k)]
+    a = swell.swell_amx(layout, dX)
+    p = swell.swell_amx_plain(layout, dX)
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[("f64" if dtype == np.float64 else "f32", r, k)] == before + 1
+    rp, ci, v, _ = csr.to_numpy()
+    bound = np.zeros((3001, k))
+    np.add.at(bound, np.repeat(np.arange(3001), np.diff(rp)),
+              np.abs(v.astype(np.float64)[:, None] * X.astype(np.float64)[ci]))
+    a, p = a.cpu().numpy().astype(np.float64), p.cpu().numpy().astype(np.float64)
+    ulp = 0.0 if dtype == np.float64 else 2.0**-23
+    assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * bound).all()

@@ -12,6 +12,7 @@ from spmv_acc_tpu.formats.generate import example_like
 from spmv_acc_tpu.io.native import swell_analyze_native as ref_native_analyze
 from spmv_acc_tpu.ops.swell_plan import build_swell_plan as ref_build_swell_plan
 from spmv_acc_tpu_torch.dispatch import clear_caches
+from spmv_acc_tpu_torch.io import native as port_native
 from spmv_acc_tpu_torch.ops.swell_plan import build_swell_layout, swell_slabs
 
 MATRICES = {
@@ -33,6 +34,14 @@ MATRICES = {
 def _clear_port_caches():
     yield
     clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_built():
+    """Build the shared native library through the port's locked, atomic build
+    before the reference's loader reads it, so a concurrent in-place build in
+    another test worker cannot hand that loader a half-written file."""
+    port_native.get_lib()
 
 
 def _port_numpy_slabs(arrays, monkeypatch):
