@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Run from the repo root on a machine with a Hopper card, ``nvcc`` and a C++
-compiler.  It builds the swell kernel from ``spmv_acc_tpu_torch/csrc``, holds
-every variant the port launches (float64 and float32, BSR r = 1..4, k = 1, 3, 8
-columns) against its plain PyTorch version, and drives the port's main paths at
-full size: ``spmv(strategy="adaptive")`` on boneS10 (scalar plan, float64 and
-float32) and on TSOPF_RS_b2383 (the detector's r = 4 BSR plan), ``spmm`` and
-``make_swell_amx_run`` with k = 8 on both, and ``spmv-cli`` in float64 and
-float32.  It then times each kernel variant against its plain version.  Every
-phase prints one line; the first failure exits non-zero.  Without a CUDA device
-it fails at once.  The last three lines are the card, the kernels' JSON record
-and the device JSON record.
+compiler.  It builds the three kernels of ``spmv_acc_tpu_torch/csrc`` (swell,
+tile, ELL row sum; one nvcc each, all at once), holds every variant the port
+launches against its plain PyTorch version (swell at float64 and float32, BSR
+r = 1..4, k = 1, 3, 8 columns; the tile and ELL kernels at both dtypes on every
+smoke matrix), and drives the port's main paths at full size:
+``spmv(strategy="adaptive")`` on boneS10 (scalar plan, float64 and float32)
+and on TSOPF_RS_b2383 (the detector's r = 4 BSR plan), ``spmm`` and
+``make_swell_amx_run`` with k = 8 on both, ``spmv-cli`` in float64 and float32,
+``spmv(strategy="adaptive_plus")`` and ``spmv(strategy="vector_row")`` on
+boneS10 in both dtypes and adaptive_plus on TSOPF_RS_b2383, every strategy on
+af23560, and ``spmv-benchmark`` on af23560 (all engines) and boneS10.  It then
+times each kernel against its plain version.  Every phase prints lines tagged
+with its name; the first failure exits non-zero.  Without a CUDA device it
+fails at once.  The last three lines are the card, the kernels' JSON record and
+the device JSON record.
 """
 
 from __future__ import annotations
@@ -81,7 +86,7 @@ def row_bound(csr, X):
                      np.zeros((csr.rows, X.shape[1])))
 
 
-def compare(name, csr, X, a, p):
+def compare(name, csr, X, a, p, label="h1-vs-plain"):
     """Kernel output ``a`` against the plain version ``p`` and both against the
     float64 golden, in the gate of the matrix's dtype.  Returns max|a - p|."""
     import numpy as np
@@ -106,7 +111,7 @@ def compare(name, csr, X, a, p):
     ok = worst <= 0.0 and ra.ok and rpl.ok
     max_abs = float(gap.max()) if gap.size else 0.0
     bound = f"{ROW_TOL}*(|A||X|)" + (" + 2^-23|plain|" if f32 else "")
-    phase("h1-vs-plain", f"{name} {shape[0]}x{shape[1]} nnz={csr.nnz} k={k}: "
+    phase(label, f"{name} {shape[0]}x{shape[1]} nnz={csr.nnz} k={k}: "
           f"max|kernel-plain|={max_abs!r} within {bound}: {worst <= 0.0}; verify_y "
           f"max_error/failed kernel {ra.max_error!r}/{ra.failed_count} plain "
           f"{rpl.max_error!r}/{rpl.failed_count}")
@@ -116,12 +121,13 @@ def compare(name, csr, X, a, p):
 
 
 def ptxas_summary(log: str) -> str:
-    """One 'f64 r1 g1: 31 regs, 0 B spill' item per kernel instantiation."""
+    """One 'swell f64 r1 g1: 31 regs, 0 B spill' item per kernel instantiation."""
     out, cur, spill = [], None, "spill not reported"
     for ln in log.splitlines():
-        m = re.search(r"swell_kernelI([df])Li(\d)ELi(\d)E", ln)
+        m = re.search(r"(swell|tile|ell)_kernelI([df])((?:Li\d+E)*)E", ln)
         if m and "Compiling entry function" in ln:
-            cur = f"f{'64' if m.group(1) == 'd' else '32'} r{m.group(2)} g{m.group(3)}"
+            params = " ".join(re.findall(r"Li(\d+)E", m.group(3)))
+            cur = f"{m.group(1)} f{'64' if m.group(2) == 'd' else '32'} {params}".strip()
             spill = "spill not reported"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and cur:
@@ -153,6 +159,7 @@ def main() -> int:
     from spmv_acc_tpu_torch.ops import swell
     from spmv_acc_tpu_torch.ops.golden import host_spmm, host_spmv
     from spmv_acc_tpu_torch.utils import cuda_time_us, verify_y
+    from spmv_acc_tpu_torch.utils.stats import bytes_moved, chip_peak_gbs
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -169,23 +176,21 @@ def main() -> int:
                           capture_output=True, text=True)
     if nvcc.returncode != 0:
         fail("nvcc --version failed")
-    props = torch.cuda.get_device_properties(0)
-    clock_khz = getattr(props, "memory_clock_rate", 0)
-    bus_bits = getattr(props, "memory_bus_width", 0)
-    peak_gbs = 2 * clock_khz * 1e3 * bus_bits / 8 / 1e9 if clock_khz and bus_bits else None
+    peak_gbs = chip_peak_gbs()
     phase("env", f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
           f"{torch.version.cuda} device {kind} (count {torch.cuda.device_count()}); "
           f"nvidia-smi: {card}; nvcc: {nvcc.stdout.strip().splitlines()[-1]}; "
           f"peak HBM from the card's clock x bus width: {peak_gbs!r} GB/s")
 
-    # 2. build the swell kernel from the checkout's sources (and the host analyze library)
+    # 2. build the kernels from the checkout's sources, one nvcc each, all at
+    # once (and the host analyze library)
     t0 = time.perf_counter()
-    so = _build.build(_build.SWELL_SRC)
-    _build.load_swell_lib()
-    secs, log = _build.build_log.get(_build.SWELL_SRC, (0.0, "(already built)"))
-    phase("build", f"swell kernel {os.path.relpath(so)} in {secs:.2f}s (total "
-          f"{time.perf_counter() - t0:.2f}s); ptxas: {ptxas_summary(log)}; "
-          f"native analyze library: {native_available()}")
+    for src, so in zip(_build.SOURCES, _build.build_all()):
+        _build.load_lib(src)
+        secs, log = _build.build_log.get(src, (0.0, "(already built)"))
+        phase("build", f"{os.path.relpath(so)} in {secs:.2f}s; ptxas: {ptxas_summary(log)}")
+    phase("build", f"all kernels in {time.perf_counter() - t0:.2f}s; native analyze "
+          f"library: {native_available()}")
 
     # 3. every kernel variant against its plain version on the card
     for name, make in smoke_matrices(gen).items():
@@ -213,6 +218,28 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(f"{name} {np.dtype(dtype).name} r={r}", csr, X, a, p)
     phase("h1-vs-plain", f"kernel launches so far by (dtype, r, k): {dict(swell.LAUNCHES)}")
+
+    # 3b. the tile and ELL row-sum kernels against their plain versions
+    from spmv_acc_tpu_torch.formats.convert import csr_to_ell
+    from spmv_acc_tpu_torch.ops import adaptive_plus as ap
+    from spmv_acc_tpu_torch.ops import vector_row as vr
+
+    for name, make in smoke_matrices(gen).items():
+        for dtype in (np.float64, np.float32):
+            csr = make().astype(tdt[dtype]).to(dev)
+            m, n = csr.shape
+            x, _ = gen.random_x_y(n, m, seed=76, dtype=dtype)
+            dx = torch.from_numpy(x).to(dev)
+            dp = ap.get_tile_plan(csr)
+            a, p = ap.tile_spmv(dp, dx), ap.tile_spmv_plain(dp, dx)
+            torch.cuda.synchronize()
+            compare(f"tile {name} {np.dtype(dtype).name}", csr, x, a, p, "zoo-vs-plain")
+            ell = csr_to_ell(csr)
+            a, p = vr.ell_rowsum(ell, dx)[:m], vr.ell_rowsum_plain(ell, dx)[:m]
+            torch.cuda.synchronize()
+            compare(f"ell {name} {np.dtype(dtype).name} vs={vr.vector_size(ell.width)}", csr, x,
+                    a, p, "zoo-vs-plain")
+    phase("zoo-vs-plain", f"launches so far: tile {dict(ap.LAUNCHES)}, ELL {dict(vr.LAUNCHES)}")
     records = {}
 
     # 4. the main path at full size: boneS10 through spmv(strategy="adaptive")
@@ -332,6 +359,98 @@ def main() -> int:
         fail("the float32 main path is wrong")
     records["swell_spmv_f32"] = {"launches": launches}
 
+    # 7b. adaptive_plus and vector_row at full size: boneS10 in both dtypes,
+    # TSOPF_RS_b2383 (buckets of depth up to 128) through adaptive_plus
+    def zoo_run(label, host, dcsr, strategy, x_np, y_np, dtype, mod, key):
+        rp_, ci_, v_, (mm, nn) = host.to_numpy()
+        h = port.Handle()
+        mod.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = port.spmv(dcsr, torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev),
+                        alpha=1.0, beta=1.0, strategy=strategy, handle=h)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = sum(c for k_, c in mod.LAUNCHES.items() if key(k_))
+        rep = verify_y(out, host_spmv(1.0, 1.0, rp_, ci_, v_.astype(dtype), x_np, y_np),
+                       dtype=dtype)
+        phase("zoo-main-path", f"{label} {mm}x{nn} nnz={host.nnz} {np.dtype(dtype).name}: "
+              f"spmv(strategy={strategy!r}) launches={dict(mod.LAUNCHES)} first call "
+              f"{secs:.2f}s (analyze {h.analyze_time_us:.0f}us, layout and kernel "
+              f"{h.kernel_time_us:.0f}us) max_error {rep.max_error!r} verify {rep}")
+        if (launches < 1 or h.strategy_used != strategy or tuple(out.shape) != (mm,)
+                or not torch.isfinite(out).all() or not rep.ok):
+            fail(f"{label} {strategy} {np.dtype(dtype).name}: no kernel launch or a wrong result")
+        return launches
+
+    for dtype, dcsr, xs in ((np.float64, bone_dev, (x, y)), (np.float32, bone32, (x32, y32))):
+        nm = np.dtype(dtype).name
+        dk = "f64" if dtype == np.float64 else "f32"
+        records[f"tile_spmv_{dk}"] = {"launches": zoo_run(
+            "boneS10", bone, dcsr, "adaptive_plus", *xs, dtype, ap, lambda k_, d=dk: k_ == d)}
+        dp = ap.get_tile_plan(dcsr)
+        phase("zoo-main-path", f"boneS10 {nm} tile layout: {dp.blk_depth.numel()} blocks, "
+              f"{dp.slots} slots, fill {dp.fill_efficiency!r}, depths "
+              f"{sorted(set(dp.blk_depth.tolist()))}")
+        records[f"ell_rowsum_{dk}"] = {"launches": zoo_run(
+            "boneS10", bone, dcsr, "vector_row", *xs, dtype, vr, lambda k_, d=dk: k_[0] == d)}
+    bone_ell = port.dispatch._get_ell(bone_dev, port.DEFAULT_TUNE)
+    phase("zoo-main-path", f"boneS10 ELL: {bone_ell.padded_rows} x {bone_ell.width} = "
+          f"{bone_ell.padded_rows * bone_ell.width} cells (budget "
+          f"{port.dispatch._ELL_MAX_CELLS}), vs={vr.vector_size(bone_ell.width)}")
+    zoo_run("TSOPF_RS_b2383", tsopf, tsopf_dev, "adaptive_plus", tx, ty, np.float64, ap,
+            lambda k_: k_ == "f64")
+    tdp = ap.get_tile_plan(tsopf_dev)
+    depths = sorted(set(tdp.blk_depth.tolist()))
+    phase("zoo-main-path", f"TSOPF_RS_b2383 tile layout: {tdp.blk_depth.numel()} blocks in "
+          f"{tdp.num_row_blocks} row blocks, {tdp.slots} slots, depths {depths}")
+    if max(depths) != 128:
+        fail("TSOPF_RS_b2383 has no block of depth 128")
+
+    # 7c. every strategy on af23560 at full size
+    af_dev = af.to(dev)
+    ax64, ay64 = gen.random_x_y(an, am, seed=42)
+    agold = host_spmv(1.0, 1.0, *af.to_numpy()[:3], ax64, ay64)
+    for strategy in sorted(port.STRATEGIES):
+        h = port.Handle()
+        out = port.spmv(af_dev, torch.from_numpy(ax64).to(dev), torch.from_numpy(ay64).to(dev),
+                        alpha=1.0, beta=1.0, strategy=strategy, handle=h)
+        torch.cuda.synchronize()
+        rep = verify_y(out, agold)
+        phase("strategies", f"af23560 {strategy} (ran {h.strategy_used}): max_error "
+              f"{rep.max_error!r} verify {rep}")
+        if not rep.ok or not torch.isfinite(out).all():
+            fail(f"strategy {strategy} is wrong on af23560")
+
+    # 7d. spmv-benchmark from its main: af23560 with every engine, boneS10 with four
+    import contextlib
+    import io
+
+    from spmv_acc_tpu_torch.cli.benchmark import ENGINES
+    from spmv_acc_tpu_torch.cli.benchmark import main as bench_main
+
+    bone_engines = ["spmv-acc-swell", "spmv-acc-adaptive-plus", "spmv-acc-vector-row",
+                    "torch-sparse-csr"]
+    with tempfile.TemporaryDirectory() as td:
+        for name, host, engines, extra in (
+                ("af23560", af, [e for e, _ in ENGINES], []),
+                ("boneS10", bone, [e for e, _ in ENGINES if e in bone_engines],
+                 ["--engines", ",".join(bone_engines)])):
+            path = os.path.join(td, f"{name}.bin2")
+            write_bin2(path, *host.to_numpy())
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = bench_main([path, "-f", "bin2", *extra])
+            rows = [ln.split(",") for ln in buf.getvalue().splitlines()
+                    if ln.startswith(f"PERFORMANCE,{name}.bin2,")]
+            for r in rows:
+                phase("benchmark", ",".join(r))
+            phase("benchmark", f"{name}: spmv-benchmark returned {rc} in "
+                  f"{time.perf_counter() - t0:.1f}s with {len(rows)} rows; card: {card}")
+            if (rc != 0 or [r[2] for r in rows] != engines
+                    or any(r[-2] != "0" for r in rows)):
+                fail(f"spmv-benchmark on {name}: rc {rc}, rows {[r[2] for r in rows]}")
+
     # 8. times: each kernel against its plain version at the main paths' shapes,
     # per call (reference protocol, in turns plain, kernel, kernel, plain) and
     # per launch in a loop of 20
@@ -377,7 +496,6 @@ def main() -> int:
     bx = gen.random_x_y(n, m, seed=42)[0]
     t_bone = timed("f64 r=1 k=1", "boneS10", bone_dev, swell.get_swell_plan(bone_dev), bx,
                    "swell_spmv_f64", ref_bytes(bone))
-    af_dev = af.to(dev)
     timed("f64 r=1 k=1", "af23560", af_dev, swell.get_swell_plan(af_dev),
           gen.random_x_y(an, am, seed=42)[0], nbytes=ref_bytes(af))
     timed("f32 r=1 k=1", "boneS10", bone32, swell.get_swell_plan(bone32), x32, "swell_spmv_f32")
@@ -399,6 +517,47 @@ def main() -> int:
               f"make_swell_run (k=1) {it_mv!r} us, 8 x SpMV {8 * it_mv!r} us; SpMM kernel "
               f"k={K} {t8!r} us per launch against 8 x the SpMV kernel {8 * t1!r} us")
 
+    # 8b. the tile and ELL kernels against their plain versions on boneS10
+    def timed_pair(name, label, kern, plain, csr, x_np, record=None, nbytes=None):
+        a, p = kern(), plain()
+        torch.cuda.synchronize()
+        m_ = csr.rows
+        max_abs = compare(f"{name} ({label})", csr, x_np, a[:m_], p[:m_], "times")
+        t_p1, t_k1, t_k2, t_p2 = (cuda_time_us(plain), cuda_time_us(kern),
+                                  cuda_time_us(kern), cuda_time_us(plain))
+        l_k, l_p = loop_us(kern), loop_us(plain, 5)
+        us_k, us_p = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+        roof = ""
+        if nbytes:
+            gbs = nbytes / (l_k * 1e-6) / 1e9
+            roof = (f"; by the loop time {gbs!r} GB/s under the reference model "
+                    f"T(2m+nnz)+4(m+1+nnz) = {nbytes} B, roofline share {gbs / peak_gbs!r} of "
+                    f"{peak_gbs!r} GB/s")
+        phase("times", f"{name} {label}: kernel {t_k1!r} / {t_k2!r} us, plain {t_p1!r} / "
+              f"{t_p2!r} us per call (median of 3 after 10 warmups, CUDA events); loop of 20: "
+              f"kernel {l_k!r} us, plain {l_p!r} us per launch{roof}; card: {card}")
+        if record:
+            records[record].update(max_abs_err=max_abs, ms=us_k / 1e3, plain_ms=us_p / 1e3)
+        return l_k
+
+    for dtype, dcsr, xb in ((np.float64, bone_dev, bx), (np.float32, bone32, x32)):
+        dk = "f64" if dtype == np.float64 else "f32"
+        dxb = torch.from_numpy(xb).to(dev)
+        dp = ap.get_tile_plan(dcsr)
+        nb = bytes_moved(bone.rows, bone.nnz, np.dtype(dtype).itemsize)
+        timed_pair("boneS10", f"tile_spmv {dk}", lambda: ap.tile_spmv(dp, dxb),
+                   lambda: ap.tile_spmv_plain(dp, dxb), dcsr, xb, f"tile_spmv_{dk}", nb)
+        ell = port.dispatch._get_ell(dcsr, port.DEFAULT_TUNE)
+        timed_pair("boneS10", f"ell_rowsum {dk} vs={vr.vector_size(ell.width)}",
+                   lambda: vr.ell_rowsum(ell, dxb), lambda: vr.ell_rowsum_plain(ell, dxb),
+                   dcsr, xb, f"ell_rowsum_{dk}", nb)
+    dtx = torch.from_numpy(tx).to(dev)
+    t_tile = timed_pair("TSOPF_RS_b2383", "tile_spmv f64", lambda: ap.tile_spmv(tdp, dtx),
+                        lambda: ap.tile_spmv_plain(tdp, dtx), tsopf_dev, tx,
+                        nbytes=ref_bytes(tsopf))
+    phase("times", f"TSOPF_RS_b2383 tile kernel {t_tile!r} us against the swell r=4 kernel "
+          f"{t_on!r} us and r=1 {t_off!r} us per launch (loops of 20)")
+
     # 9. records
     kernels = []
     for name, replaces in (("swell_spmv_f64", "spmv_acc_tpu/ops/swell.py:455"),
@@ -410,6 +569,17 @@ def main() -> int:
             fail(f"{name} was not timed")
         kernels.append({"name": name, "route": "cuda",
                         "source": "spmv_acc_tpu_torch/csrc/swell_spmv.cu",
+                        "replaces": replaces, **rec})
+    for name, source, replaces in (
+            ("tile_spmv_f64", "tile_spmv.cu", "spmv_acc_tpu/ops/adaptive_plus.py:113"),
+            ("tile_spmv_f32", "tile_spmv.cu", "spmv_acc_tpu/ops/adaptive_plus.py:88"),
+            ("ell_rowsum_f64", "ell_rowsum.cu", "spmv_acc_tpu/ops/vector_row.py:83"),
+            ("ell_rowsum_f32", "ell_rowsum.cu", "spmv_acc_tpu/ops/vector_row.py:36")):
+        rec = records[name]
+        if not {"ms", "plain_ms", "max_abs_err"} <= set(rec) or rec["launches"] < 1:
+            fail(f"{name} was not launched on the main path or not timed")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"spmv_acc_tpu_torch/csrc/{source}",
                         "replaces": replaces, **rec})
     phase("done", f"{time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -3,10 +3,13 @@
 The JAX package (``spmv_acc_tpu``) is the reference; this package keeps its
 module paths and public names.  Ported so far: the CSR, BSR and ELL containers,
 matrix ingest (csr/mtx/bin2) and generators, golden verification, the analyze
-pass, the ``swell`` strategy (float64 and float32, BSR r x r micro-blocks, k
-right-hand sides), whose SpMV and SpMM run on an NVIDIA Hopper card in a
-hand-written CUDA kernel (``csrc/swell_spmv.cu``) and on the CPU in its plain
-PyTorch version, and the plain-PyTorch ``spmm`` strategies and BSR products.
+pass, every SpMV strategy of ``STRATEGIES`` behind ``spmv`` and the adaptive
+picker, the plain-PyTorch ``spmm`` strategies and BSR products, and the
+``spmv-cli`` and ``spmv-benchmark`` entry points.  Three strategies run
+hand-written CUDA kernels on an NVIDIA Hopper card and their plain PyTorch
+versions on the CPU: ``swell`` (float64 and float32, BSR r x r micro-blocks, k
+right-hand sides; ``csrc/swell_spmv.cu``), ``adaptive_plus``
+(``csrc/tile_spmv.cu``) and ``vector_row`` (``csrc/ell_rowsum.cu``).
 
 Public API::
 
@@ -18,7 +21,6 @@ Public API::
 
 from .config import DEFAULT_TUNE, TuneConfig
 from .dispatch import (
-    PORTED_STRATEGIES,
     STRATEGIES,
     Handle,
     make_spmv_fn,
@@ -52,7 +54,6 @@ __all__ = [
     "DEFAULT_TUNE",
     "TuneConfig",
     "Handle",
-    "PORTED_STRATEGIES",
     "STRATEGIES",
     "make_spmv_fn",
     "pick_strategy",

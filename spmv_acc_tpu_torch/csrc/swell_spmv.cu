@@ -7,10 +7,12 @@
 //   K-a _make_f64_kernel    (one grid step of a depth-D bucket, two-f32 Dekker/2Sum)
 //   K-b _make_fused_kernel  (K-a with G steps per grid iteration)
 //   K-c _make_fused3_kernel (K-b as a 3-stage software pipeline)
-//   K-d _plane_split_kernel (x, or the r*k x slices, split into bf16 planes)
-//   K-e _make_native_steps_kernel (the CPU executor of K-a's per-step products)
+//   K-e _make_native_steps_kernel (the CPU executor of K-a's per-step products;
+//       on the card, this kernel computes them)
 //   K-f _make_f32_kernel    (K-a in float32)
-// All six compute the same function: for every 128-node-row block, the sum over
+// K-d _plane_split_kernel (x split into bf16 planes) has no counterpart here:
+// this kernel reads X in its own dtype.
+// All five compute the same function: for every 128-node-row block, the sum over
 // its slabs of (r x r cell block) @ (r rows of X).  On the TPU that needed x
 // tables, one-hot matmuls and f64 emulated as two f32; here each thread reads X
 // directly and accumulates in native FP64.

@@ -1,11 +1,14 @@
 """Public SpMV API + runtime strategy picker.
 
 Counterpart of the JAX package's ``spmv_acc_tpu/dispatch.py``.  ``spmv(...,
-strategy=...)`` runs one strategy; ``strategy='adaptive'`` picks one.  The port
-has ``swell`` (the Hopper swell kernel, float64 and float32, BSR micro-blocks
-included), ``default`` (plain PyTorch) and ``adaptive`` so far; every other
-name of the reference's zoo raises ``NotImplementedError`` naming itself until
-it is ported — nothing is substituted silently.
+strategy=...)`` runs one strategy of ``STRATEGIES``; ``strategy='adaptive'``
+picks one.  Three strategies run hand-written Hopper kernels on a CUDA tensor:
+``swell`` (``ops/swell.py``), ``adaptive_plus`` (``ops/adaptive_plus.py``) and
+``vector_row`` (``ops/vector_row.py``); the rest are plain PyTorch, as they were
+plain XLA in the JAX package (``ops/xla.py``, ``ops/flat.py``, ``ops/zoo.py``).
+``ell`` and ``vector_row`` run ``flat`` instead when the dense ELL slab would
+pass ``_ELL_MAX_CELLS`` cells: a size rule decided before anything is
+allocated, as in the reference.  Nothing catches a kernel's error.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from .plan import Plan, get_plan
 from .utils.timer import sync
 
 __all__ = ["Handle", "spmv", "pick_strategy", "make_spmv_fn", "sparse_csr_spmv",
-           "STRATEGIES", "PORTED_STRATEGIES", "SWELL_MIN_FILL"]
+           "STRATEGIES", "SWELL_MIN_FILL", "ell_cells", "clear_caches"]
 
 
 @dataclasses.dataclass
@@ -48,15 +51,19 @@ class Handle:
 SWELL_MIN_FILL = 0.001
 
 # The reference's eleven-strategy zoo (src/acc/CMakeLists.txt:2-14) plus the JAX
-# package's swell/ell/acsr.  Only PORTED_STRATEGIES run here so far.
+# package's swell/ell/acsr.
 _ZOO = {"thread_row", "wf_row", "block_row", "light", "line_enhance", "acsr"}
 STRATEGIES = {
     "adaptive", "default", "line", "ell", "flat", "vector_row",
     "adaptive_plus", "swell",
 } | _ZOO
-PORTED_STRATEGIES = {"adaptive", "default", "swell"}
 
-# Transposes for trans='T' and ELL slabs for spmm, keyed like the plan cache:
+# Cells of the dense ELL slab past which ell and vector_row run flat instead
+# (the JAX package's dispatch.py:46-51: one 4120-long row in a 200k-row matrix
+# made a 3.07 GB slab there).
+_ELL_MAX_CELLS = 1 << 27
+
+# Transposes for trans='T' and ELL slabs for ell, vector_row and spmm, keyed like the plan cache:
 # the entry holds the keyed tensors, so a recycled id() never serves another
 # matrix's transpose.
 _T_CACHE: dict = {}
@@ -88,13 +95,25 @@ def _get_transposed(csr: CSR) -> CSR:
     return t
 
 
+def ell_cells(csr: CSR, tune: TuneConfig) -> int:
+    """Padded cells the dense ELL of ``csr`` would allocate: rows x the longest
+    row rounded up to ``tune.ell_width_multiple``."""
+    wm = tune.ell_width_multiple
+    maxlen = get_plan(csr, tune).stats.max_nnz_per_row
+    return csr.rows * max(wm, -(-maxlen // wm) * wm)
+
+
 def clear_caches() -> None:
-    """Drop every cached plan, layout, transpose and ELL slab."""
+    """Drop every cached plan, layout, pack, transpose and ELL slab."""
+    from .ops.adaptive_plus import clear_tile_cache
     from .ops.swell import clear_swell_cache
+    from .ops.zoo import clear_pack_cache
     from .plan import clear_plan_cache
 
     clear_plan_cache()
     clear_swell_cache()
+    clear_tile_cache()
+    clear_pack_cache()
     _T_CACHE.clear()
     _ELL_CACHE.clear()
 
@@ -135,14 +154,36 @@ def pick_strategy(plan: Plan, csr: Optional[CSR] = None) -> str:
 
 
 def _run(strategy: str, alpha, beta, csr: CSR, x, y, plan: Plan):
+    if csr.cols == 0:  # A@x = 0; padded layouts would gather column 0 of an empty x
+        return _xla.axpby_finish(alpha, beta, y.new_zeros(csr.rows, dtype=csr.dtype), y)
+    if strategy in ("ell", "vector_row") and ell_cells(csr, plan.tune) > _ELL_MAX_CELLS:
+        strategy = "flat"
     if strategy == "default":
         return _xla.spmv_default(alpha, beta, csr, x, y, plan)
+    if strategy == "line":
+        return _xla.spmv_line(alpha, beta, csr, x, y, plan)
+    if strategy == "ell":
+        return _xla.spmv_ell(alpha, beta, _get_ell(csr, plan.tune), x, y, csr.rows)
+    if strategy == "flat":
+        from .ops.flat import spmv_flat
+
+        return spmv_flat(alpha, beta, csr, x, y, plan)
+    if strategy == "vector_row":
+        from .ops.vector_row import spmv_vector_row
+
+        return spmv_vector_row(alpha, beta, _get_ell(csr, plan.tune), x, y, csr.rows)
+    if strategy == "adaptive_plus":
+        from .ops.adaptive_plus import spmv_adaptive_plus
+
+        return spmv_adaptive_plus(alpha, beta, csr, x, y, plan)
     if strategy == "swell":
         from .ops.swell import spmv_swell
 
         return spmv_swell(alpha, beta, csr, x, y, plan)
-    if strategy in STRATEGIES:
-        raise NotImplementedError(strategy)
+    if strategy in _ZOO:
+        from .ops import zoo
+
+        return getattr(zoo, f"spmv_{strategy}")(alpha, beta, csr, x, y, plan)
     raise ValueError(f"unknown strategy {strategy!r} (one of {sorted(STRATEGIES)})")
 
 
@@ -193,16 +234,15 @@ def make_spmv_fn(
     strategy: str = "adaptive",
     tune: TuneConfig = DEFAULT_TUNE,
 ):
-    """``step(x, y) -> y_out`` with the plan built and the strategy chosen up
-    front, so a loop (CG, the CLI's timed run) pays no analysis per call.
+    """``step(x, y) -> y_out`` with the plan, the strategy's layout or pack and
+    the strategy chosen up front, so a loop (CG, the CLIs' timed runs) pays no
+    analysis per call.
 
     Returns (step, chosen_strategy_name)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (one of {sorted(STRATEGIES)})")
     plan = get_plan(csr, tune)
     chosen = pick_strategy(plan, csr) if strategy == "adaptive" else strategy
-    if chosen not in PORTED_STRATEGIES:
-        raise NotImplementedError(chosen)
     if chosen == "swell":
         from .ops.swell import get_swell_plan, swell_ax
 
@@ -214,6 +254,9 @@ def make_spmv_fn(
         def step(x, y):
             return _run(chosen, alpha, beta, csr, x, y, plan)
 
+        # build the strategy's layout or pack now, not in the caller's first timed call
+        step(torch.zeros(csr.cols, dtype=csr.dtype, device=csr.device),
+             torch.zeros(csr.rows, dtype=csr.dtype, device=csr.device))
     return step, chosen
 
 

@@ -2,7 +2,8 @@
 the same shared ``native/libspmv_native.so`` the JAX package loads.
 
 This is host code, not a device kernel: the swell analyze pass
-(csr_adaptive_plus_analyze.cpp analog) in one OpenMP pass over row-blocks, and
+(csr_adaptive_plus_analyze.cpp analog) in one OpenMP pass over row-blocks, the
+tile analyze of ``adaptive_plus`` (one scan plus a sort of the block keys), and
 the r x r block condense of the BSR plans.  The library is built with
 ``make -C native`` at first use; without a compiler the callers take their
 numpy paths, which compute the same results.
@@ -17,7 +18,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["get_lib", "swell_analyze_native", "bsr_condense_native", "available"]
+__all__ = ["get_lib", "tile_analyze_native", "swell_analyze_native", "bsr_condense_native",
+           "available"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_ROOT, "native")
@@ -102,6 +104,8 @@ def get_lib():
             if lib is None:
                 return None
         p = ctypes.c_void_p
+        lib.tile_analyze.restype = ctypes.c_int64
+        lib.tile_analyze.argtypes = [p, p, ctypes.c_int32, ctypes.c_int32, p, p, p, p]
         lib.swell_analyze.restype = ctypes.c_int64
         lib.swell_analyze.argtypes = [p, p, ctypes.c_int64, ctypes.c_int32, p, p, p, p,
                                       ctypes.c_int64, p, p, p, p, ctypes.c_int32]
@@ -116,6 +120,29 @@ def get_lib():
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def tile_analyze_native(row_ptr, col_idx, m, nct):
+    """Native tile analyze (``native/spmv_native.cpp::tile_analyze``): for the
+    (128-row x 128-column)-window decomposition, every element's block key and
+    slot, and each distinct block's depth.
+
+    Returns (elem_block i64, elem_slot i32, block_keys i64 sorted, block_depth
+    i32), or None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    row_ptr = np.ascontiguousarray(row_ptr, dtype=np.int32)
+    col_idx = np.ascontiguousarray(col_idx, dtype=np.int32)
+    nnz = int(row_ptr[-1])
+    elem_block = np.empty(nnz, dtype=np.int64)
+    elem_slot = np.empty(nnz, dtype=np.int32)
+    block_keys = np.empty(max(nnz, 1), dtype=np.int64)
+    block_depth = np.empty(max(nnz, 1), dtype=np.int32)
+    nb = lib.tile_analyze(row_ptr.ctypes.data, col_idx.ctypes.data, m, nct,
+                          elem_block.ctypes.data, elem_slot.ctypes.data,
+                          block_keys.ctypes.data, block_depth.ctypes.data)
+    return elem_block, elem_slot, block_keys[:nb], block_depth[:nb]
 
 
 def swell_analyze_native(row_ptr, col_idx, m, delta):

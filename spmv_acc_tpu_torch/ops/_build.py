@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` file exposes plain C functions; it is compiled by ``nvcc``
-for Hopper (``sm_90a``) into a shared library under the repo's gitignored
-``build/`` at first use, and loaded with ``ctypes``.  The library's name carries
-a hash of the source and the command, so an edited source is rebuilt and a
-stale build is never loaded.  Nothing here runs at import time.
+Each ``csrc/*.cu`` file exposes one plain C function; it is compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library under the repo's
+gitignored ``build/`` at first use, and loaded with ``ctypes``.  The library's
+name carries a hash of the source and the command, so an edited source is
+rebuilt and a stale build is never loaded.  ``build_all`` starts one ``nvcc``
+per source at once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,13 +17,26 @@ import subprocess
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "SWELL_SRC", "nvcc_path", "nvcc_command", "build", "load_swell_lib"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "SWELL_SRC", "TILE_SRC", "ELL_SRC", "SOURCES", "nvcc_path",
+           "nvcc_command", "build", "build_all", "load_lib"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 SWELL_SRC = os.path.join(CSRC_DIR, "swell_spmv.cu")
+TILE_SRC = os.path.join(CSRC_DIR, "tile_spmv.cu")
+ELL_SRC = os.path.join(CSRC_DIR, "ell_rowsum.cu")
+
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# source -> (C entry, its argument types); every entry returns a CUDA error code
+SOURCES = {
+    SWELL_SRC: ("swell_spmm", [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I64, _I64, _I64, _I64, _P]),
+    TILE_SRC: ("tile_spmv", [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
+    ELL_SRC: ("ell_rowsum", [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _P]),
+}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -55,7 +69,7 @@ def build(src: str) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
+    tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
     t0 = time.perf_counter()
     r = subprocess.run(nvcc_command(src, tmp), capture_output=True, text=True)
     if r.returncode != 0:
@@ -65,15 +79,23 @@ def build(src: str) -> str:
     return out
 
 
-def load_swell_lib():
-    """The swell kernel library (``swell_spmm``), built at first use."""
+def build_all(srcs=tuple(SOURCES)) -> list:
+    """``build`` every source in ``srcs``, one ``nvcc`` each, all started
+    together; returns their ``.so`` paths in order."""
+    with ThreadPoolExecutor(max_workers=max(1, len(srcs))) as pool:
+        return list(pool.map(build, srcs))
+
+
+def load_lib(src: str):
+    """The kernel library of one ``csrc`` source, built at first use, with its
+    C entry's argument types set (``SOURCES``)."""
     with _lock:
-        lib = _libs.get(SWELL_SRC)
+        lib = _libs.get(src)
         if lib is None:
-            lib = ctypes.CDLL(build(SWELL_SRC))
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.swell_spmm.argtypes = [i32, i32, i32, p, p, p, p, p, p, p, p,
-                                       i64, i64, i64, i64, p]
-            lib.swell_spmm.restype = ctypes.c_int
-            _libs[SWELL_SRC] = lib
+            entry, argtypes = SOURCES[src]
+            lib = ctypes.CDLL(build(src))
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[src] = lib
         return lib

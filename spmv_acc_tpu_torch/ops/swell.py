@@ -208,9 +208,9 @@ def _check(layout: DeviceSwellLayout, x, ndim: int) -> None:
 
 def _launch(layout: DeviceSwellLayout, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for a contiguous (n, k) CUDA X: one kernel launch."""
-    from ._build import load_swell_lib
+    from ._build import SWELL_SRC, load_lib
 
-    lib = load_swell_lib()
+    lib = load_lib(SWELL_SRC)
     k = int(X.shape[1])
     Y = torch.empty(layout.out_rows, k, dtype=layout.dtype, device=X.device)
     ptr = ctypes.c_void_p

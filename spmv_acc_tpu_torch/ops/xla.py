@@ -7,6 +7,10 @@ none in the reference).
   * ``spmv_default`` — gather, multiply and ``index_add_`` over the plan's row
     ids: the sanity strategy (analog of src/acc/hip/spmv_hip_acc_imp.cpp:15-35)
     and what ``spmv-cli --device-verify`` checks against.
+  * ``spmv_line`` — stage all products, prefix-scan, take row-boundary
+    differences: the CSR-Stream/"line" idea (hip-line/line_imp_one_pass.inl:52-86).
+  * ``spmv_ell`` — row-padded dense reduction over the ELL slab (vector-row
+    analog, hip-vector-row/vector_row_native.hpp:13-58).
   * ``spmm_ell`` — multi-RHS SpMM on the padded ELL format: gather rows of X,
     contract the width.
 """
@@ -15,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["axpby_finish", "spmv_default", "spmm_ell"]
+__all__ = ["axpby_finish", "spmv_default", "spmv_line", "spmv_ell", "spmm_ell"]
 
 
 def axpby_finish(alpha, beta, ax: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -28,6 +32,22 @@ def spmv_default(alpha, beta, csr, x, y, plan):
     """Scatter-add over (value, col, row_id) triplets."""
     ax = torch.zeros(csr.rows, dtype=csr.values.dtype, device=csr.device)
     ax.index_add_(0, plan.row_ids[: csr.nnz], csr.values * x[csr.col_idx.long()])
+    return axpby_finish(alpha, beta, ax, y)
+
+
+def spmv_line(alpha, beta, csr, x, y, plan=None):
+    """Prefix-scan formulation (CSR-Stream / hip-line analog): row i's sum is
+    the difference of the running sum at its two row_ptr bounds."""
+    s = torch.cumsum(csr.values * x[csr.col_idx.long()], 0)
+    s0 = torch.cat([s.new_zeros(1), s])
+    rp = csr.row_ptr.long()
+    return axpby_finish(alpha, beta, s0[rp[1:]] - s0[rp[:-1]], y)
+
+
+def spmv_ell(alpha, beta, ell, x, y, num_rows):
+    """Row-padded dense reduction — best when rows are near-uniform length
+    (the picker's 'regular' branch)."""
+    ax = (ell.values * x[ell.col_idx.long()]).sum(1)[:num_rows]
     return axpby_finish(alpha, beta, ax, y)
 
 

@@ -1,6 +1,6 @@
 """The port's public entry points against the JAX package's: ``spmv`` with the
-adaptive picker, trans='T', the empty matrix, strategies not yet ported, and
-the spmv-cli port on csr/mtx/bin2 files."""
+adaptive picker, trans='T', the empty matrix, every strategy through each
+entry point, and the spmv-cli port on csr/mtx/bin2 files."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,6 +81,17 @@ def test_empty_matrix_goes_to_default():
     assert torch.equal(out, 3.0 * y)
 
 
+@pytest.mark.parametrize("strategy", sorted(dispatch.STRATEGIES))
+def test_matrix_without_columns_gives_beta_y(strategy):
+    """An m x 0 matrix: every strategy returns beta*y; the padded layouts hold
+    column 0 in their padding, which an empty x does not have."""
+    csr = CSR.from_numpy(np.zeros(6, np.int32), np.zeros(0, np.int32), np.zeros(0), (5, 0))
+    x, y = torch.zeros(0, dtype=torch.float64), torch.arange(5, dtype=torch.float64)
+    assert torch.equal(dispatch.spmv(csr, x, y, 2.0, 3.0, strategy=strategy), 3.0 * y)
+    fn, _ = dispatch.make_spmv_fn(csr, 2.0, 3.0, strategy=strategy)
+    assert torch.equal(fn(x, y), 3.0 * y)
+
+
 def test_default_strategy_matches_golden():
     ref = random_csr(90, 80, 700, seed=33)
     rp, ci, v, (m, n) = ref.to_numpy()
@@ -90,12 +101,25 @@ def test_default_strategy_matches_golden():
     assert verify_y(out, host_spmv(ALPHA, BETA, rp, ci, v, x, y)).ok
 
 
-@pytest.mark.parametrize("strategy", sorted(dispatch.STRATEGIES - dispatch.PORTED_STRATEGIES))
-def test_unported_strategy_raises(strategy):
-    csr = _port(random_csr(40, 40, 200, seed=35))
-    x = torch.zeros(40, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=strategy):
-        dispatch.spmv(csr, x, strategy=strategy)
+# the names that raised NotImplementedError before the zoo was ported
+ZOO_NAMES = sorted(dispatch.STRATEGIES - {"adaptive", "default", "swell"})
+
+
+@pytest.mark.parametrize("strategy", ZOO_NAMES)
+def test_strategy_runs_through_every_entry_point(strategy):
+    """spmv, make_spmv_fn and sparse_csr_spmv run the strategy and agree."""
+    ref = random_csr(40, 40, 200, seed=35)
+    rp, ci, v, (m, n) = ref.to_numpy()
+    x, y = random_x_y(n, m, seed=35)
+    csr = _port(ref)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    h = dispatch.Handle()
+    out = dispatch.spmv(csr, tx, ty, ALPHA, BETA, strategy=strategy, handle=h)
+    assert h.strategy_used == strategy
+    assert verify_y(out, host_spmv(ALPHA, BETA, rp, ci, v, x, y)).ok
+    fn, chosen = dispatch.make_spmv_fn(csr, ALPHA, BETA, strategy=strategy)
+    assert chosen == strategy and torch.equal(fn(tx, ty), out)
+    assert torch.equal(dispatch.sparse_csr_spmv("N", ALPHA, BETA, csr, tx, ty, strategy), out)
 
 
 def test_unknown_strategy_raises():
@@ -104,16 +128,19 @@ def test_unknown_strategy_raises():
         dispatch.spmv(csr, torch.zeros(40, dtype=torch.float64), strategy="nope")
 
 
-def test_below_fill_gate_raises_reference_tree_choice(monkeypatch):
-    """Below the swell gate the picker takes the reference's tree, which names a
-    strategy the port does not have yet: it raises with that name."""
+def test_below_fill_gate_runs_reference_tree_choice(monkeypatch):
+    """Below the swell gate the picker takes the reference's tree and runs it."""
     ref = example_like("rajat03")
+    rp, ci, v, (m, n) = ref.to_numpy()
     csr = _port(ref)
     monkeypatch.setattr(dispatch, "SWELL_MIN_FILL", 2.0)
     expect = ref_dispatch.pick_strategy(ref_dispatch.get_plan(ref), ref)
     assert dispatch.pick_strategy(dispatch.get_plan(csr), csr) == expect
-    with pytest.raises(NotImplementedError, match=expect):
-        dispatch.spmv(csr, torch.zeros(csr.cols, dtype=torch.float64))
+    x, y = random_x_y(n, m, seed=39)
+    h = dispatch.Handle()
+    out = dispatch.spmv(csr, torch.from_numpy(x), torch.from_numpy(y), ALPHA, BETA, handle=h)
+    assert h.strategy_used == expect
+    assert verify_y(out, host_spmv(ALPHA, BETA, rp, ci, v, x, y)).ok
 
 
 def test_slot_cap_passes_swell_over_without_building(monkeypatch):
@@ -128,8 +155,9 @@ def test_slot_cap_passes_swell_over_without_building(monkeypatch):
     assert dispatch.pick_strategy(dispatch.get_plan(csr), csr) == expect != "swell"
     assert swell.swell_plan_within_cap(csr) is None
     x = torch.zeros(csr.cols, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=expect):
-        dispatch.spmv(csr, x)
+    h = dispatch.Handle()
+    assert torch.equal(dispatch.spmv(csr, x, handle=h), torch.zeros(csr.rows, dtype=torch.float64))
+    assert h.strategy_used == expect
     with pytest.raises(ValueError, match="SWELL_MAX_SLOTS"):
         dispatch.spmv(csr, x, strategy="swell")
     with pytest.raises(ValueError, match="SWELL_MAX_SLOTS"):
@@ -164,7 +192,7 @@ def files(tmp_path):
 
 @pytest.mark.parametrize("fmt", ["csr", "mtx", "bin2"])
 def test_cli_passes_like_reference(files, fmt, capsys):
-    assert cli_main([files[fmt], "-f", fmt, "--warmups", "2"]) == 0
+    assert cli_main([files[fmt], "-f", fmt, "--warmups", "2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert f"loaded {files[fmt]}: rows=300 cols=300 nnz=2400" in out
     assert "elapsed time:" in out and "[strategy: swell]" in out
@@ -176,12 +204,13 @@ def test_cli_passes_like_reference(files, fmt, capsys):
 
 def test_cli_alpha_beta_and_device_verify(files, capsys):
     rc = cli_main([files["bin2"], "-f", "bin2", "--alpha", "2.5", "--beta", "-1.0",
-                   "--device-verify", "--warmups", "1"])
+                   "--device-verify", "--warmups", "1", "--device", "cpu"])
     assert rc == 0
     assert "pass 300 validation" in capsys.readouterr().out
 
 
 def test_cli_exit_codes(tmp_path, files, capsys):
-    assert cli_main([str(tmp_path / "nope.csr"), "-f", "csr"]) == 2
-    assert cli_main([files["csr"], "-f", "csr", "-s", "flat"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert cli_main([str(tmp_path / "nope.csr"), "-f", "csr", "--device", "cpu"]) == 2
+    assert cli_main([files["csr"], "-f", "csr", "-s", "nope", "--device", "cpu"]) == 2
+    assert "unknown strategy 'nope'" in capsys.readouterr().err
+    assert cli_main([files["csr"], "-f", "csr", "-s", "flat", "--device", "cpu"]) == 0

@@ -1,6 +1,6 @@
-"""Package-level checks of the port: it never imports JAX, its kernel is built for
-Hopper from the repo's CUDA source, and (on a card) the swell kernel matches its
-plain version.
+"""Package-level checks of the port: it never imports JAX, its kernels are built
+for Hopper from the repo's CUDA sources, and (on a card) the swell, tile and
+ELL row-sum kernels match their plain versions.
 
 The ``cuda`` tests need an NVIDIA GPU and skip without one; run them there with
 ``python -m pytest tests/test_torch_package.py -m cuda --noconftest`` (the
@@ -62,6 +62,16 @@ def test_swell_kernel_source_exists():
     assert _build.BUILD_DIR == os.path.join(REPO, "build")
 
 
+@pytest.mark.parametrize("src", sorted(_build.SOURCES))
+def test_kernel_sources_have_their_c_entry(src):
+    entry, argtypes = _build.SOURCES[src]
+    assert os.path.dirname(src) == os.path.join(PKG, "csrc")
+    with open(src) as f:
+        text = f.read()
+    assert f'extern "C" int {entry}(' in text and "cudaGetLastError" in text
+    assert _build.nvcc_command(src, "o.so")[-1] == src
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -116,3 +126,57 @@ def test_kernel_variants_match_plain_on_card(cuda_device, dtype, r, k):
     a, p = a.cpu().numpy().astype(np.float64), p.cpu().numpy().astype(np.float64)
     ulp = 0.0 if dtype == np.float64 else 2.0**-23
     assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * bound).all()
+
+
+def _row_bound(csr, x):
+    rp, ci, v, _ = csr.to_numpy()
+    bound = np.zeros(csr.rows)
+    np.add.at(bound, np.repeat(np.arange(csr.rows), np.diff(rp)),
+              np.abs(v.astype(np.float64) * x.astype(np.float64)[ci]))
+    return bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("shape", [(300, 300, 1500), (64, 100, 3000), (300, 40000, 9000)])
+def test_tile_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    """tile_spmv against tile_spmv_plain: float64 within 1e-12 (|A|·|x|);
+    float32 within one float32 ulp of the plain version on top."""
+    from spmv_acc_tpu_torch.formats import random_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import adaptive_plus as ap
+
+    m, n, nnz = shape
+    csr = random_csr(m, n, nnz, seed=m + n, dtype=dtype).to(cuda_device)
+    x = random_x_y(n, m, seed=2, dtype=dtype)[0]
+    dp = ap.get_tile_plan(csr)
+    key = "f64" if dtype == np.float64 else "f32"
+    before = ap.LAUNCHES[key]
+    a = ap.tile_spmv(dp, torch.from_numpy(x).to(cuda_device))
+    p = ap.tile_spmv_plain(dp, torch.from_numpy(x).to(cuda_device))
+    torch.cuda.synchronize()
+    assert ap.LAUNCHES[key] == before + 1
+    a, p = a.cpu().numpy().astype(np.float64), p.cpu().numpy().astype(np.float64)
+    ulp = 0.0 if dtype == np.float64 else 2.0**-23
+    assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * _row_bound(csr, x)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("vs", [2, 4, 8, 16, 32])
+def test_ell_kernel_matches_plain_on_card(cuda_device, dtype, vs):
+    """ell_rowsum at every vector size against ell_rowsum_plain, same bounds."""
+    from spmv_acc_tpu_torch.formats import csr_to_ell, powerlaw_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import vector_row as vr
+
+    csr = powerlaw_csr(3000, 3000, avg_nnz=12, seed=9, dtype=dtype).to(cuda_device)
+    x = random_x_y(3000, 3000, seed=3, dtype=dtype)[0]
+    ell = csr_to_ell(csr)
+    key = ("f64" if dtype == np.float64 else "f32", vs)
+    before = vr.LAUNCHES[key]
+    a = vr._launch(ell, torch.from_numpy(x).to(cuda_device), vs)
+    p = vr.ell_rowsum_plain(ell, torch.from_numpy(x).to(cuda_device))
+    torch.cuda.synchronize()
+    assert vr.LAUNCHES[key] == before + 1
+    a, p = (t.cpu().numpy().astype(np.float64)[:3000] for t in (a, p))
+    ulp = 0.0 if dtype == np.float64 else 2.0**-23
+    assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * _row_bound(csr, x)).all()

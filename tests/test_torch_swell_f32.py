@@ -118,7 +118,8 @@ def test_cli_float32_passes_like_reference(name, tmp_path, capsys):
     """``spmv-cli --dtype float32`` passes the reference's f32 gate."""
     path = str(tmp_path / f"{name}.bin2")
     write_bin2(path, *MATRICES[name]().to_numpy())
-    assert cli_main([path, "-f", "bin2", "--dtype", "float32", "--warmups", "1"]) == 0
+    assert cli_main([path, "-f", "bin2", "--dtype", "float32", "--warmups", "1",
+                     "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "[strategy: swell]" in out
     assert ref_cli_main([path, "-f", "bin2", "--dtype", "float32", "--warmups", "1"]) == 0
