@@ -4,18 +4,24 @@
     python3 chip_smoke.py
 
 Run from the repo root on a machine with a Hopper card, ``nvcc`` and a C++
-compiler.  It builds the three kernels of ``spmv_acc_tpu_torch/csrc`` (swell,
-tile, ELL row sum; one nvcc each, all at once), holds every variant the port
-launches against its plain PyTorch version (swell at float64 and float32, BSR
-r = 1..4, k = 1, 3, 8 columns; the tile and ELL kernels at both dtypes on every
-smoke matrix), and drives the port's main paths at full size:
+compiler.  It builds the four kernel sources of ``spmv_acc_tpu_torch/csrc``
+(swell with its plane form, tile, ELL row sum, plane split; one nvcc each, all
+at once), holds every variant the port launches against its plain PyTorch
+version (swell at float64 and float32, BSR r = 1..4, k = 1, 3, 8 columns; the
+tile and ELL kernels, the plane split (bit for bit) and the plane-form swell at
+both dtypes on every smoke matrix), and drives the port's main paths at full
+size:
 ``spmv(strategy="adaptive")`` on boneS10 (scalar plan, float64 and float32)
 and on TSOPF_RS_b2383 (the detector's r = 4 BSR plan), ``spmm`` and
 ``make_swell_amx_run`` with k = 8 on both, ``spmv-cli`` in float64 and float32,
 ``spmv(strategy="adaptive_plus")`` and ``spmv(strategy="vector_row")`` on
 boneS10 in both dtypes and adaptive_plus on TSOPF_RS_b2383, every strategy on
-af23560, and ``spmv-benchmark`` on af23560 (all engines) and boneS10.  It then
-times each kernel against its plain version.  Every phase prints lines tagged
+af23560, ``spmv-benchmark`` on af23560 (all engines) and boneS10, and the
+solver path: ILU(0) and preconditioned CG on Ga41As41H72 (SPD-ized) and on
+512^2 anisotropic diffusion, CG with the plane split and the plane-form swell
+kernel as its matvec, and ``spmv-solve`` on af23560.  It then times each
+kernel against its plain version and PyTorch's CSR product (cuSPARSE), beside
+its bound.  Every phase prints lines tagged
 with its name; the first failure exits non-zero.  Without a CUDA device it
 fails at once.  The last three lines are the card, the kernels' JSON record and
 the device JSON record.
@@ -37,6 +43,11 @@ import time
 # float32 once, so they may differ by one float32 ulp on top (F32_ULP * |plain|).
 ROW_TOL = 1e-12
 F32_ULP = 2.0**-23
+# peak rates for the bounds: FP64 outside the tensor cores (NVIDIA's H100 SXM
+# data sheet; the swell, tile and ELL kernels sum in FP64 FMAs) and float32
+# (NVIDIA's data sheet, outside the tensor cores; the plane split's bit operations)
+FP64_TFLOPS = 34.0
+F32_TFLOPS = 67.0
 
 
 def fail(msg: str) -> None:
@@ -124,9 +135,9 @@ def ptxas_summary(log: str) -> str:
     """One 'swell f64 r1 g1: 31 regs, 0 B spill' item per kernel instantiation."""
     out, cur, spill = [], None, "spill not reported"
     for ln in log.splitlines():
-        m = re.search(r"(swell|tile|ell)_kernelI([df])((?:Li\d+E)*)E", ln)
+        m = re.search(r"(swell|tile|ell|plane_split)_kernelI([df])((?:L[ib]\d+E)*)E", ln)
         if m and "Compiling entry function" in ln:
-            params = " ".join(re.findall(r"Li(\d+)E", m.group(3)))
+            params = " ".join(re.findall(r"L[ib](\d+)E", m.group(3)))
             cur = f"{m.group(1)} f{'64' if m.group(2) == 'd' else '32'} {params}".strip()
             spill = "spill not reported"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -139,10 +150,24 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(out)
 
 
+def _dk(dtype) -> str:
+    return "f64" if str(dtype).endswith("float64") else "f32"
+
+
 def launches_of(swell, dtype=None, r=None, k=None) -> int:
-    return sum(n for (d, rr, kk), n in swell.LAUNCHES.items()
-               if (dtype is None or d == dtype) and (r is None or rr == r)
-               and (k is None or kk == k))
+    """Launches of the swell kernel's direct form, keyed (dtype, r, k)."""
+    return sum(n for key, n in swell.LAUNCHES.items() if len(key) == 3
+               and (dtype is None or key[0] == dtype) and (r is None or key[1] == r)
+               and (k is None or key[2] == k))
+
+
+def spmv_bytes(csr, k=1, x_bytes=None) -> int:
+    """The bytes that A @ X must move, whatever layout computes it: the CSR's
+    values and column indices (4 B each), row_ptr at 4 B a row, X read once (or
+    ``x_bytes``) and Y written once."""
+    t = csr.values.element_size()
+    x_bytes = csr.cols * k * t if x_bytes is None else x_bytes
+    return csr.nnz * (t + 4) + 4 * (csr.rows + 1) + x_bytes + csr.rows * k * t
 
 
 def main() -> int:
@@ -163,6 +188,86 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+
+    def loop_us(fn, n=20):
+        """Device µs per call of ``fn`` over a loop of ``n`` calls (CUDA events)."""
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            fn()
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1) * 1e3 / n
+
+    flush_buf = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+
+    def device_us(fn, kernel, n=20, cold=False):
+        """Device µs per launch of the CUDA kernels whose name holds ``kernel``,
+        by torch.profiler over ``n`` calls of ``fn`` (None if it saw none): the
+        time a short kernel runs, without the host path that bounds a loop.
+        ``cold`` writes 256 MB (5x the L2) before each call, so the kernel
+        reads its inputs from HBM and its writes evict dirty lines to HBM."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if cold:
+                    flush_buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        total = sum(getattr(e, "device_time_total", 0.0) or e.cuda_time_total for e in evs)
+        count = sum(e.count for e in evs)
+        return total / count if count else None
+
+    def tensor_bytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def bound_of(nbytes, ops, tflops):
+        """The least time for the work: bytes over the card's HBM rate or
+        operations over the peak rate of their type, whichever is larger."""
+        t_bytes = nbytes / (peak_gbs * 1e9) * 1e3
+        t_ops = ops / (tflops * 1e12) * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    lib_cache = {}
+
+    def library(csr, X):
+        """(per-call ms, loop us per call) of PyTorch's CSR product (cuSPARSE)
+        computing A @ X on the same inputs, or (None, None) when it refuses."""
+        key = (id(csr.values), id(X))
+        if key not in lib_cache:
+            mat = torch.sparse_csr_tensor(csr.row_ptr, csr.col_idx, csr.values, size=csr.shape,
+                                          check_invariants=False)
+            fn = (lambda: torch.mv(mat, X)) if X.dim() == 1 else (lambda: mat @ X)
+            try:
+                lib_cache[key] = (cuda_time_us(fn) / 1e3, loop_us(fn))
+            except RuntimeError as e:
+                phase("times", f"PyTorch's CSR product refused {tuple(X.shape)} "
+                      f"{X.dtype}: {e}")
+                lib_cache[key] = (None, None)
+        return lib_cache[key]
+
+    def finish(record, label, nbytes, ops, tflops, lib, layout_bytes=None):
+        """Print (and record) the bound of ``nbytes`` and ``ops`` and the
+        library time; ``layout_bytes``, the arrays the kernel actually reads,
+        are printed beside it and bound nothing."""
+        b = bound_of(nbytes, ops, tflops)
+        lib_text = ("no PyTorch call computes it" if lib[0] is None else
+                    f"PyTorch CSR product {lib[1]!r} us per call in a loop of 20, "
+                    f"{lib[0]!r} ms per call (median of 3)")
+        lay_text = ("" if layout_bytes is None else
+                    f"; layout bytes {layout_bytes} ({layout_bytes / nbytes!r} x the bound's)")
+        phase("times", f"{label}: bound {b['bound_ms'] * 1e3!r} us by {b['bound_by']} "
+              f"({nbytes} B at {peak_gbs!r} GB/s, {ops} operations at {tflops} TFLOP/s)"
+              f"{lay_text}; {lib_text}")
+        if record:
+            records[record].update(library_ms=lib[0], **b)
     tdt = {np.float64: torch.float64, np.float32: torch.float32}
     t_start = time.perf_counter()
 
@@ -240,6 +345,49 @@ def main() -> int:
             compare(f"ell {name} {np.dtype(dtype).name} vs={vr.vector_size(ell.width)}", csr, x,
                     a, p, "zoo-vs-plain")
     phase("zoo-vs-plain", f"launches so far: tile {dict(ap.LAUNCHES)}, ELL {dict(vr.LAUNCHES)}")
+
+    # 3c. the plane split (bit for bit) and the plane-form swell on every smoke matrix
+    def planes_check(name, csr, layout, dx):
+        """prep_x's kernel against prep_x_plain as int16, and swell_ax_planes
+        against its plain version (float32: also against the direct kernel,
+        bit for bit)."""
+        planes = swell.prep_x(layout, dx)
+        plain = swell.prep_x_plain(layout, dx)
+        torch.cuda.synchronize()
+        same = torch.equal(planes.view(torch.int16), plain.view(torch.int16))
+        phase("plane-split", f"{name} {csr.rows}x{csr.cols} delta={layout.delta} nchunks="
+              f"{layout.nchunks} planes {tuple(planes.shape)}: kernel == prep_x_plain bit for "
+              f"bit: {same}")
+        if not same:
+            fail(f"{name}: the plane-split kernel differs from prep_x_plain")
+        a = swell.swell_ax_planes(layout, planes)
+        p = swell.swell_ax_planes_plain(layout, planes)
+        xt = swell._planes_x(layout, planes, torch.arange(csr.cols, device=dev))
+        torch.cuda.synchronize()
+        max_abs = compare(name, csr, xt.cpu().numpy(), a, p, "swell-planes")
+        if csr.dtype == torch.float32:
+            direct = swell.swell_ax(layout, dx)
+            torch.cuda.synchronize()
+            same = torch.equal(a, direct)
+            phase("swell-planes", f"{name}: float32 plane form == direct kernel bit for bit: "
+                  f"{same}")
+            if not same:
+                fail(f"{name}: the float32 plane form differs from the direct kernel")
+        return max_abs
+
+    deltas = []
+    for name, make in smoke_matrices(gen).items():
+        for dtype in (np.float64, np.float32):
+            csr = make().astype(tdt[dtype]).to(dev)
+            x, _ = gen.random_x_y(csr.cols, csr.rows, seed=77, dtype=dtype)
+            layout = swell.get_swell_plan(csr, r=1)
+            planes_check(f"{name} {np.dtype(dtype).name}", csr, layout,
+                         torch.from_numpy(x).to(dev))
+            deltas.append(layout.delta)
+    if max(deltas) <= 0:
+        fail("no smoke matrix has a plan with a column shift delta > 0")
+    phase("plane-split", f"launches so far: {dict(swell.LAUNCHES)}; largest delta "
+          f"{max(deltas)}")
     records = {}
 
     # 4. the main path at full size: boneS10 through spmv(strategy="adaptive")
@@ -451,20 +599,242 @@ def main() -> int:
                     or any(r[-2] != "0" for r in rows)):
                 fail(f"spmv-benchmark on {name}: rc {rc}, rows {[r[2] for r in rows]}")
 
+    # 7e. the plane split and the plane-form swell on boneS10, both dtypes
+    for dcsr, xb in ((bone_dev, gen.random_x_y(n, m, seed=42)[0]), (bone32, x32)):
+        planes_check(f"boneS10 {str(dcsr.dtype)[6:]}", dcsr, swell.get_swell_plan(dcsr),
+                     torch.from_numpy(xb).to(dev))
+
+    # 7f. the solver path at full size: the JAX package's two solver workloads
+    # (bench.py bench_solver, bench_solver_aniso)
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve, jacobi_preconditioner
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    def solved(label, res, x_true, b_norm, tol, max_iters, gate=None):
+        err = float(np.linalg.norm(res.x.cpu().numpy() - x_true) / np.linalg.norm(x_true))
+        met = float(res.residual_norm) <= tol * b_norm
+        phase("solver", f"{label}: {res.iters} iterations (max {max_iters}), residual "
+              f"{float(res.residual_norm)!r} (tol {tol} x |b| = {tol * b_norm!r}, met: {met}), "
+              f"rel err against x_true {err!r}")
+        if not met:
+            fail(f"{label}: CG ended at {res.iters} iterations without meeting tol")
+        if gate is not None and not err < gate:
+            fail(f"{label}: rel err {err!r} misses the {gate} gate")
+        return err
+
+    t0 = time.perf_counter()
+    ga = gen.example_like("Ga41As41H72")
+    grp, gci, gv, (gm, _) = ga.to_numpy()
+    grp2, gci2, gv2 = spdize(grp.astype(np.int64), gci.astype(np.int64), gv, gm)
+    gcsr = port.CSR.from_numpy(grp2, gci2, gv2, (gm, gm), device=dev)
+    phase("solver", f"Ga41As41H72 {gm}x{gm} nnz={ga.nnz}, SPD-ized nnz={len(gci2)} (made in "
+          f"{time.perf_counter() - t0:.1f}s)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gfact = tri.ilu0(gcsr, sweeps=3)
+    torch.cuda.synchronize()
+    t_factor = time.perf_counter() - t0
+    if gfact.swell is None:
+        fail("Ga41As41H72-SPD: ilu0 built no swell backing")
+    glay = swell.get_swell_plan(gcsr)
+    g0 = torch.ones(gm, dtype=torch.float64, device=dev)
+    us_spmv = loop_us(lambda: swell.swell_ax(glay, g0))
+    glay1 = swell.get_swell_plan(gcsr, r=1)
+    us_spmv1 = loop_us(lambda: swell.swell_ax(glay1, g0))
+    us_lib = library(gcsr, g0)[1]
+    depth = torch.ones_like(glay.slab_off) << glay.slab_log2d.long()
+    rb_of = torch.repeat_interleave(torch.arange(glay.mrb, device=dev),
+                                    torch.diff(glay.rb_slab_ptr))
+    rows_per_rb = torch.zeros(glay.mrb, dtype=torch.int64, device=dev).index_add_(0, rb_of, depth)
+    phase("solver", f"Ga41As41H72-SPD row lengths: max {int(np.diff(grp2).max())}, mean "
+          f"{len(gci2) / gm:.1f}; slot rows a row block (one thread block walks them in "
+          f"turn): max {int(rows_per_rb.max())}, mean {float(rows_per_rb.double().mean()):.1f}; "
+          f"slabs a row block: max {int(torch.diff(glay.rb_slab_ptr).max())}")
+    # the swell kernel against its plain version at the solver's shapes: the
+    # matrix's layout and the strict L and U layouts of the ILU sweeps
+    def strict_csr(plan):
+        """The CSR of a factor's off-diagonal entries (its TriSolvePlan's deps)."""
+        rows, cols, vals = (t.cpu().numpy() for t in (plan.dep_rows, plan.dep_cols,
+                                                       plan.dep_vals))
+        order = np.lexsort((cols, rows))
+        rp_ = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=plan.m))])
+        return port.CSR.from_numpy(rp_, cols[order], vals[order], (plan.m, plan.m), device=dev)
+
+    gx = torch.from_numpy(np.random.default_rng(6).uniform(-1, 1, gm)).to(dev)
+    solver_err = 0.0
+    for name, lay, mat in (("Ga41As41H72-SPD", glay, gcsr),
+                           ("Ga41As41H72-SPD ILU strict L", gfact.swell.layout_l,
+                            strict_csr(gfact.l_plan)),
+                           ("Ga41As41H72-SPD ILU strict U", gfact.swell.layout_u,
+                            strict_csr(gfact.u_plan))):
+        a, p = swell.swell_ax(lay, gx), swell.swell_ax_plain(lay, gx)
+        torch.cuda.synchronize()
+        solver_err = max(solver_err, compare(f"{name} r={lay.r} slots={lay.slots}", mat,
+                                             gx.cpu().numpy(), a, p, "solver"))
+    t_p1, t_k1, t_k2, t_p2 = (cuda_time_us(lambda: swell.swell_ax_plain(glay, gx)),
+                              cuda_time_us(lambda: swell.swell_ax(glay, gx)),
+                              cuda_time_us(lambda: swell.swell_ax(glay, gx)),
+                              cuda_time_us(lambda: swell.swell_ax_plain(glay, gx)))
+    phase("solver", f"Ga41As41H72-SPD swell f64: kernel {t_k1!r} / {t_k2!r} us, plain "
+          f"{t_p1!r} / {t_p2!r} us per call (median of 3 after 10 warmups); card: {card}")
+    records["swell_solver_f64"] = {"max_abs_err": solver_err, "ms": (t_k1 + t_k2) / 2e3,
+                                   "plain_ms": (t_p1 + t_p2) / 2e3}
+    finish("swell_solver_f64", "Ga41As41H72-SPD swell f64 r=1 k=1", spmv_bytes(gcsr),
+           2 * gcsr.nnz, FP64_TFLOPS, library(gcsr, g0), tensor_bytes(
+               glay.vals, glay.lidx, glay.slab_off, glay.slab_log2d, glay.slab_col_base,
+               glay.rb_slab_ptr, g0, g0))
+    phase("solver", f"Ga41As41H72-SPD swell layout: r={glay.r}, {glay.mrb} row blocks, "
+          f"{glay.slots} slots, fill {glay.fill!r}, tail {glay.tail_v.numel()}; r=1 layout "
+          f"{glay1.slots} slots, fill {glay1.fill!r}: {us_spmv1!r} us a launch; L factor "
+          f"{gfact.swell.layout_l.slots} slots (r={gfact.swell.layout_l.r}), U "
+          f"{gfact.swell.layout_u.slots} slots (r={gfact.swell.layout_u.r}); PyTorch CSR "
+          f"product {us_lib!r} us a call (loops of 20); card: {card}")
+    swell.LAUNCHES.clear()
+    gfact.solve(g0)
+    torch.cuda.synchronize()
+    per_apply = dict(swell.LAUNCHES)
+    us_apply = loop_us(lambda: gfact.solve(g0))
+    phase("solver", f"Ga41As41H72-SPD: ilu0(sweeps=3) factor+plans {t_factor!r} s (levels L "
+          f"{gfact.l_plan.num_levels}, U {gfact.u_plan.num_levels}; off-diagonal nnz "
+          f"{gfact.l_plan.num_deps + gfact.u_plan.num_deps}); swell SpMV {us_spmv!r} us, ILU "
+          f"apply (3 sweeps per factor on the swell kernel) {us_apply!r} us = "
+          f"{us_apply / us_spmv!r} x SpMV (CUDA-event loops of 20); swell launches of one "
+          f"ILU apply {per_apply}; card: {card}")
+    x_true = np.random.default_rng(5).standard_normal(gm)
+    gb = host_spmv(1.0, 0.0, grp2, gci2, gv2, x_true, np.zeros(gm))
+    dgb, gb_norm = torch.from_numpy(gb).to(dev), float(np.linalg.norm(gb))
+    g_launches = {}
+    for label, pre in (("jacobi", jacobi_preconditioner(gcsr)), ("ilu", gfact)):
+        swell.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = cg_solve(gcsr, dgb, tol=1e-8, max_iters=300, strategy="swell", precond=pre)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = g_launches[label] = launches_of(swell, "f64")
+        solved(f"Ga41As41H72-SPD cg[{label}] ({secs!r} s; swell launches "
+               f"{dict(swell.LAUNCHES)})", res, x_true, gb_norm, 1e-8, 300, gate=1e-6)
+        if launches < res.iters:
+            fail(f"Ga41As41H72-SPD cg[{label}] launched the swell kernel {launches} times "
+                 f"in {res.iters} iterations")
+    # the ILU-preconditioned solve is the solver path's record
+    records["swell_solver_f64"]["launches"] = g_launches["ilu"]
+    del gfact, glay, gcsr
+
+    t0 = time.perf_counter()
+    nx = 512
+    acsr = gen.aniso_laplacian_csr(nx, nx, 1e-4).to(dev)
+    am_, _ = acsr.shape
+    arp_, aci_, av_, _ = acsr.to_numpy()
+    ax_true = np.random.default_rng(5).standard_normal(am_)
+    ab = torch.from_numpy(host_spmv(1.0, 0.0, arp_, aci_, av_, ax_true, np.zeros(am_))).to(dev)
+    ab_norm = float(torch.linalg.norm(ab))
+    ajac = jacobi_preconditioner(acsr)
+    afact = tri.ilu0(acsr, sweeps=3)
+    alay = swell.get_swell_plan(acsr)
+    torch.cuda.synchronize()
+    phase("solver", f"aniso {nx}^2 eps=1e-4: {am_} rows, nnz={acsr.nnz}, ilu0(sweeps=3) and "
+          f"plans {time.perf_counter() - t0:.2f}s, swell backing: {afact.swell is not None}")
+    axs = torch.from_numpy(np.random.default_rng(6).uniform(-1, 1, am_)).to(dev)
+    a, p = swell.swell_ax(alay, axs), swell.swell_ax_plain(alay, axs)
+    torch.cuda.synchronize()
+    compare(f"aniso {nx}^2 r={alay.r} slots={alay.slots}", acsr, axs.cpu().numpy(), a, p,
+            "solver")
+    aiters = {}
+    for label, pre in (("jacobi", ajac), ("ilu", afact)):
+        swell.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = cg_solve(acsr, ab, tol=1e-8, max_iters=4000, strategy="swell", precond=pre)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        solved(f"aniso cg[{label}] ({secs!r} s, {secs / max(res.iters, 1) * 1e6!r} us per "
+               f"iteration with one host read each; swell launches {dict(swell.LAUNCHES)})",
+               res, ax_true, ab_norm, 1e-8, 4000)
+        if launches_of(swell, "f64") < res.iters:
+            fail(f"aniso cg[{label}] launched the swell kernel fewer times than it iterated")
+        aiters[label] = res.iters
+
+    def aniso_matvec(v):
+        return swell.swell_ax(alay, v)
+
+    def fixed_trip(M, n):
+        """n CG iterations with no host read (bench.py:470-506)."""
+        x_ = torch.zeros_like(ab)
+        r_ = ab - aniso_matvec(x_)
+        z_ = M(r_)
+        p_, rz = z_, torch.dot(r_, z_)
+        for _ in range(n):
+            ap_ = aniso_matvec(p_)
+            alpha = rz / torch.dot(p_, ap_)
+            x_ = x_ + alpha * p_
+            r_ = r_ - alpha * ap_
+            z_ = M(r_)
+            rzn = torch.dot(r_, z_)
+            p_ = z_ + (rzn / rz) * p_
+            rz = rzn
+        return torch.dot(r_, r_)
+
+    def per_iter_us(M):
+        def once(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(fixed_trip(M, k))
+            return time.perf_counter() - t0
+
+        once(65)
+        once(513)
+        w1 = min(once(65) for _ in range(3))
+        w2 = min(once(513) for _ in range(3))
+        return max(w2 - w1, 0.0) / (513 - 65) * 1e6
+
+    per_j, per_i = per_iter_us(ajac), per_iter_us(afact.solve)
+    win = (aiters["jacobi"] * per_j) / (aiters["ilu"] * per_i)
+    exact = tri.ILU0(afact.l_plan, afact.u_plan, sweeps=0)
+    ms_exact = loop_us(lambda: exact.solve(ab), 2) / 1e3
+    phase("solver", f"aniso per iteration (fixed-trip loops of 65 and 513, host clock): "
+          f"jacobi {per_j!r} us, ilu(3 sweeps) {per_i!r} us; total_wall_win {win!r}; exact "
+          f"chunk-scheduled ILU apply ({afact.l_plan.num_iters} + {afact.u_plan.num_iters} "
+          f"iterations) {ms_exact!r} ms; card: {card}")
+
+    # the JAX package's on-chip form: every matvec splits p into bf16 planes and
+    # reads them in the plane-form swell kernel
+    swell.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = _cg_loop(lambda v: swell.swell_ax_planes(alay, swell.prep_x(alay, v)), ajac, ab,
+                   torch.zeros_like(ab), 1e-8, 4000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    plane_launches = dict(swell.LAUNCHES)
+    solved(f"aniso cg[jacobi] plane form ({secs!r} s; launches {plane_launches})", res,
+           ax_true, ab_norm, 1e-8, 4000)
+    gap = abs(res.iters - aiters["jacobi"])
+    phase("solver", f"aniso plane form {res.iters} against direct {aiters['jacobi']} "
+          f"iterations: gap {gap} (allowed {max(2, 0.02 * aiters['jacobi'])!r})")
+    if gap > max(2, 0.02 * aiters["jacobi"]):
+        fail("the plane-form CG's iteration count is too far from the direct form's")
+    for name, key in (("plane_split", ("f64", "plane_split")),
+                      ("swell_planes", ("f64", 1, 1, "planes"))):
+        records[f"{name}_f64"] = {"launches": plane_launches.get(key, 0)}
+        if records[f"{name}_f64"]["launches"] < 1:
+            fail(f"the plane-form CG launched {name} no time")
+
+    # 7g. spmv-solve on af23560, Jacobi and ILU(0)
+    from spmv_acc_tpu_torch.cli.solve import main as solve_main
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "af23560.bin2")
+        write_bin2(path, *af.to_numpy())
+        for pre in ("jacobi", "ilu0"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = solve_main([path, "-f", "bin2", "--precond", pre])
+            for ln in buf.getvalue().splitlines():
+                phase("solve-cli", ln)
+            if rc != 0 or "Congratulation, solution verified!" not in buf.getvalue():
+                fail(f"spmv-solve --precond {pre} returned {rc}")
+
     # 8. times: each kernel against its plain version at the main paths' shapes,
     # per call (reference protocol, in turns plain, kernel, kernel, plain) and
-    # per launch in a loop of 20
-    def loop_us(fn, n=20):
-        fn()
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(n):
-            fn()
-        t1.record()
-        t1.synchronize()
-        return t0.elapsed_time(t1) * 1e3 / n
-
+    # per launch in a loop of 20, beside its bound and PyTorch's CSR product
     def timed(label, name, csr, layout, X, record=None, nbytes=None):
         dX = X if isinstance(X, torch.Tensor) else torch.from_numpy(X).to(dev)
         one = dX.dim() == 1
@@ -490,6 +860,11 @@ def main() -> int:
               f"{layout.slots}{extra}; card: {card}")
         if record:
             records[record].update(max_abs_err=max_abs, ms=us_k / 1e3, plain_ms=us_p / 1e3)
+        k = 1 if one else int(dX.shape[1])
+        finish(record, f"{name} {label}", spmv_bytes(csr, k), 2 * csr.nnz * k, FP64_TFLOPS,
+               library(csr, dX), tensor_bytes(
+                   layout.vals, layout.lidx, layout.slab_off, layout.slab_log2d,
+                   layout.slab_col_base, layout.rb_slab_ptr, dX, a))
         return l_k
 
     ref_bytes = lambda c: 8 * (2 * c.rows + c.nnz) + 4 * (c.rows + 1 + c.nnz)  # noqa: E731
@@ -518,7 +893,7 @@ def main() -> int:
               f"k={K} {t8!r} us per launch against 8 x the SpMV kernel {8 * t1!r} us")
 
     # 8b. the tile and ELL kernels against their plain versions on boneS10
-    def timed_pair(name, label, kern, plain, csr, x_np, record=None, nbytes=None):
+    def timed_pair(name, label, kern, plain, csr, x_np, record=None, nbytes=None, inputs=()):
         a, p = kern(), plain()
         torch.cuda.synchronize()
         m_ = csr.rows
@@ -538,6 +913,8 @@ def main() -> int:
               f"kernel {l_k!r} us, plain {l_p!r} us per launch{roof}; card: {card}")
         if record:
             records[record].update(max_abs_err=max_abs, ms=us_k / 1e3, plain_ms=us_p / 1e3)
+        finish(record, f"{name} {label}", spmv_bytes(csr), 2 * csr.nnz, FP64_TFLOPS,
+               library(csr, inputs[-1]), tensor_bytes(*inputs, a))
         return l_k
 
     for dtype, dcsr, xb in ((np.float64, bone_dev, bx), (np.float32, bone32, x32)):
@@ -545,27 +922,92 @@ def main() -> int:
         dxb = torch.from_numpy(xb).to(dev)
         dp = ap.get_tile_plan(dcsr)
         nb = bytes_moved(bone.rows, bone.nnz, np.dtype(dtype).itemsize)
+        tile_in = (dp.vals, dp.lidx, dp.blk_off, dp.blk_depth, dp.blk_ct, dp.rb_ptr, dxb)
         timed_pair("boneS10", f"tile_spmv {dk}", lambda: ap.tile_spmv(dp, dxb),
-                   lambda: ap.tile_spmv_plain(dp, dxb), dcsr, xb, f"tile_spmv_{dk}", nb)
+                   lambda: ap.tile_spmv_plain(dp, dxb), dcsr, xb, f"tile_spmv_{dk}", nb,
+                   tile_in)
         ell = port.dispatch._get_ell(dcsr, port.DEFAULT_TUNE)
         timed_pair("boneS10", f"ell_rowsum {dk} vs={vr.vector_size(ell.width)}",
                    lambda: vr.ell_rowsum(ell, dxb), lambda: vr.ell_rowsum_plain(ell, dxb),
-                   dcsr, xb, f"ell_rowsum_{dk}", nb)
+                   dcsr, xb, f"ell_rowsum_{dk}", nb, (ell.values, ell.col_idx, dxb))
     dtx = torch.from_numpy(tx).to(dev)
     t_tile = timed_pair("TSOPF_RS_b2383", "tile_spmv f64", lambda: ap.tile_spmv(tdp, dtx),
                         lambda: ap.tile_spmv_plain(tdp, dtx), tsopf_dev, tx,
-                        nbytes=ref_bytes(tsopf))
+                        nbytes=ref_bytes(tsopf), inputs=(
+                            tdp.vals, tdp.lidx, tdp.blk_off, tdp.blk_depth, tdp.blk_ct,
+                            tdp.rb_ptr, dtx))
     phase("times", f"TSOPF_RS_b2383 tile kernel {t_tile!r} us against the swell r=4 kernel "
           f"{t_on!r} us and r=1 {t_off!r} us per launch (loops of 20)")
 
+    # 8c. the plane split and the plane-form swell: on the solver's aniso
+    # system (their main path, recorded) and on boneS10, against the direct kernel
+    def time_planes(name, csr, layout, dx, record=False):
+        sets = 2 if csr.dtype == torch.float64 else 1
+        dk = _dk(csr.dtype)
+        split, split_plain = (lambda: swell.prep_x(layout, dx)), (lambda: swell.prep_x_plain(
+            layout, dx))
+        a, p = split(), split_plain()
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int16), p.view(torch.int16)):
+            fail(f"{name}: the plane-split kernel differs from prep_x_plain")
+        t_p1, t_k1, t_k2, t_p2 = (cuda_time_us(split_plain), cuda_time_us(split),
+                                  cuda_time_us(split), cuda_time_us(split_plain))
+        l_k, l_p = loop_us(split), loop_us(split_plain, 5)
+        phase("times", f"{name} plane_split {dk}: kernel {t_k1!r} / {t_k2!r} us, plain "
+              f"{t_p1!r} / {t_p2!r} us per call; loop of 20: kernel {l_k!r} us, plain {l_p!r} "
+              f"us per launch; device time (torch.profiler) "
+              f"{device_us(split, 'plane_split_kernel')!r} us a launch, L2-cold "
+              f"{device_us(split, 'plane_split_kernel', cold=True)!r} us; "
+              f"n_pad={layout.nchunks * 16384}; card: {card}")
+        rec = f"plane_split_{dk}" if record else None
+        if rec:
+            records[rec].update(max_abs_err=0.0, ms=(t_k1 + t_k2) / 2e3, plain_ms=(t_p1 + t_p2) / 2e3)
+        finish(rec, f"{name} plane_split {dk}", tensor_bytes(dx, a),
+               16 * sets * layout.nchunks * 16384, F32_TFLOPS, (None, None))
+        planes = a
+        kern = lambda: swell.swell_ax_planes(layout, planes)  # noqa: E731
+        plain = lambda: swell.swell_ax_planes_plain(layout, planes)  # noqa: E731
+        direct = lambda: swell.swell_ax(layout, dx)  # noqa: E731
+        xt = swell._planes_x(layout, planes, torch.arange(csr.cols, device=dev))
+        ka, pa = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs = compare(f"{name} (swell_ax_planes {dk})", csr, xt.cpu().numpy(), ka, pa,
+                          "times")
+        t_p1, t_k1, t_d, t_k2, t_p2 = (cuda_time_us(plain), cuda_time_us(kern),
+                                       cuda_time_us(direct), cuda_time_us(kern),
+                                       cuda_time_us(plain))
+        l_k, l_d, l_p = loop_us(kern), loop_us(direct), loop_us(plain, 5)
+        phase("times", f"{name} swell_ax_planes {dk}: kernel {t_k1!r} / {t_k2!r} us, direct "
+              f"kernel {t_d!r} us, plain {t_p1!r} / {t_p2!r} us per call; loop of 20: kernel "
+              f"{l_k!r} us, direct kernel {l_d!r} us, plain {l_p!r} us per launch "
+              f"(plane form / direct {l_k / l_d!r}); device time (torch.profiler) plane form "
+              f"{device_us(kern, 'swell_kernel')!r} us, direct {device_us(direct, 'swell_kernel')!r}"
+              f" us a launch, L2-cold plane form {device_us(kern, 'swell_kernel', cold=True)!r}"
+              f" us; card: {card}")
+        rec = f"swell_planes_{dk}" if record else None
+        if rec:
+            records[rec].update(max_abs_err=max_abs, ms=(t_k1 + t_k2) / 2e3,
+                                plain_ms=(t_p1 + t_p2) / 2e3)
+        finish(rec, f"{name} swell_ax_planes {dk}",
+               spmv_bytes(csr, x_bytes=tensor_bytes(planes)), 2 * csr.nnz, FP64_TFLOPS,
+               library(csr, xt.to(csr.dtype)), tensor_bytes(
+                   layout.vals, layout.lidx, layout.slab_off, layout.slab_log2d,
+                   layout.slab_col_base, layout.rb_slab_ptr, planes, ka))
+
+    time_planes(f"aniso {nx}^2", acsr, alay, ab, record=True)
+    time_planes("boneS10", bone_dev, swell.get_swell_plan(bone_dev),
+                torch.from_numpy(bx).to(dev))
+
     # 9. records
+    keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = []
     for name, replaces in (("swell_spmv_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_spmv_f32", "spmv_acc_tpu/ops/swell.py:334"),
                            ("swell_bsr_r4_f64", "spmv_acc_tpu/ops/swell.py:455"),
-                           ("swell_spmm_k8_f64", "spmv_acc_tpu/ops/swell.py:455")):
+                           ("swell_spmm_k8_f64", "spmv_acc_tpu/ops/swell.py:455"),
+                           ("swell_solver_f64", "spmv_acc_tpu/ops/swell.py:455")):
         rec = records[name]
-        if not {"ms", "plain_ms", "max_abs_err"} <= set(rec):
+        if set(rec) != keys:
             fail(f"{name} was not timed")
         kernels.append({"name": name, "route": "cuda",
                         "source": "spmv_acc_tpu_torch/csrc/swell_spmv.cu",
@@ -574,9 +1016,11 @@ def main() -> int:
             ("tile_spmv_f64", "tile_spmv.cu", "spmv_acc_tpu/ops/adaptive_plus.py:113"),
             ("tile_spmv_f32", "tile_spmv.cu", "spmv_acc_tpu/ops/adaptive_plus.py:88"),
             ("ell_rowsum_f64", "ell_rowsum.cu", "spmv_acc_tpu/ops/vector_row.py:83"),
-            ("ell_rowsum_f32", "ell_rowsum.cu", "spmv_acc_tpu/ops/vector_row.py:36")):
+            ("ell_rowsum_f32", "ell_rowsum.cu", "spmv_acc_tpu/ops/vector_row.py:36"),
+            ("plane_split_f64", "plane_split.cu", "spmv_acc_tpu/ops/swell.py:2197"),
+            ("swell_planes_f64", "swell_spmv.cu", "spmv_acc_tpu/ops/swell.py:455")):
         rec = records[name]
-        if not {"ms", "plain_ms", "max_abs_err"} <= set(rec) or rec["launches"] < 1:
+        if set(rec) != keys or rec["launches"] < 1:
             fail(f"{name} was not launched on the main path or not timed")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"spmv_acc_tpu_torch/csrc/{source}",

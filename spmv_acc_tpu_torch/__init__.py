@@ -9,7 +9,11 @@ picker, the plain-PyTorch ``spmm`` strategies and BSR products, and the
 hand-written CUDA kernels on an NVIDIA Hopper card and their plain PyTorch
 versions on the CPU: ``swell`` (float64 and float32, BSR r x r micro-blocks, k
 right-hand sides; ``csrc/swell_spmv.cu``), ``adaptive_plus``
-(``csrc/tile_spmv.cu``) and ``vector_row`` (``csrc/ell_rowsum.cu``).
+(``csrc/tile_spmv.cu``) and ``vector_row`` (``csrc/ell_rowsum.cu``).  The
+solver path: ILU(0) and triangular solves (``ilu0``, ``trisolve``), CG
+(``models.cg_solve``) and ``spmv-solve``.  The JAX package's bf16 x planes
+(``ops.swell.prep_x``, ``csrc/plane_split.cu``) and the swell kernel's plane
+form are there too, off the default path.
 
 Public API::
 
@@ -45,6 +49,7 @@ from .io import load_csr, load_matrix, read_bin2, read_csr_text, read_mtx, write
 from .ops.bsr import bsr_spmm, bsr_spmv
 from .ops.golden import host_spmm, host_spmv
 from .ops.spmm import spmm
+from .ops.trisolve import ilu0, trisolve
 from .plan import Plan, analyze, get_plan
 from .utils import verify, verify_y
 
@@ -81,6 +86,8 @@ __all__ = [
     "bsr_spmv",
     "bsr_spmm",
     "spmm",
+    "ilu0",
+    "trisolve",
     "Plan",
     "analyze",
     "get_plan",

@@ -10,8 +10,13 @@
 //   K-e _make_native_steps_kernel (the CPU executor of K-a's per-step products;
 //       on the card, this kernel computes them)
 //   K-f _make_f32_kernel    (K-a in float32)
-// K-d _plane_split_kernel (x split into bf16 planes) has no counterpart here:
-// this kernel reads X in its own dtype.
+// The default form reads X in its own dtype.  The plane form (P = true, r = k =
+// 1, entry swell_spmv_planes) reads x~ from the bf16 chunk planes of K-d's
+// counterpart (csrc/plane_split.cu), the JAX package's on-chip numerics: for a
+// node column c it reads entry q = c + delta of every plane and forms
+// x~ = (p0 + p1 + p2)_hi + (p0 + p1 + p2)_lo in FP64 (each three-plane sum is
+// exact in float32); everything else is the same, so in float32, where
+// x~ == x, it returns the default form's result bit for bit.
 // All five compute the same function: for every 128-node-row block, the sum over
 // its slabs of (r x r cell block) @ (r rows of X).  On the TPU that needed x
 // tables, one-hot matmuls and f64 emulated as two f32; here each thread reads X
@@ -47,7 +52,29 @@ namespace {
 
 constexpr int kLanes = 128;
 
-template <typename T, int R, int G>
+__device__ __forceinline__ float bf16_value(uint16_t b) {
+  return __uint_as_float(uint32_t(b) << 16);
+}
+
+// x~ at padded entry q of the bf16 planes: one f32 set (float32) or hi and lo
+// (float64), three planes each, at [(q >> 7) * 3 * sets * 128 + plane * 128 + (q & 127)]
+template <typename T>
+__device__ __forceinline__ double plane_x(const uint16_t* __restrict__ planes, int64_t q) {
+  constexpr int kSets = sizeof(T) == 8 ? 2 : 1;
+  const uint16_t* p = planes + (q >> 7) * (3 * kSets * kLanes) + (q & (kLanes - 1));
+  const float hi = __fadd_rn(__fadd_rn(bf16_value(__ldg(p)), bf16_value(__ldg(p + kLanes))),
+                             bf16_value(__ldg(p + 2 * kLanes)));
+  if constexpr (kSets == 1) {
+    return double(hi);
+  } else {
+    const float lo = __fadd_rn(__fadd_rn(bf16_value(__ldg(p + 3 * kLanes)),
+                                         bf16_value(__ldg(p + 4 * kLanes))),
+                               bf16_value(__ldg(p + 5 * kLanes)));
+    return double(hi) + double(lo);
+  }
+}
+
+template <typename T, int R, int G, bool P>
 __global__ void __launch_bounds__(kLanes)
 swell_kernel(const T* __restrict__ vals,
              const uint8_t* __restrict__ lidx,
@@ -56,8 +83,11 @@ swell_kernel(const T* __restrict__ vals,
              const int32_t* __restrict__ slab_col_base,
              const int64_t* __restrict__ rb_slab_ptr,
              const T* __restrict__ x,
+             const uint16_t* __restrict__ planes,
+             int64_t delta,
              T* __restrict__ y,
              int64_t m, int64_t n, int64_t k) {
+  static_assert(!P || (R == 1 && G == 1), "the plane form runs r = k = 1");
   // G == 1 only for k == 1 (the launcher enforces it), so the SpMV
   // instantiations index x and y with compile-time stride 1
   const int64_t ks = G == 1 ? 1 : k;
@@ -94,11 +124,15 @@ swell_kernel(const T* __restrict__ vals,
         for (int l = 0; l < R; ++l) {
           const int64_t xr = node_col[u] * R + l;
           if (node_col[u] >= 0 && xr < n) {
-            const T* xp = x + xr * ks + c0;
             double xv[G];
+            if constexpr (P) {
+              xv[0] = plane_x<T>(planes, node_col[u] + delta);
+            } else {
+              const T* xp = x + xr * ks + c0;
 #pragma unroll
-            for (int j = 0; j < G; ++j)  // gn >= 1: column 0 is always live
-              xv[j] = (j == 0 || j < gn) ? double(__ldg(xp + j)) : 0.0;
+              for (int j = 0; j < G; ++j)  // gn >= 1: column 0 is always live
+                xv[j] = (j == 0 || j < gn) ? double(__ldg(xp + j)) : 0.0;
+            }
 #pragma unroll
             for (int i = 0; i < R; ++i) {
               const double a = double(v[(i * R + l) * kLanes]);
@@ -123,21 +157,24 @@ swell_kernel(const T* __restrict__ vals,
 }
 
 struct Args {
-  const void *vals, *lidx, *slab_off, *slab_log2d, *slab_col_base, *rb_slab_ptr, *x;
+  const void *vals, *lidx, *slab_off, *slab_log2d, *slab_col_base, *rb_slab_ptr, *x, *planes;
+  int64_t delta;
   void* y;
   int64_t m, n, k, mrb;
   cudaStream_t stream;
 };
 
-template <typename T, int R, int G>
+template <typename T, int R, int G, bool P = false>
 int launch(const Args& a) {
   const int64_t groups = (a.k + G - 1) / G;
   if (groups > 65535 || (G == 1 && a.k != 1)) return int(cudaErrorInvalidValue);
-  swell_kernel<T, R, G><<<dim3(unsigned(a.mrb), unsigned(groups)), dim3(kLanes), 0, a.stream>>>(
+  swell_kernel<T, R, G, P><<<dim3(unsigned(a.mrb), unsigned(groups)), dim3(kLanes), 0,
+                             a.stream>>>(
       static_cast<const T*>(a.vals), static_cast<const uint8_t*>(a.lidx),
       static_cast<const int64_t*>(a.slab_off), static_cast<const int8_t*>(a.slab_log2d),
       static_cast<const int32_t*>(a.slab_col_base), static_cast<const int64_t*>(a.rb_slab_ptr),
-      static_cast<const T*>(a.x), static_cast<T*>(a.y), a.m, a.n, a.k);
+      static_cast<const T*>(a.x), static_cast<const uint16_t*>(a.planes), a.delta,
+      static_cast<T*>(a.y), a.m, a.n, a.k);
   return int(cudaGetLastError());
 }
 
@@ -174,7 +211,22 @@ extern "C" int swell_spmm(int is_f64, int r, int g, const void* vals, const void
                           const void* x, void* y, int64_t m, int64_t n, int64_t k,
                           int64_t mrb, void* stream) {
   if (mrb <= 0 || mrb > 0x7fffffff || k <= 0) return int(cudaErrorInvalidValue);
-  const Args a{vals, lidx, slab_off, slab_log2d, slab_col_base, rb_slab_ptr, x, y,
-               m, n, k, mrb, static_cast<cudaStream_t>(stream)};
+  const Args a{vals, lidx, slab_off, slab_log2d, slab_col_base, rb_slab_ptr, x, nullptr, 0,
+               y, m, n, k, mrb, static_cast<cudaStream_t>(stream)};
   return is_f64 ? dispatch<double>(r, g, a) : dispatch<float>(r, g, a);
+}
+
+// Launches the plane form on `stream` (scalar plans, one column): y (m,) = A @ x~,
+// x~ read from the bf16 chunk planes of csrc/plane_split.cu for an x of n
+// entries front-padded by the plan's column shift delta.  Does not synchronise.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+extern "C" int swell_spmv_planes(int is_f64, const void* vals, const void* lidx,
+                                 const void* slab_off, const void* slab_log2d,
+                                 const void* slab_col_base, const void* rb_slab_ptr,
+                                 const void* planes, void* y, int64_t m, int64_t n,
+                                 int64_t delta, int64_t mrb, void* stream) {
+  if (mrb <= 0 || mrb > 0x7fffffff || delta < 0) return int(cudaErrorInvalidValue);
+  const Args a{vals, lidx, slab_off, slab_log2d, slab_col_base, rb_slab_ptr, nullptr, planes,
+               delta, y, m, n, 1, mrb, static_cast<cudaStream_t>(stream)};
+  return is_f64 ? launch<double, 1, 1, true>(a) : launch<float, 1, 1, true>(a);
 }

@@ -11,6 +11,7 @@ from .convert import (
 )
 from .generate import (
     EXAMPLE_SHAPES,
+    aniso_laplacian_csr,
     banded_csr,
     dense_row_outlier_csr,
     example_like,
@@ -32,6 +33,7 @@ __all__ = [
     "csr_to_ell_arrays",
     "csr_transpose_arrays",
     "EXAMPLE_SHAPES",
+    "aniso_laplacian_csr",
     "banded_csr",
     "dense_row_outlier_csr",
     "example_like",

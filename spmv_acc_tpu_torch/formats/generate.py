@@ -24,6 +24,7 @@ __all__ = [
     "powerlaw_csr",
     "dense_row_outlier_csr",
     "fem_like_csr",
+    "aniso_laplacian_csr",
     "example_like",
     "EXAMPLE_SHAPES",
     "random_x_y",
@@ -209,6 +210,23 @@ def powerlaw_csr(m: int, n: int, avg_nnz: int = 8, alpha: float = 1.8, seed: int
     rows, cols = rows[np.sort(idx)], cols[np.sort(idx)]
     vals = (rng.random(len(rows)) * 2.0 - 1.0).astype(dtype)
     return _finish(rows, cols, vals, (m, n))
+
+
+def aniso_laplacian_csr(nx: int, ny: int, eps: float = 1e-4, dtype=np.float64) -> CSR:
+    """2D anisotropic diffusion -eps*u_xx - u_yy (5-point stencil, Dirichlet,
+    index = i*ny + j).  SPD and only weakly diagonally dominant: the condition
+    number grows like (ny/pi)^2, the regime where ILU(0) pays over Jacobi."""
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    idx = (i * ny + j).ravel()
+    rows, cols, vals = [idx], [idx], [np.full(nx * ny, 2.0 * eps + 2.0, dtype)]
+    for di, dj, w in ((1, 0, -eps), (-1, 0, -eps), (0, 1, -1.0), (0, -1, -1.0)):
+        ii, jj = i + di, j + dj
+        ok = ((ii >= 0) & (ii < nx) & (jj >= 0) & (jj < ny)).ravel()
+        rows.append(idx[ok])
+        cols.append((ii * ny + jj).ravel()[ok])
+        vals.append(np.full(int(ok.sum()), w, dtype))
+    return _finish(np.concatenate(rows), np.concatenate(cols),
+                   np.concatenate(vals), (nx * ny, nx * ny))
 
 
 def dense_row_outlier_csr(m: int, n: int, avg_nnz: int = 4, n_dense: int = 2, seed: int = 0, dtype=np.float64) -> CSR:

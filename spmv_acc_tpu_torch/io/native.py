@@ -3,8 +3,9 @@ the same shared ``native/libspmv_native.so`` the JAX package loads.
 
 This is host code, not a device kernel: the swell analyze pass
 (csr_adaptive_plus_analyze.cpp analog) in one OpenMP pass over row-blocks, the
-tile analyze of ``adaptive_plus`` (one scan plus a sort of the block keys), and
-the r x r block condense of the BSR plans.  The library is built with
+tile analyze of ``adaptive_plus`` (one scan plus a sort of the block keys), the
+r x r block condense of the BSR plans, the in-pattern ILU(0) factorization and
+the dependency levels of a triangular solve.  The library is built with
 ``make -C native`` at first use; without a compiler the callers take their
 numpy paths, which compute the same results.
 """
@@ -19,7 +20,7 @@ import threading
 import numpy as np
 
 __all__ = ["get_lib", "tile_analyze_native", "swell_analyze_native", "bsr_condense_native",
-           "available"]
+           "ilu0_factor_native", "trisolve_levels_native", "available"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_ROOT, "native")
@@ -114,6 +115,10 @@ def get_lib():
         lib.bsr_fill.restype = ctypes.c_int32
         lib.bsr_fill.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
                                  p, p, p]
+        lib.ilu0_factor.restype = ctypes.c_int64
+        lib.ilu0_factor.argtypes = [p, p, p, ctypes.c_int64]
+        lib.trisolve_levels.restype = ctypes.c_int64
+        lib.trisolve_levels.argtypes = [p, p, ctypes.c_int64, ctypes.c_int32, p]
         _lib = lib
         return _lib
 
@@ -205,3 +210,35 @@ def bsr_condense_native(rp, ci, v, m, r, mb):
     if rc != 0:
         return None
     return rpb, cib, vals2d
+
+
+def ilu0_factor_native(rp, ci, values, m):
+    """Native in-pattern ILU(0) (``native/spmv_native.cpp::ilu0_factor``, rows
+    with sorted columns).  Returns the combined LU values (float64, same CSR
+    pattern: strict lower L with unit diagonal implied, diagonal and upper U),
+    or None without the library.  Raises ValueError when a row has no diagonal."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rp = np.ascontiguousarray(rp, dtype=np.int64)
+    ci = np.ascontiguousarray(ci, dtype=np.int32)
+    lu = np.array(values, dtype=np.float64, copy=True)
+    rc = lib.ilu0_factor(rp.ctypes.data, ci.ctypes.data, lu.ctypes.data, m)
+    if rc < 0:
+        raise ValueError(f"ILU(0) requires a full diagonal; row {-rc - 1} has none")
+    return lu
+
+
+def trisolve_levels_native(rp, ci, m, lower):
+    """Native dependency-level pass of a triangular solve: level[i] = 1 + the
+    largest level of row i's off-diagonal dependencies (j < i for ``lower``,
+    j > i otherwise).  Returns (level int32 (m,), num_levels >= 1) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rp = np.ascontiguousarray(rp, dtype=np.int64)
+    ci = np.ascontiguousarray(ci, dtype=np.int32)
+    level = np.zeros(m, dtype=np.int32)
+    nl = lib.trisolve_levels(rp.ctypes.data, ci.ctypes.data, m, 1 if lower else 0,
+                             level.ctypes.data)
+    return level, max(int(nl), 1)

@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` file exposes one plain C function; it is compiled by
+Each ``csrc/*.cu`` file exposes plain C functions; it is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under the repo's
 gitignored ``build/`` at first use, and loaded with ``ctypes``.  The library's
 name carries a hash of the source and the command, so an edited source is
@@ -19,8 +19,8 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "SWELL_SRC", "TILE_SRC", "ELL_SRC", "SOURCES", "nvcc_path",
-           "nvcc_command", "build", "build_all", "load_lib"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "SWELL_SRC", "TILE_SRC", "ELL_SRC", "PLANE_SRC", "SOURCES",
+           "nvcc_path", "nvcc_command", "build", "build_all", "load_lib"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -28,14 +28,20 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 SWELL_SRC = os.path.join(CSRC_DIR, "swell_spmv.cu")
 TILE_SRC = os.path.join(CSRC_DIR, "tile_spmv.cu")
 ELL_SRC = os.path.join(CSRC_DIR, "ell_rowsum.cu")
+PLANE_SRC = os.path.join(CSRC_DIR, "plane_split.cu")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# source -> (C entry, its argument types); every entry returns a CUDA error code
+# source -> {C entry: its argument types}; every entry returns a CUDA error code
 SOURCES = {
-    SWELL_SRC: ("swell_spmm", [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I64, _I64, _I64, _I64, _P]),
-    TILE_SRC: ("tile_spmv", [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
-    ELL_SRC: ("ell_rowsum", [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _P]),
+    SWELL_SRC: {
+        "swell_spmm": [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I64, _I64, _I64, _I64, _P],
+        "swell_spmv_planes": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I64, _I64, _I64, _I64, _P],
+    },
+    TILE_SRC: {"tile_spmv": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]},
+    ELL_SRC: {"ell_rowsum": [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _P]},
+    PLANE_SRC: {"plane_split": [_I32, _P, _P, _I64, _I64, _I64, _P]},
 }
 
 _lock = threading.Lock()
@@ -88,14 +94,14 @@ def build_all(srcs=tuple(SOURCES)) -> list:
 
 def load_lib(src: str):
     """The kernel library of one ``csrc`` source, built at first use, with its
-    C entry's argument types set (``SOURCES``)."""
+    C entries' argument types set (``SOURCES``)."""
     with _lock:
         lib = _libs.get(src)
         if lib is None:
-            entry, argtypes = SOURCES[src]
             lib = ctypes.CDLL(build(src))
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for entry, argtypes in SOURCES[src].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[src] = lib
         return lib

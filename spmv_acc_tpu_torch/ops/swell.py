@@ -12,6 +12,13 @@ tensor they run ``swell_amx_plain``, the same sum written with torch gathers and
 are FP64 for both dtypes, so the reference's host repair of the two-f32 and f32
 cancellation floors (``_refine_cancellation``) has nothing to repair and is not
 ported.
+
+The default path reads x in its own dtype.  The JAX package's on-chip numerics
+read x as bf16 planes instead (its MXU one-hot tables gather nothing else):
+``prep_x`` is the counterpart of its plan method ``prep_x`` (K-d,
+``_plane_split_kernel``, on a card the kernel in ``csrc/plane_split.cu``), and
+``swell_ax_planes`` is A @ x~ with x~ read from those planes (the swell kernel's
+plane form).  Neither is on the default path.
 """
 
 from __future__ import annotations
@@ -28,10 +35,10 @@ from .bsr_block import bsr_condense, detect_block_size
 from .swell_plan import SwellLayout, _canonicalize, build_swell_layout, swell_slabs
 from .xla import axpby_finish
 
-__all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan",
-           "swell_plan_within_cap", "clear_swell_cache", "kernel_group", "swell_ax",
-           "swell_amx", "swell_ax_plain", "swell_amx_plain", "spmv_swell", "make_swell_run",
-           "make_swell_amx_run"]
+__all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan", "swell_plan_within_cap", "clear_swell_cache", "kernel_group",
+           "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain", "prep_x",
+           "prep_x_plain", "swell_ax_planes", "swell_ax_planes_plain", "spmv_swell",
+           "make_swell_run", "make_swell_amx_run"]
 
 # Cap on the value slots of one layout (padded slots * r*r), checked on the slab
 # depths before anything is allocated: 1 << 30 slots are ~9.7 GB in float64, ~25x
@@ -39,8 +46,9 @@ __all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan",
 # gets a swell layout: the picker passes swell over, an explicit request raises.
 SWELL_MAX_SLOTS = 1 << 30
 
-# Kernel launches in this process by (dtype, r, k); set to 0 (``.clear()``) to
-# count a run.  Only the kernel's launch site adds to it.
+# Kernel launches in this process: the swell kernel by (dtype, r, k), its plane
+# form by (dtype, 1, 1, "planes"), the plane split by (dtype, "plane_split"); set
+# to 0 (``.clear()``) to count a run.  Only the kernels' launch sites add to it.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
@@ -58,6 +66,8 @@ class DeviceSwellLayout:
     out_rows: int
     x_rows: int
     fill: float
+    delta: int                   # column phase shift: x planes are front-padded by it
+    nchunks: int                 # x chunks of 16384 node columns
     vals: torch.Tensor           # (slots*r*r,) float64 or float32
     lidx: torch.Tensor           # (slots,) uint8
     slab_off: torch.Tensor       # (nslabs,) int64
@@ -94,7 +104,7 @@ class DeviceSwellLayout:
 
         return DeviceSwellLayout(
             rows=lay.rows, cols=lay.cols, r=lay.r, out_rows=out_rows, x_rows=x_rows,
-            fill=lay.fill, vals=t(lay.vals), lidx=t(lay.lidx), slab_off=t(lay.slab_off),
+            fill=lay.fill, delta=lay.delta, nchunks=lay.nchunks, vals=t(lay.vals), lidx=t(lay.lidx), slab_off=t(lay.slab_off),
             slab_log2d=t(lay.slab_log2d), slab_col_base=t(lay.slab_col_base),
             rb_slab_ptr=t(lay.rb_slab_ptr), tail_rows=t(lay.tail_rows, np.int64),
             tail_ci=t(lay.tail_ci, np.int64), tail_v=t(lay.tail_v),
@@ -309,6 +319,184 @@ def swell_ax(layout: DeviceSwellLayout, x: torch.Tensor) -> torch.Tensor:
     one column."""
     _check(layout, x, 1)
     return _amx(layout, x[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------- x as bf16 planes
+#
+# x (or, for r > 1 or k > 1, its S = r*k slices, slice s = c*r + j holding
+# X[j::r, c] at node granularity) front-padded by the plan's column shift delta
+# to nchunks * 16384 entries; each f32 "set" (f32 input: x; f64 input: hi =
+# f32(x), lo = f32(x - hi)) split into three bf16 planes whose sum is exact,
+# c1 = rne(v), c2 = rne(v - c1), c3 = v - c1 - c2, rounding by the reference's
+# integer RNE.  Output (nchunks, 128, S * K * 128) bf16, K = 3 * sets: entry q
+# of slice s, plane p (sets in order, 3 planes each) at
+# [q >> 14, (q >> 7) & 127, (s*K + p)*128 + (q & 127)].
+
+_CHUNK = LANES * LANES  # node columns per x chunk
+
+
+def _rne_bf16(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to the nearest bf16 value (ties to even) by the
+    reference's integer bit operations, as float32.  int64 arithmetic on the
+    bits: PyTorch has no uint32 shifts on every backend."""
+    u = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32).view(torch.float32)
+
+
+def _bf16_bits(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 bits of a bf16-representable float32 ``v``: its top 16 bits."""
+    return (v.view(torch.int32) >> 16).to(torch.int16)
+
+
+def _plane_sets(layout: DeviceSwellLayout, X: torch.Tensor) -> torch.Tensor:
+    """The padded slices of X as the float32 sets, (sets, n_pad, S)."""
+    r, k = layout.r, int(X.shape[1])
+    xs = X.new_zeros(layout.cols * r, k)
+    xs[: layout.x_rows] = X
+    xs = xs.view(layout.cols, r, k).transpose(1, 2).reshape(layout.cols, r * k)
+    xp = X.new_zeros(layout.nchunks * _CHUNK, r * k)
+    xp[layout.delta: layout.delta + layout.cols] = xs
+    if xp.dtype == torch.float64:
+        hi = xp.float()
+        return torch.stack([hi, (xp - hi.double()).float()])
+    return xp[None]
+
+
+def _check_prep(layout: DeviceSwellLayout, x) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"prep_x takes a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != layout.dtype:
+        raise ValueError(f"prep_x: x is {x.dtype}, the plan {layout.dtype}")
+    if x.dim() not in (1, 2) or x.shape[0] != layout.x_rows:
+        raise ValueError(f"prep_x: x has shape {tuple(x.shape)}, the matrix has "
+                         f"{layout.x_rows} columns")
+    if not x.is_contiguous():
+        raise ValueError("prep_x: x must be contiguous")
+    if x.device != layout.device:
+        raise ValueError(f"prep_x: x is on {x.device}, the plan on {layout.device}")
+
+
+def prep_x_plain(layout: DeviceSwellLayout, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 chunk planes of x, (n,) or (n, k), for ``layout`` (layout
+    above): the JAX package's ``_prep_x_pure(native=False)`` in plain PyTorch,
+    bit for bit.  The CPU path of :func:`prep_x`, the plane-split kernel's
+    reference, and on any device the r x k slice layout."""
+    _check_prep(layout, x)
+    X = x[:, None] if x.dim() == 1 else x
+    sets = _plane_sets(layout, X)                    # (sets, n_pad, S)
+    planes = []
+    for v in sets:
+        c1 = _rne_bf16(v)
+        r1 = v - c1
+        c2 = _rne_bf16(r1)
+        planes += [c1, c2, r1 - c2]
+    st = _bf16_bits(torch.stack(planes))             # (K, n_pad, S)
+    K, S = st.shape[0], st.shape[2]
+    st = st.permute(2, 0, 1).reshape(S, K, layout.nchunks, LANES, LANES)
+    return st.permute(2, 3, 0, 1, 4).reshape(layout.nchunks, LANES, S * K * LANES).view(
+        torch.bfloat16)
+
+
+def _launch_plane_split(layout: DeviceSwellLayout, x: torch.Tensor) -> torch.Tensor:
+    from ._build import PLANE_SRC, load_lib
+
+    lib = load_lib(PLANE_SRC)
+    sets = 2 if layout.dtype == torch.float64 else 1
+    out = torch.empty(layout.nchunks, LANES, 3 * sets * LANES, dtype=torch.bfloat16,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.plane_split(int(sets == 2), ctypes.c_void_p(x.data_ptr()),
+                             ctypes.c_void_p(out.data_ptr()), layout.x_rows, layout.delta,
+                             layout.nchunks * _CHUNK, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"plane-split kernel launch failed: CUDA error {rc}")
+    LAUNCHES[(_DTYPES[layout.dtype], "plane_split")] += 1
+    return out
+
+
+def prep_x(layout: DeviceSwellLayout, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 chunk planes of x for ``layout`` (counterpart of the JAX plan
+    method ``DeviceSwellPlan.prep_x``).  For a scalar plan and one column, a
+    CUDA ``x`` launches the plane-split kernel (``csrc/plane_split.cu``) and a
+    CPU ``x`` runs :func:`prep_x_plain`; the r x k slice layout, plain XLA ops
+    in the JAX package, is :func:`prep_x_plain` on any device."""
+    _check_prep(layout, x)
+    if x.device.type == "cuda" and layout.r == 1 and x.dim() == 1:
+        return _launch_plane_split(layout, x)
+    if x.device.type in ("cpu", "cuda"):
+        return prep_x_plain(layout, x)
+    raise NotImplementedError(f"prep_x has no kernel for device {x.device}")
+
+
+def _check_planes(layout: DeviceSwellLayout, planes) -> None:
+    if layout.r != 1:
+        raise ValueError(f"swell_ax_planes runs scalar plans (r = 1), not r = {layout.r}")
+    if not isinstance(planes, torch.Tensor) or planes.dtype != torch.bfloat16:
+        raise TypeError("swell_ax_planes takes the bfloat16 planes of prep_x")
+    sets = 2 if layout.dtype == torch.float64 else 1
+    want = (layout.nchunks, LANES, 3 * sets * LANES)
+    if tuple(planes.shape) != want or not planes.is_contiguous():
+        raise ValueError(f"swell_ax_planes: planes of shape {tuple(planes.shape)}, the plan "
+                         f"takes contiguous {want}")
+    if planes.device != layout.device:
+        raise ValueError(f"swell_ax_planes: planes on {planes.device}, the plan on "
+                         f"{layout.device}")
+
+
+def _planes_x(layout: DeviceSwellLayout, planes: torch.Tensor, cols: torch.Tensor):
+    """x~ at node columns ``cols``, in the plan's dtype: the sum of each set's
+    three planes (exact in float32), hi + lo in float64 for a float64 plan."""
+    q = cols.long() + layout.delta
+    K = planes.shape[2] // LANES
+    v = planes.view(-1, K, LANES)[q >> 7, :, q & (LANES - 1)].float()   # (len, K)
+    hi = (v[:, 0] + v[:, 1]) + v[:, 2]
+    if K == 3:
+        return hi
+    return hi.double() + ((v[:, 3] + v[:, 4]) + v[:, 5]).double()
+
+
+def swell_ax_planes_plain(layout: DeviceSwellLayout, planes: torch.Tensor) -> torch.Tensor:
+    """A @ x~ for the x~ the planes hold: :func:`swell_ax_plain` of x~ rebuilt
+    from the planes.  The CPU path of :func:`swell_ax_planes` and its kernel's
+    reference."""
+    _check_planes(layout, planes)
+    cols = torch.arange(layout.x_rows, device=planes.device)
+    return swell_ax_plain(layout, _planes_x(layout, planes, cols))
+
+
+def swell_ax_planes(layout: DeviceSwellLayout, planes: torch.Tensor) -> torch.Tensor:
+    """A @ x~, (m,) in the plan's dtype, x~ read from the bf16 planes of
+    :func:`prep_x` (scalar plans).  On a CUDA tensor the swell kernel's plane
+    form (one launch; the COO tail by ``index_add_``); on a CPU tensor
+    :func:`swell_ax_planes_plain`.  In float32 x~ == x, so the result equals
+    :func:`swell_ax` bit for bit."""
+    _check_planes(layout, planes)
+    if planes.device.type == "cpu":
+        return swell_ax_planes_plain(layout, planes)
+    if planes.device.type != "cuda":
+        raise NotImplementedError(f"swell_ax_planes has no kernel for device {planes.device}")
+    from ._build import SWELL_SRC, load_lib
+
+    lib = load_lib(SWELL_SRC)
+    y = torch.empty(layout.out_rows, dtype=layout.dtype, device=planes.device)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        rc = lib.swell_spmv_planes(
+            int(layout.dtype == torch.float64), ptr(layout.vals.data_ptr()),
+            ptr(layout.lidx.data_ptr()), ptr(layout.slab_off.data_ptr()),
+            ptr(layout.slab_log2d.data_ptr()), ptr(layout.slab_col_base.data_ptr()),
+            ptr(layout.rb_slab_ptr.data_ptr()), ptr(planes.data_ptr()), ptr(y.data_ptr()),
+            layout.out_rows, layout.x_rows, layout.delta, layout.mrb, ptr(stream))
+    if rc != 0:
+        raise RuntimeError(f"plane-form swell kernel launch failed: CUDA error {rc}")
+    LAUNCHES[(_DTYPES[layout.dtype], 1, 1, "planes")] += 1
+    if layout.tail_v.numel():
+        xt = _planes_x(layout, planes, layout.tail_ci)
+        y.index_add_(0, layout.tail_rows, layout.tail_v * xt)
+    return y
 
 
 def spmv_swell(alpha, beta, csr, x, y, plan=None):

@@ -94,6 +94,8 @@ class SwellLayout:
     cols: int
     r: int
     nnz: int                   # total nnz, kernel + tail (node nnz for r > 1)
+    delta: int                 # the slabs' column phase shift (node columns)
+    nchunks: int               # x chunks of 16384 node columns, ceil((cols + delta) / 16384)
     vals: np.ndarray           # (slots*r*r,) source dtype
     lidx: np.ndarray           # (slots,) uint8
     slab_off: np.ndarray       # (nslabs,) int64
@@ -421,7 +423,8 @@ def build_swell_layout(sl: SwellSlabs) -> SwellLayout:
     np.cumsum(np.bincount(sl.slab_rb, minlength=mrb), out=rb_slab_ptr[1:])
     kernel_nnz = int(len(sl.values))
     return SwellLayout(
-        rows=sl.rows, cols=sl.cols, r=r, nnz=sl.nnz, vals=vals, lidx=lidx,
+        rows=sl.rows, cols=sl.cols, r=r, nnz=sl.nnz, delta=sl.delta, nchunks=sl.nchunks,
+        vals=vals, lidx=lidx,
         slab_off=off, slab_log2d=k.astype(np.int8),
         slab_col_base=(sl.slab_w[order] * CW - sl.delta).astype(np.int32),
         rb_slab_ptr=rb_slab_ptr,

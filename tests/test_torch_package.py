@@ -64,11 +64,13 @@ def test_swell_kernel_source_exists():
 
 @pytest.mark.parametrize("src", sorted(_build.SOURCES))
 def test_kernel_sources_have_their_c_entry(src):
-    entry, argtypes = _build.SOURCES[src]
-    assert os.path.dirname(src) == os.path.join(PKG, "csrc")
+    entries = _build.SOURCES[src]
+    assert entries and os.path.dirname(src) == os.path.join(PKG, "csrc")
     with open(src) as f:
         text = f.read()
-    assert f'extern "C" int {entry}(' in text and "cudaGetLastError" in text
+    assert "cudaGetLastError" in text
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in text
     assert _build.nvcc_command(src, "o.so")[-1] == src
 
 
@@ -180,3 +182,100 @@ def test_ell_kernel_matches_plain_on_card(cuda_device, dtype, vs):
     a, p = (t.cpu().numpy().astype(np.float64)[:3000] for t in (a, p))
     ulp = 0.0 if dtype == np.float64 else 2.0**-23
     assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * _row_bound(csr, x)).all()
+
+
+# delta 2 (banded), 117 (tall) and three x chunks (wide)
+PLANE_SHAPES = {"banded": None, "tall": (40000, 300, 9000), "wide": (300, 40000, 9000)}
+
+
+def _plane_case(name, dtype, device):
+    from spmv_acc_tpu_torch.formats import banded_csr, random_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import swell
+
+    shape = PLANE_SHAPES[name]
+    csr = (banded_csr(300, bandwidth=5, seed=70, dtype=dtype) if shape is None
+           else random_csr(*shape, seed=sum(shape), dtype=dtype)).to(device)
+    layout = swell.get_swell_plan(csr, r=1)
+    x = torch.from_numpy(random_x_y(csr.cols, csr.rows, seed=4, dtype=dtype)[0]).to(device)
+    return csr, layout, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", sorted(PLANE_SHAPES))
+def test_plane_split_kernel_matches_plain_on_card(cuda_device, dtype, name):
+    """prep_x's kernel against prep_x_plain, bit for bit (as int16)."""
+    from spmv_acc_tpu_torch.ops import swell
+
+    _, layout, x = _plane_case(name, dtype, cuda_device)
+    key = ("f64" if dtype == np.float64 else "f32", "plane_split")
+    before = swell.LAUNCHES[key]
+    got = swell.prep_x(layout, x)
+    want = swell.prep_x_plain(layout, x)
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[key] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", sorted(PLANE_SHAPES))
+def test_plane_form_kernel_matches_plain_on_card(cuda_device, dtype, name):
+    """swell_ax_planes against swell_ax_planes_plain within 1e-12 (|A|·|x|)
+    (plus one float32 ulp); in float32 equal to the direct kernel bit for bit."""
+    from spmv_acc_tpu_torch.ops import swell
+
+    csr, layout, x = _plane_case(name, dtype, cuda_device)
+    planes = swell.prep_x_plain(layout, x)
+    key = ("f64" if dtype == np.float64 else "f32", 1, 1, "planes")
+    before = swell.LAUNCHES[key]
+    a = swell.swell_ax_planes(layout, planes)
+    p = swell.swell_ax_planes_plain(layout, planes)
+    direct = swell.swell_ax(layout, x)
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[key] == before + 1
+    a64, p64 = a.cpu().numpy().astype(np.float64), p.cpu().numpy().astype(np.float64)
+    ulp = 0.0 if dtype == np.float64 else 2.0**-23
+    assert (np.abs(a64 - p64) <= ulp * np.abs(p64) + 1e-12 * _row_bound(csr, x.cpu().numpy())).all()
+    if dtype == np.float32:
+        assert torch.equal(a, direct)
+
+
+@pytest.mark.cuda
+def test_preconditioned_cg_on_card(cuda_device, monkeypatch):
+    """CG with ILU(0) sweeps on the swell kernel, on the card and on the CPU,
+    and the plane form of the matvec: iterations within one (two for the plane
+    form), solutions within 1e-8 of x_true."""
+    from spmv_acc_tpu_torch.formats import aniso_laplacian_csr
+    from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve, jacobi_preconditioner
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    monkeypatch.setattr(tri, "ILU_SWELL_MIN", 0)  # the sweeps on the swell kernel
+    host = aniso_laplacian_csr(48, 48, 0.01)
+    rp, ci, v, shape = host.to_numpy()
+    x_true = np.random.default_rng(5).standard_normal(shape[0])
+    from spmv_acc_tpu_torch.ops.golden import host_spmv
+
+    b = host_spmv(1.0, 0.0, rp, ci, v, x_true, np.zeros(shape[0]))
+    runs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        csr = host.to(dev)
+        fact = tri.ilu0(csr, sweeps=3)
+        assert fact.swell is not None
+        res = cg_solve(csr, torch.from_numpy(b).to(dev), tol=1e-10, max_iters=2000,
+                       strategy="swell", precond=fact)
+        runs[dev.type] = (res.iters, res.x.cpu().numpy())
+    assert abs(runs["cpu"][0] - runs["cuda"][0]) <= 1 and runs["cuda"][0] < 2000
+    for _, x in runs.values():
+        assert np.linalg.norm(x - x_true) < 1e-8 * np.linalg.norm(x_true)
+    csr = host.to(cuda_device)
+    layout = swell.get_swell_plan(csr)
+    db = torch.from_numpy(b).to(cuda_device)
+    direct = cg_solve(csr, db, tol=1e-10, max_iters=2000, strategy="swell",
+                      precond=jacobi_preconditioner(csr))
+    planes = _cg_loop(lambda p: swell.swell_ax_planes(layout, swell.prep_x(layout, p)),
+                      jacobi_preconditioner(csr), db, torch.zeros_like(db), 1e-10, 2000)
+    assert abs(planes.iters - direct.iters) <= max(2, direct.iters // 50)
+    assert np.linalg.norm(planes.x.cpu().numpy() - x_true) < 1e-8 * np.linalg.norm(x_true)
