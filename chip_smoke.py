@@ -9,7 +9,10 @@ compiler.  It builds the four kernel sources of ``spmv_acc_tpu_torch/csrc``
 at once), holds every variant the port launches against its plain PyTorch
 version (swell at float64 and float32, BSR r = 1..4, k = 1, 3, 8 columns; the
 tile and ELL kernels, the plane split (bit for bit) and the plane-form swell at
-both dtypes on every smoke matrix), and drives the port's main paths at full
+both dtypes on every smoke matrix; the swell and tile kernels again with their
+chunk schedules cut to 1 and 4 slot rows, so that every row block is split and
+its partials go through the fix-up pass, two launches equal bit for bit), and
+drives the port's main paths at full
 size:
 ``spmv(strategy="adaptive")`` on boneS10 (scalar plan, float64 and float32)
 and on TSOPF_RS_b2383 (the detector's r = 4 BSR plan), ``spmm`` and
@@ -21,7 +24,9 @@ solver path: ILU(0) and preconditioned CG on Ga41As41H72 (SPD-ized) and on
 512^2 anisotropic diffusion, CG with the plane split and the plane-form swell
 kernel as its matvec, and ``spmv-solve`` on af23560.  It then times each
 kernel against its plain version and PyTorch's CSR product (cuSPARSE), beside
-its bound.  Every phase prints lines tagged
+its bound, times the fix-up pass, and sweeps the chunk caps
+(``SWELL_CHUNK_ROWS``, ``TILE_CHUNK_ROWS``) on Ga41As41H72-SPD, TSOPF_RS_b2383
+and boneS10.  Every phase prints lines tagged
 with its name; the first failure exits non-zero.  Without a CUDA device it
 fails at once.  The last three lines are the card, the kernels' JSON record and
 the device JSON record.
@@ -48,6 +53,9 @@ F32_ULP = 2.0**-23
 # (NVIDIA's data sheet, outside the tensor cores; the plane split's bit operations)
 FP64_TFLOPS = 34.0
 F32_TFLOPS = 67.0
+# the chunk caps the sweep times (slot rows a thread block walks at most)
+SWELL_SWEEP = (8, 16, 32, 64, 128, 256)
+TILE_SWEEP = (32, 64, 128, 256, 512)
 
 
 def fail(msg: str) -> None:
@@ -135,7 +143,7 @@ def ptxas_summary(log: str) -> str:
     """One 'swell f64 r1 g1: 31 regs, 0 B spill' item per kernel instantiation."""
     out, cur, spill = [], None, "spill not reported"
     for ln in log.splitlines():
-        m = re.search(r"(swell|tile|ell|plane_split)_kernelI([df])((?:L[ib]\d+E)*)E", ln)
+        m = re.search(r"(swell|tile|ell|plane_split|fixup)_kernelI([df])((?:L[ib]\d+E)*)E", ln)
         if m and "Compiling entry function" in ln:
             params = " ".join(re.findall(r"L[ib](\d+)E", m.group(3)))
             cur = f"{m.group(1)} f{'64' if m.group(2) == 'd' else '32'} {params}".strip()
@@ -159,6 +167,12 @@ def launches_of(swell, dtype=None, r=None, k=None) -> int:
     return sum(n for key, n in swell.LAUNCHES.items() if len(key) == 3
                and (dtype is None or key[0] == dtype) and (r is None or key[1] == r)
                and (k is None or key[2] == k))
+
+
+def sched_text(sc) -> str:
+    """A chunk schedule's counts, for a phase line."""
+    return (f"(chunks of <= {sc.max_rows} rows: {sc.nchunks} chunks, {sc.nsplit} split row "
+            f"blocks, {sc.nparts} partials)")
 
 
 def spmv_bytes(csr, k=1, x_bytes=None) -> int:
@@ -223,6 +237,16 @@ def main() -> int:
         total = sum(getattr(e, "device_time_total", 0.0) or e.cuda_time_total for e in evs)
         count = sum(e.count for e in evs)
         return total / count if count else None
+
+    def sweep(label, resched, run, values):
+        """µs per launch (loop of 20) of ``run`` on the plan ``resched(C)``
+        for every chunk cap C in ``values``, in turns up and down."""
+        plans = {c: resched(c) for c in values}
+        up = {c: loop_us(lambda: run(plans[c])) for c in values}
+        down = {c: loop_us(lambda: run(plans[c])) for c in reversed(values)}
+        phase("sweep", f"{label}: " + "; ".join(
+            f"C={c}: {up[c]!r} / {down[c]!r} us ({plans[c].schedule.nchunks} chunks, "
+            f"{plans[c].schedule.nsplit} split)" for c in values) + f"; card: {card}")
 
     def tensor_bytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -388,6 +412,70 @@ def main() -> int:
         fail("no smoke matrix has a plan with a column shift delta > 0")
     phase("plane-split", f"launches so far: {dict(swell.LAUNCHES)}; largest delta "
           f"{max(deltas)}")
+
+    # 3d. the same checks with the chunk schedules cut to 1 and to 4 slot rows
+    # (tile: one block, or runs of at most 4 rows), so that every row block of
+    # more is split and its partials go through the fix-up pass; two launches
+    # must agree bit for bit
+    from spmv_acc_tpu_torch.ops import swell_plan, tile_plan
+
+    default_rows = (swell_plan.SWELL_CHUNK_ROWS, tile_plan.TILE_CHUNK_ROWS)
+
+    def twice(label, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"{label}: two launches differ")
+        return a
+
+    for cut in (1, 4):
+        swell_plan.SWELL_CHUNK_ROWS = tile_plan.TILE_CHUNK_ROWS = cut
+        swell.clear_swell_cache()
+        ap.clear_tile_cache()
+        swell.LAUNCHES.clear()
+        ap.LAUNCHES.clear()
+        for name, make in smoke_matrices(gen).items():
+            for dtype in (np.float64, np.float32):
+                csr = make().astype(tdt[dtype]).to(dev)
+                x, _ = gen.random_x_y(csr.cols, csr.rows, seed=78, dtype=dtype)
+                dx = torch.from_numpy(x).to(dev)
+                label = f"{name} {np.dtype(dtype).name} cut={cut}"
+                layout = swell.get_swell_plan(csr)
+                a = twice(label, lambda: swell.swell_ax(layout, dx))
+                compare(f"{label} r={layout.r} {sched_text(layout.schedule)}; two launches "
+                        f"bit for bit equal", csr, x, a, swell.swell_ax_plain(layout, dx))
+                dp = ap.get_tile_plan(csr)
+                a = twice(f"tile {label}", lambda: ap.tile_spmv(dp, dx))
+                compare(f"tile {label} {sched_text(dp.schedule)}; two launches bit for bit "
+                        f"equal", csr, x, a, ap.tile_spmv_plain(dp, dx), "zoo-vs-plain")
+                planes_check(label, csr, swell.get_swell_plan(csr, r=1), dx)
+        for name, make in bsr_cases(gen).items():
+            base = make()
+            for dtype in (np.float64, np.float32):
+                csr = base.astype(tdt[dtype]).to(dev)
+                for r in (1, 2, 3, 4):
+                    # an r x r plan takes SWELL_CHUNK_ROWS // r slot rows a chunk
+                    swell_plan.SWELL_CHUNK_ROWS = cut * r
+                    layout = swell.get_swell_plan(csr, r=r)
+                    if layout.schedule.max_rows != cut:
+                        fail(f"{name} r={r}: chunks of {layout.schedule.max_rows}, not {cut}")
+                    for k in (1, 3, 8):
+                        X = rng.standard_normal((csr.cols, k)).astype(dtype)
+                        dX = torch.from_numpy(X).to(dev)
+                        label = f"{name} {np.dtype(dtype).name} r={r} k={k} cut={cut}"
+                        a = twice(label, lambda: swell.swell_amx(layout, dX))
+                        compare(f"{label} {sched_text(layout.schedule)}; two launches bit "
+                                f"for bit equal", csr, X, a, swell.swell_amx_plain(layout, dX))
+        fixups = {key: c for key, c in swell.LAUNCHES.items() if "fixup" in str(key[-1])}
+        phase("h1-vs-plain", f"cut={cut}: swell launches {dict(swell.LAUNCHES)}; tile "
+              f"{dict(ap.LAUNCHES)}")
+        if not fixups or not ap.LAUNCHES[("f64", "fixup")] or not ap.LAUNCHES[("f32", "fixup")]:
+            fail(f"cut={cut}: the fix-up passes did not run")
+    swell_plan.SWELL_CHUNK_ROWS, tile_plan.TILE_CHUNK_ROWS = default_rows
+    swell.clear_swell_cache()
+    ap.clear_tile_cache()
+    phase("h1-vs-plain", f"schedules back to SWELL_CHUNK_ROWS {default_rows[0]}, "
+          f"TILE_CHUNK_ROWS {default_rows[1]}")
     records = {}
 
     # 4. the main path at full size: boneS10 through spmv(strategy="adaptive")
@@ -683,6 +771,14 @@ def main() -> int:
            2 * gcsr.nnz, FP64_TFLOPS, library(gcsr, g0), tensor_bytes(
                glay.vals, glay.lidx, glay.slab_off, glay.slab_log2d, glay.slab_col_base,
                glay.rb_slab_ptr, g0, g0))
+    gs = glay.schedule
+    ga_ax = lambda: swell.swell_ax(glay, g0)  # noqa: E731
+    phase("solver", f"Ga41As41H72-SPD swell schedule: {sched_text(gs)} for {glay.mrb} row "
+          f"blocks; partial buffer {gs.nparts * glay.r * 128 * 8} B at k = 1; device time "
+          f"(torch.profiler) chunk kernel {device_us(ga_ax, 'swell_kernel')!r} us, fix-up "
+          f"{device_us(ga_ax, 'fixup_kernel')!r} us a launch; card: {card}")
+    sweep(f"Ga41As41H72-SPD swell f64 r={glay.r} k=1", lambda c: swell.rescheduled(glay, c),
+          lambda lay: swell.swell_ax(lay, g0), SWELL_SWEEP)
     phase("solver", f"Ga41As41H72-SPD swell layout: r={glay.r}, {glay.mrb} row blocks, "
           f"{glay.slots} slots, fill {glay.fill!r}, tail {glay.tail_v.numel()}; r=1 layout "
           f"{glay1.slots} slots, fill {glay1.fill!r}: {us_spmv1!r} us a launch; L factor "
@@ -938,6 +1034,38 @@ def main() -> int:
                             tdp.rb_ptr, dtx))
     phase("times", f"TSOPF_RS_b2383 tile kernel {t_tile!r} us against the swell r=4 kernel "
           f"{t_on!r} us and r=1 {t_off!r} us per launch (loops of 20)")
+
+    # 8b'. the fix-up pass's own device time, and the sweep that sets the chunk caps
+    tlay1 = swell.get_swell_plan(tsopf_dev, r=1)
+    fix = []
+    for label, lay, fn, name in (
+            ("swell r=1", tlay1, lambda: swell.swell_ax(tlay1, dtx), "swell_kernel"),
+            ("swell r=4", tlay, lambda: swell.swell_ax(tlay, dtx), "swell_kernel"),
+            ("tile", tdp, lambda: ap.tile_spmv(tdp, dtx), "tile_kernel")):
+        fix.append(f"{label} {sched_text(lay.schedule)}: chunk kernel "
+                   f"{device_us(fn, name)!r} us, fix-up {device_us(fn, 'fixup_kernel')!r} us")
+    phase("times", f"TSOPF_RS_b2383 device time a launch (torch.profiler): {'; '.join(fix)}; "
+          f"card: {card}")
+    bone_x = torch.from_numpy(bx).to(dev)
+    for label, dcsr, X in (("TSOPF_RS_b2383 swell f64 r=1 k=1", tsopf_dev, dtx),
+                           ("boneS10 swell f64 r=1 k=1", bone_dev, bone_x),
+                           ("boneS10 swell f32 r=1 k=1", bone32, torch.from_numpy(x32).to(dev)),
+                           (f"TSOPF_RS_b2383 swell f64 k={K}", tsopf_dev, spmm_X["TSOPF_RS_b2383"]),
+                           (f"boneS10 swell f64 k={K}", bone_dev, spmm_X["boneS10"])):
+        lay = swell.get_swell_plan(dcsr, r=1) if "r=1" in label else swell.get_swell_plan(dcsr)
+        run = ((lambda p, X=X: swell.swell_ax(p, X)) if X.dim() == 1
+               else (lambda p, X=X: swell.swell_amx(p, X)))
+        sweep(f"{label} (r={lay.r})", lambda c, lay=lay: swell.rescheduled(lay, c), run,
+              SWELL_SWEEP)
+    # the detector's r is 4; r = 2, 3 check the rule SWELL_CHUNK_ROWS // r
+    for r in (4, 3, 2):
+        lay = swell.get_swell_plan(tsopf_dev, r=r)
+        sweep(f"TSOPF_RS_b2383 swell f64 r={r} k=1", lambda c, lay=lay: swell.rescheduled(lay, c),
+              lambda p: swell.swell_ax(p, dtx), (4,) + SWELL_SWEEP)
+    for label, dp, X in (("TSOPF_RS_b2383 tile f64", tdp, dtx),
+                         ("boneS10 tile f64", ap.get_tile_plan(bone_dev), bone_x)):
+        sweep(label, lambda c, dp=dp: ap.rescheduled(dp, c),
+              lambda p, X=X: ap.tile_spmv(p, X), TILE_SWEEP)
 
     # 8c. the plane split and the plane-form swell: on the solver's aniso
     # system (their main path, recorded) and on boneS10, against the direct kernel

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..formats.containers import CSR
 from ..formats.convert import coo_to_csr_arrays
@@ -54,6 +55,12 @@ def load_matrix(path, fmt: str | None = None, dtype=np.float64):
     raise ValueError(f"unknown format {fmt!r} (expected csr|mtx|bin2)")
 
 
-def load_csr(path, fmt: str | None = None, dtype=np.float64, device="cpu") -> CSR:
+def load_csr(path, fmt: str | None = None, dtype=np.float64, device="cuda") -> CSR:
+    """The matrix in ``path`` as a :class:`CSR` on ``device``: the card by
+    default, as the JAX package's ``load_csr`` places it on its default device.
+    Raises RuntimeError for a CUDA device when there is none; pass
+    ``device="cpu"`` to load it on the host."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_csr: no CUDA device; pass device='cpu' to load on the CPU")
     row_ptr, col_idx, values, shape, _ = load_matrix(path, fmt=fmt, dtype=dtype)
     return CSR.from_numpy(row_ptr, col_idx, values, shape, device=device)

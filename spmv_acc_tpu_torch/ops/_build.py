@@ -34,12 +34,13 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # source -> {C entry: its argument types}; every entry returns a CUDA error code
 SOURCES = {
     SWELL_SRC: {
-        "swell_spmm": [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I64, _I64, _I64, _I64, _P],
-        "swell_spmv_planes": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I64, _I64, _I64, _I64, _P],
+        "swell_spmm": [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P,
+                       _I64, _I64, _I64, _P],
+        "swell_spmv_planes": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P,
+                              _I64, _I64, _I64, _P],
     },
-    TILE_SRC: {"tile_spmv": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]},
+    TILE_SRC: {"tile_spmv": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I64, _I64,
+                             _P]},
     ELL_SRC: {"ell_rowsum": [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _P]},
     PLANE_SRC: {"plane_split": [_I32, _P, _P, _I64, _I64, _I64, _P]},
 }

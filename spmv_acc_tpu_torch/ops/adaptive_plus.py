@@ -5,9 +5,10 @@ Counterpart of ``spmv_acc_tpu/ops/adaptive_plus.py``.  The host plan
 (:mod:`.tile_plan`: (128-row x 128-column) blocks bucketed by depth W) is built
 once per (matrix, dtype) and laid out for the GPU: every block's W x 128 slots
 (values in the source dtype, in-window column indices as ``uint8``) stored
-contiguously, the blocks sorted by (row block, bucket, column tile), and a
-row-block pointer over them, so that one CUDA thread block owns one 128-row
-block (``csrc/tile_spmv.cu``).  On a CUDA tensor ``tile_spmv`` launches that
+contiguously, the blocks sorted by (row block, bucket, column tile), a
+row-block pointer over them, and a chunk schedule that cuts each row block into
+runs of whole blocks of at most ``TILE_CHUNK_ROWS`` slot rows, one CUDA thread
+block each (``csrc/tile_spmv.cu``).  On a CUDA tensor ``tile_spmv`` launches that
 kernel; on a CPU tensor it runs ``tile_spmv_plain``, the same sum in float64
 with torch gathers and ``index_add_`` over the slots in layout order.  There is
 no fallback from one to the other.
@@ -27,15 +28,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from .swell import _torch_dtype
-from .tile_plan import COL_WINDOW, LANES, TilePlan, build_tile_plan
+from .swell import _device_schedule, _torch_dtype
+from .swell_plan import ChunkSchedule
+from .tile_plan import COL_WINDOW, LANES, TilePlan, build_tile_plan, build_tile_schedule
 from .xla import axpby_finish
 
-__all__ = ["DeviceTilePlan", "LAUNCHES", "get_tile_plan", "clear_tile_cache", "tile_spmv",
-           "tile_spmv_plain", "tile_spmv_f32", "tile_spmv_df64", "spmv_adaptive_plus"]
+__all__ = ["DeviceTilePlan", "LAUNCHES", "get_tile_plan", "clear_tile_cache", "rescheduled",
+           "tile_spmv", "tile_spmv_plain", "tile_spmv_f32", "tile_spmv_df64", "spmv_adaptive_plus"]
 
-# Kernel launches in this process by dtype ("f64", "f32"); set to 0
-# (``.clear()``) to count a run.  Only the kernel's launch site adds to it.
+# Kernel launches in this process by dtype ("f64", "f32"), and of its fix-up
+# pass (a launch whose schedule splits a row block) by (dtype, "fixup"); set to
+# 0 (``.clear()``) to count a run.  Only the kernel's launch site adds to it.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
@@ -55,6 +58,8 @@ class DeviceTilePlan:
     blk_depth: torch.Tensor  # (blocks,) int32 W
     blk_ct: torch.Tensor     # (blocks,) int32 column tile
     rb_ptr: torch.Tensor     # (num_row_blocks + 1,) int64 blocks of each row block
+    schedule: ChunkSchedule  # the row blocks cut into runs of blocks (host arrays)
+    sched: torch.Tensor      # schedule.packed() on the device: what the kernel reads
     # (row, column) of every slot, derived at the plain version's first use
     _plain_idx: tuple | None = dataclasses.field(default=None, repr=False)
 
@@ -101,7 +106,15 @@ class DeviceTilePlan:
             vals=t(vals[src_rows].reshape(-1), npdt),
             lidx=t(lidx[src_rows].reshape(-1), np.uint8),
             blk_off=t(blk_off, np.int64), blk_depth=t(depth, np.int32), blk_ct=t(ct, np.int32),
-            rb_ptr=t(rb_ptr, np.int64))
+            rb_ptr=t(rb_ptr, np.int64), **_device_schedule(build_tile_schedule(depth, rb_ptr),
+                                                           device))
+
+
+def rescheduled(dp: DeviceTilePlan, max_rows: int) -> DeviceTilePlan:
+    """``dp`` with its chunk schedule rebuilt for runs of at most ``max_rows``
+    slot rows; every other array is shared."""
+    sched = build_tile_schedule(dp.blk_depth.cpu(), dp.rb_ptr.cpu(), max_rows)
+    return dataclasses.replace(dp, **_device_schedule(sched, dp.device))
 
 
 # Plan cache.  Each entry holds the CSR's three tensors and is returned only when
@@ -146,22 +159,30 @@ def _check(dp: DeviceTilePlan, x, name="tile_spmv") -> None:
 
 
 def _launch(dp: DeviceTilePlan, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a contiguous CUDA x: one kernel launch."""
+    """y = A @ x for a contiguous CUDA x: one call that launches the kernel
+    and, when the schedule splits a row block, its fix-up pass."""
     from ._build import TILE_SRC, load_lib
 
     lib = load_lib(TILE_SRC)
     y = torch.empty(dp.rows, dtype=dp.dtype, device=x.device)
+    sc = dp.schedule
     ptr = ctypes.c_void_p
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        # FP64 partials of the split row blocks, on the current stream
+        part = (torch.empty(sc.nparts * LANES, dtype=torch.float64, device=x.device)
+                if sc.nsplit else None)
         rc = lib.tile_spmv(
             int(dp.dtype == torch.float64), ptr(dp.vals.data_ptr()), ptr(dp.lidx.data_ptr()),
             ptr(dp.blk_off.data_ptr()), ptr(dp.blk_depth.data_ptr()),
-            ptr(dp.blk_ct.data_ptr()), ptr(dp.rb_ptr.data_ptr()), ptr(x.data_ptr()),
-            ptr(y.data_ptr()), dp.rows, dp.cols, dp.num_row_blocks, ptr(stream))
+            ptr(dp.blk_ct.data_ptr()), ptr(dp.sched.data_ptr()), sc.nchunks, sc.nsplit,
+            None if part is None else ptr(part.data_ptr()), ptr(x.data_ptr()),
+            ptr(y.data_ptr()), dp.rows, dp.cols, ptr(stream))
     if rc != 0:
         raise RuntimeError(f"tile kernel launch failed: CUDA error {rc}")
     LAUNCHES[_DTYPES[dp.dtype]] += 1
+    if sc.nsplit:
+        LAUNCHES[(_DTYPES[dp.dtype], "fixup")] += 1
     return y
 
 

@@ -3,9 +3,11 @@ wrappers and their plain PyTorch version.
 
 Counterpart of ``spmv_acc_tpu/ops/swell.py``.  The host plan
 (:mod:`.swell_plan`) is built once per (matrix, dtype, r) and moved to the
-matrix's device; ``swell_ax`` computes A@x and ``swell_amx`` A@X over it, in
-float64 or float32, on a scalar plan (r = 1) or on the BSR node pattern of r x r
-micro-blocks (r = 2..4, chosen by the reference's detector).  On a CUDA tensor
+matrix's device with its chunk schedule (row-blocks cut into chunks of at most
+``SWELL_CHUNK_ROWS // r`` slot rows, one CUDA thread block each); ``swell_ax``
+computes A@x and ``swell_amx`` A@X over it, in float64 or float32, on a scalar
+plan (r = 1) or on the BSR node pattern of r x r micro-blocks (r = 2..4,
+chosen by the reference's detector).  On a CUDA tensor
 they launch the hand-written Hopper kernel in ``csrc/swell_spmv.cu``; on a CPU
 tensor they run ``swell_amx_plain``, the same sum written with torch gathers and
 ``index_add_`` in float64.  There is no fallback from one to the other.  Sums
@@ -32,11 +34,12 @@ import torch
 
 from ..config import LANES
 from .bsr_block import bsr_condense, detect_block_size
-from .swell_plan import SwellLayout, _canonicalize, build_swell_layout, swell_slabs
+from .swell_plan import (ChunkSchedule, SwellLayout, _canonicalize, build_swell_layout,
+                         build_swell_schedule, swell_slabs)
 from .xla import axpby_finish
 
 __all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan", "swell_plan_within_cap", "clear_swell_cache", "kernel_group",
-           "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain", "prep_x",
+           "rescheduled", "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain", "prep_x",
            "prep_x_plain", "swell_ax_planes", "swell_ax_planes_plain", "spmv_swell",
            "make_swell_run", "make_swell_amx_run"]
 
@@ -47,8 +50,10 @@ __all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan",
 SWELL_MAX_SLOTS = 1 << 30
 
 # Kernel launches in this process: the swell kernel by (dtype, r, k), its plane
-# form by (dtype, 1, 1, "planes"), the plane split by (dtype, "plane_split"); set
-# to 0 (``.clear()``) to count a run.  Only the kernels' launch sites add to it.
+# form by (dtype, 1, 1, "planes"), their fix-up pass (a launch whose schedule
+# splits a row-block) by (dtype, r, k, "fixup") and (dtype, 1, 1,
+# "planes_fixup"), the plane split by (dtype, "plane_split"); set to 0
+# (``.clear()``) to count a run.  Only the kernels' launch sites add to it.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
@@ -77,6 +82,8 @@ class DeviceSwellLayout:
     tail_rows: torch.Tensor      # (tnnz,) int64
     tail_ci: torch.Tensor        # (tnnz,) int64
     tail_v: torch.Tensor         # (tnnz,) value dtype
+    schedule: ChunkSchedule      # the row-blocks cut into chunks (host arrays)
+    sched: torch.Tensor          # schedule.packed() on the device: what the kernel reads
     # (node row, node col) of every slot, derived at the plain version's first use
     _plain_idx: tuple | None = dataclasses.field(default=None, repr=False)
 
@@ -108,7 +115,22 @@ class DeviceSwellLayout:
             slab_log2d=t(lay.slab_log2d), slab_col_base=t(lay.slab_col_base),
             rb_slab_ptr=t(lay.rb_slab_ptr), tail_rows=t(lay.tail_rows, np.int64),
             tail_ci=t(lay.tail_ci, np.int64), tail_v=t(lay.tail_v),
+            **_device_schedule(build_swell_schedule(lay), device),
         )
+
+
+def _device_schedule(sched: ChunkSchedule, device) -> dict:
+    return {"schedule": sched, "sched": torch.from_numpy(sched.packed()).to(device)}
+
+
+def rescheduled(layout: DeviceSwellLayout, max_rows: int) -> DeviceSwellLayout:
+    """``layout`` with its chunk schedule rebuilt for chunks of at most
+    ``max_rows`` slot rows; every other array is shared."""
+    host = dataclasses.replace(layout, slab_off=layout.slab_off.cpu(),
+                               slab_log2d=layout.slab_log2d.cpu(),
+                               rb_slab_ptr=layout.rb_slab_ptr.cpu())
+    return dataclasses.replace(
+        layout, **_device_schedule(build_swell_schedule(host, max_rows), layout.device))
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -216,8 +238,24 @@ def _check(layout: DeviceSwellLayout, x, ndim: int) -> None:
         raise ValueError(f"{name}: x is on {x.device}, the plan on {layout.device}")
 
 
+def _layout_args(layout: DeviceSwellLayout, k: int, device) -> tuple:
+    """The kernel's layout and schedule arguments, through the partial buffer
+    (FP64, partial slots x r x k x 128, allocated on the current stream; None
+    when no row-block is split)."""
+    sc = layout.schedule
+    part = None
+    if sc.nsplit:
+        part = torch.empty(sc.nparts * layout.r * k * LANES, dtype=torch.float64, device=device)
+    ptr = ctypes.c_void_p
+    return (ptr(layout.vals.data_ptr()), ptr(layout.lidx.data_ptr()),
+            ptr(layout.slab_off.data_ptr()), ptr(layout.slab_log2d.data_ptr()),
+            ptr(layout.slab_col_base.data_ptr()), ptr(layout.sched.data_ptr()), sc.nchunks,
+            sc.nsplit, None if part is None else ptr(part.data_ptr())), part
+
+
 def _launch(layout: DeviceSwellLayout, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X for a contiguous (n, k) CUDA X: one kernel launch."""
+    """Y = A @ X for a contiguous (n, k) CUDA X: one call that launches the
+    kernel and, when the schedule splits a row-block, its fix-up pass."""
     from ._build import SWELL_SRC, load_lib
 
     lib = load_lib(SWELL_SRC)
@@ -226,16 +264,17 @@ def _launch(layout: DeviceSwellLayout, X: torch.Tensor) -> torch.Tensor:
     ptr = ctypes.c_void_p
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
+        args, _part = _layout_args(layout, k, X.device)
         rc = lib.swell_spmm(
-            int(layout.dtype == torch.float64), layout.r, kernel_group(layout.r, k),
-            ptr(layout.vals.data_ptr()), ptr(layout.lidx.data_ptr()),
-            ptr(layout.slab_off.data_ptr()), ptr(layout.slab_log2d.data_ptr()),
-            ptr(layout.slab_col_base.data_ptr()), ptr(layout.rb_slab_ptr.data_ptr()),
-            ptr(X.data_ptr()), ptr(Y.data_ptr()),
-            layout.out_rows, layout.x_rows, k, layout.mrb, ptr(stream))
+            int(layout.dtype == torch.float64), layout.r, kernel_group(layout.r, k), *args,
+            ptr(X.data_ptr()), ptr(Y.data_ptr()), layout.out_rows, layout.x_rows, k,
+            ptr(stream))
     if rc != 0:
         raise RuntimeError(f"swell kernel launch failed: CUDA error {rc}")
-    LAUNCHES[(_DTYPES[layout.dtype], layout.r, k)] += 1
+    key = (_DTYPES[layout.dtype], layout.r, k)
+    LAUNCHES[key] += 1
+    if layout.schedule.nsplit:
+        LAUNCHES[(*key, "fixup")] += 1
     return Y
 
 
@@ -484,15 +523,15 @@ def swell_ax_planes(layout: DeviceSwellLayout, planes: torch.Tensor) -> torch.Te
     ptr = ctypes.c_void_p
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
+        args, _part = _layout_args(layout, 1, planes.device)
         rc = lib.swell_spmv_planes(
-            int(layout.dtype == torch.float64), ptr(layout.vals.data_ptr()),
-            ptr(layout.lidx.data_ptr()), ptr(layout.slab_off.data_ptr()),
-            ptr(layout.slab_log2d.data_ptr()), ptr(layout.slab_col_base.data_ptr()),
-            ptr(layout.rb_slab_ptr.data_ptr()), ptr(planes.data_ptr()), ptr(y.data_ptr()),
-            layout.out_rows, layout.x_rows, layout.delta, layout.mrb, ptr(stream))
+            int(layout.dtype == torch.float64), *args, ptr(planes.data_ptr()),
+            ptr(y.data_ptr()), layout.out_rows, layout.x_rows, layout.delta, ptr(stream))
     if rc != 0:
         raise RuntimeError(f"plane-form swell kernel launch failed: CUDA error {rc}")
     LAUNCHES[(_DTYPES[layout.dtype], 1, 1, "planes")] += 1
+    if layout.schedule.nsplit:
+        LAUNCHES[(_DTYPES[layout.dtype], 1, 1, "planes_fixup")] += 1
     if layout.tail_v.numel():
         xt = _planes_x(layout, planes, layout.tail_ci)
         y.index_add_(0, layout.tail_rows, layout.tail_v * xt)

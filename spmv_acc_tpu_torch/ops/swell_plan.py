@@ -23,7 +23,9 @@ reference, such a plan never spills to a tail.
 What the TPU did next (step packing, one-hot scatter tables, out-tile copies,
 the cost model) is replaced by :func:`build_swell_layout`: slabs grouped by
 row-block, each stored slot-major at a flat offset, ``[off + slot*128 + lane]``,
-which is what one CUDA thread block per row-block reads coalesced.
+which a CUDA thread block reads coalesced, and by :func:`build_swell_schedule`,
+which cuts each row-block's slot rows into chunks of at most
+``SWELL_CHUNK_ROWS // r``, one thread block each.
 """
 
 from __future__ import annotations
@@ -36,11 +38,23 @@ import numpy as np
 
 from ..config import LANES  # rows per row-block
 
-__all__ = ["SwellSlabs", "SwellLayout", "swell_slabs", "build_swell_layout"]
+__all__ = ["SwellSlabs", "SwellLayout", "ChunkSchedule", "SWELL_CHUNK_ROWS", "swell_slabs",
+           "build_swell_layout", "build_swell_schedule", "chunk_schedule"]
 
 CW = 128             # columns per window
 CHUNK_W = 128        # windows per x-chunk (chunk = 16384 columns)
 ROUT = 128           # row-blocks per TPU output window; only the spill rule reads it
+
+# Most slot rows one thread block of the swell kernel walks in a scalar plan;
+# an r x r plan (r*r cells a slot) takes SWELL_CHUNK_ROWS // r.  A row-block
+# with more is cut into chunks of at most that many; each writes an FP64
+# partial and a fix-up pass adds them in chunk order.  No corpus main-path
+# matrix has a row-block past 50 (boneS10) or 33 (af23560); Ga41As41H72-SPD has
+# one of 9,742.  Set from the chunk-cap sweep on an H100 (PERF.md): at r = 1,
+# 64 was best or near it on Ga41As41H72-SPD and TSOPF_RS_b2383 and leaves
+# boneS10 unsplit (32 splits it and costs 8-64 %); at r = 4, TSOPF_RS_b2383
+# was fastest near 16.
+SWELL_CHUNK_ROWS = 64
 
 
 @dataclasses.dataclass
@@ -119,6 +133,67 @@ class SwellLayout:
     @property
     def mrb(self) -> int:
         return int(self.rb_slab_ptr.shape[0]) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkSchedule:
+    """The work split of a layout's row-blocks over kernel thread blocks.
+
+    Chunk c walks units ``[ptr[c], ptr[c+1])`` of row-block ``rb[c]`` in layout
+    order: slot rows of the swell layout, tile blocks of the tile layout.  A
+    row-block's chunks are consecutive and cover its units once; a row-block
+    without units has one empty chunk, which writes zeros.  ``part[c]`` is -1
+    for a row-block's only chunk, which stores y itself, else the chunk's FP64
+    partial slot: the partials of split row-block ``split_rb[i]`` are the
+    slots ``split_ptr[i] .. split_ptr[i+1] - 1``, in chunk order, and a fix-up
+    pass adds them in that order.  ``slab[c]`` (swell only, else empty) is the
+    slab holding the chunk's first slot row, and ``slab[nchunks]`` the slab
+    count, so a row-block's only chunk walks the slabs ``slab[c] ..
+    slab[c+1] - 1``."""
+
+    max_rows: int
+    ptr: np.ndarray        # (nchunks+1,) int64
+    rb: np.ndarray         # (nchunks,) int64
+    part: np.ndarray       # (nchunks,) int64
+    split_rb: np.ndarray   # (nsplit,) int64
+    split_ptr: np.ndarray  # (nsplit+1,) int64
+    slab: np.ndarray       # (nchunks+1,) int64, or (0,)
+
+    @property
+    def nchunks(self) -> int:
+        return len(self.rb)
+
+    @property
+    def nsplit(self) -> int:
+        return len(self.split_rb)
+
+    @property
+    def nparts(self) -> int:
+        return int(self.split_ptr[-1])
+
+    def packed(self) -> np.ndarray:
+        """The arrays as the kernels read them, one int64 array:
+        ``ptr | rb | part | split_ptr | split_rb | slab``."""
+        return np.concatenate([self.ptr, self.rb, self.part, self.split_ptr, self.split_rb,
+                               self.slab]).astype(np.int64)
+
+
+def chunk_schedule(max_rows: int, ptr, rb, mrb: int, slab=None) -> ChunkSchedule:
+    """The :class:`ChunkSchedule` of chunks given by their unit pointer ``ptr``
+    and row-block ``rb`` (chunks in layout order): partial slots for the
+    chunks of row-blocks cut in more than one, in chunk order."""
+    rb = np.asarray(rb, dtype=np.int64)
+    nch = np.bincount(rb, minlength=mrb)
+    split = nch > 1
+    in_split = split[rb]
+    part = np.full(len(rb), -1, dtype=np.int64)
+    part[in_split] = np.arange(int(in_split.sum()), dtype=np.int64)
+    split_ptr = np.zeros(int(split.sum()) + 1, dtype=np.int64)
+    np.cumsum(nch[split], out=split_ptr[1:])
+    return ChunkSchedule(
+        max_rows=int(max_rows), ptr=np.asarray(ptr, dtype=np.int64), rb=rb, part=part,
+        split_rb=np.flatnonzero(split).astype(np.int64), split_ptr=split_ptr,
+        slab=np.zeros(0, np.int64) if slab is None else np.asarray(slab, dtype=np.int64))
 
 
 def _greedy_windows(cb, bb):
@@ -431,3 +506,30 @@ def build_swell_layout(sl: SwellSlabs) -> SwellLayout:
         tail_rows=sl.tail_rows, tail_ci=sl.tail_ci, tail_v=sl.tail_v,
         kernel_nnz=kernel_nnz, fill=kernel_nnz / slots if slots else 1.0,
     )
+
+
+def build_swell_schedule(layout, max_rows: int | None = None) -> ChunkSchedule:
+    """Cut every row-block of ``layout`` (anything with ``r`` and with
+    ``slab_off``, ``slab_log2d`` and ``rb_slab_ptr`` arrays, as
+    :class:`SwellLayout`) into chunks of at most ``max_rows`` slot rows
+    (default ``max(1, SWELL_CHUNK_ROWS // r)``).
+    Row-block rb owns slot rows ``slab_off[s0] // 128 .. slab_off[s1] // 128``,
+    ``s0, s1 = rb_slab_ptr[rb], rb_slab_ptr[rb + 1]``; a cut may fall inside a
+    slab."""
+    max_rows = max(1, SWELL_CHUNK_ROWS // layout.r) if max_rows is None else int(max_rows)
+    if max_rows < 1:
+        raise ValueError(f"max_rows must be at least 1, got {max_rows}")
+    srow = np.asarray(layout.slab_off, dtype=np.int64) // LANES  # first slot row of each slab
+    depth = np.int64(1) << np.asarray(layout.slab_log2d, dtype=np.int64)
+    rb_slab_ptr = np.asarray(layout.rb_slab_ptr, dtype=np.int64)
+    mrb = len(rb_slab_ptr) - 1
+    row_of = np.append(srow, srow[-1] + depth[-1] if len(srow) else 0)  # slab -> first row
+    rb_row = row_of[rb_slab_ptr]                                          # (mrb+1,)
+    nch = np.maximum(1, -(-np.diff(rb_row) // max_rows))
+    rb = np.repeat(np.arange(mrb, dtype=np.int64), nch)
+    j = np.arange(len(rb), dtype=np.int64) - np.repeat(np.cumsum(nch) - nch, nch)
+    first = rb_row[rb] + j * max_rows
+    slab = np.where(first < rb_row[rb + 1], np.searchsorted(srow, first, side="right") - 1,
+                    rb_slab_ptr[rb])
+    return chunk_schedule(max_rows, np.append(first, rb_row[-1]), rb, mrb,
+                          np.append(slab, len(srow)))

@@ -9,7 +9,9 @@ W its deepest row's count.  Blocks are bucketed by W rounded up to a power of
 two (``BUCKETS``; a row holds at most 128 elements of one window, so W <= 128)
 and each bucket's blocks are sorted by (row block, column tile).  The native
 C++ pass (``io/native.py::tile_analyze_native``) and the numpy branch give the
-same plan.  The device layout built from it is in :mod:`.adaptive_plus`.
+same plan.  The device layout built from it is in :mod:`.adaptive_plus`;
+:func:`build_tile_schedule` cuts its row blocks into chunks of whole blocks,
+one CUDA thread block each.
 """
 
 from __future__ import annotations
@@ -19,12 +21,20 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-__all__ = ["LANES", "COL_WINDOW", "BUCKETS", "TileBucket", "TilePlan", "build_tile_plan"]
+from .swell_plan import ChunkSchedule, chunk_schedule
+
+__all__ = ["LANES", "COL_WINDOW", "BUCKETS", "TILE_CHUNK_ROWS", "TileBucket", "TilePlan",
+           "build_tile_plan", "build_tile_schedule"]
 
 LANES = 128  # rows per block
 COL_WINDOW = 128  # columns per block
 # Padded depths: a block of depth w goes to the first bucket >= w.
 BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+# Most slot rows (sum of block depths) one thread block of the tile kernel
+# walks, unless a single block is deeper: a chunk always holds a whole block.
+# Set from the chunk-cap sweep on an H100 (PERF.md): TSOPF_RS_b2383 was
+# fastest at 256, and boneS10 (~88 slot rows a row block) is not split there.
+TILE_CHUNK_ROWS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,3 +137,30 @@ def build_tile_plan(row_ptr, col_idx, values, shape) -> TilePlan:
     return TilePlan(buckets=tuple(buckets), num_row_blocks=mrb, num_col_tiles=nct, rows=m,
                     cols=n, nnz=nnz, fill_efficiency=nnz / max(padded_total, 1),
                     touched=touched)
+
+
+def build_tile_schedule(blk_depth, rb_ptr, max_rows: int | None = None) -> ChunkSchedule:
+    """Cut the row blocks of a tile layout (blocks in row-block order, depths
+    ``blk_depth``, row block rb owning blocks ``rb_ptr[rb] .. rb_ptr[rb+1]-1``)
+    into runs of whole blocks, greedily from each row block's first: a run
+    takes blocks while their depths sum to at most ``max_rows`` (default
+    ``TILE_CHUNK_ROWS``), and always at least one."""
+    max_rows = TILE_CHUNK_ROWS if max_rows is None else int(max_rows)
+    if max_rows < 1:
+        raise ValueError(f"max_rows must be at least 1, got {max_rows}")
+    rb_ptr = np.asarray(rb_ptr, dtype=np.int64)
+    mrb = len(rb_ptr) - 1
+    cum = np.concatenate([[0], np.cumsum(np.asarray(blk_depth, dtype=np.int64))])
+    pos, end = rb_ptr[:-1].copy(), rb_ptr[1:]
+    active = np.arange(mrb, dtype=np.int64)
+    starts, rbs = [pos.copy()], [active]  # every row block's first chunk
+    while active.size:
+        p = pos[active]
+        nxt = np.searchsorted(cum, cum[p] + max_rows, side="right") - 1
+        pos[active] = np.minimum(np.maximum(nxt, p + 1), end[active])
+        active = active[pos[active] < end[active]]
+        starts.append(pos[active])
+        rbs.append(active)
+    starts, rbs = np.concatenate(starts), np.concatenate(rbs)
+    order = np.lexsort((starts, rbs))
+    return chunk_schedule(max_rows, np.append(starts[order], cum.size - 1), rbs[order], mrb)

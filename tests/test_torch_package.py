@@ -279,3 +279,100 @@ def test_preconditioned_cg_on_card(cuda_device, monkeypatch):
                       jacobi_preconditioner(csr), db, torch.zeros_like(db), 1e-10, 2000)
     assert abs(planes.iters - direct.iters) <= max(2, direct.iters // 50)
     assert np.linalg.norm(planes.x.cpu().numpy() - x_true) < 1e-8 * np.linalg.norm(x_true)
+
+
+def _cut_swell_plan(csr, r, max_rows, monkeypatch):
+    """A fresh r x r swell plan whose chunks hold at most ``max_rows`` slot
+    rows: built with SWELL_CHUNK_ROWS = max_rows * r."""
+    from spmv_acc_tpu_torch.ops import swell, swell_plan
+
+    monkeypatch.setattr(swell_plan, "SWELL_CHUNK_ROWS", max_rows * r)
+    swell.clear_swell_cache()
+    layout = swell.get_swell_plan(csr, r=r)
+    assert layout.schedule.max_rows == max_rows and layout.schedule.nsplit > 0
+    return layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("r,k", [(1, 1), (1, 8), (4, 1), (4, 8)])
+@pytest.mark.parametrize("max_rows", [1, 4])
+def test_split_swell_kernel_matches_plain_on_card(cuda_device, monkeypatch, dtype, r, k,
+                                                  max_rows):
+    """Row blocks cut into chunks of 1 or 4 slot rows (partials and the fix-up
+    pass): the kernel against swell_amx_plain in the bounds above, and two
+    launches equal bit for bit."""
+    from spmv_acc_tpu_torch.formats import fem_like_csr
+    from spmv_acc_tpu_torch.ops import swell
+
+    csr = fem_like_csr(3001, 3001, 90000, block=6, seed=5, dtype=dtype).to(cuda_device)
+    layout = _cut_swell_plan(csr, r, max_rows, monkeypatch)
+    X = np.random.default_rng(2).standard_normal((3001, k)).astype(dtype)
+    dX = torch.from_numpy(X).to(cuda_device)
+    key = ("f64" if dtype == np.float64 else "f32", r, k)
+    before, fix = swell.LAUNCHES[key], swell.LAUNCHES[(*key, "fixup")]
+    a, b = swell.swell_amx(layout, dX), swell.swell_amx(layout, dX)
+    p = swell.swell_amx_plain(layout, dX)
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[key] == before + 2 and swell.LAUNCHES[(*key, "fixup")] == fix + 2
+    assert torch.equal(a, b)
+    rp, ci, v, _ = csr.to_numpy()
+    bound = np.zeros((3001, k))
+    np.add.at(bound, np.repeat(np.arange(3001), np.diff(rp)),
+              np.abs(v.astype(np.float64)[:, None] * X.astype(np.float64)[ci]))
+    a, p = a.cpu().numpy().astype(np.float64), p.cpu().numpy().astype(np.float64)
+    ulp = 0.0 if dtype == np.float64 else 2.0**-23
+    assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_split_tile_kernel_matches_plain_on_card(cuda_device, monkeypatch, dtype):
+    """The tile kernel with TILE_CHUNK_ROWS = 1 (every block its own chunk)
+    against tile_spmv_plain; two launches equal bit for bit."""
+    from spmv_acc_tpu_torch.formats import fem_like_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import adaptive_plus as ap
+    from spmv_acc_tpu_torch.ops import tile_plan
+
+    monkeypatch.setattr(tile_plan, "TILE_CHUNK_ROWS", 1)
+    ap.clear_tile_cache()
+    csr = fem_like_csr(3001, 3001, 90000, block=6, seed=5, dtype=dtype).to(cuda_device)
+    dp = ap.get_tile_plan(csr)
+    assert dp.schedule.max_rows == 1 and dp.schedule.nsplit > 0
+    x = random_x_y(3001, 3001, seed=2, dtype=dtype)[0]
+    dx = torch.from_numpy(x).to(cuda_device)
+    key = "f64" if dtype == np.float64 else "f32"
+    before = ap.LAUNCHES[(key, "fixup")]
+    a, b, p = ap.tile_spmv(dp, dx), ap.tile_spmv(dp, dx), ap.tile_spmv_plain(dp, dx)
+    torch.cuda.synchronize()
+    assert ap.LAUNCHES[(key, "fixup")] == before + 2 and torch.equal(a, b)
+    a, p = a.cpu().numpy().astype(np.float64), p.cpu().numpy().astype(np.float64)
+    ulp = 0.0 if dtype == np.float64 else 2.0**-23
+    assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * _row_bound(csr, x)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_rows", [1, 4])
+def test_split_plane_form_equals_direct_on_card(cuda_device, monkeypatch, max_rows):
+    """Under a cut schedule the float32 plane form still equals the direct
+    kernel bit for bit (both keep FP64 partials), and float64 stays within
+    1e-12 (|A|·|x|) of its plain version."""
+    from spmv_acc_tpu_torch.formats import banded_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import swell
+
+    for dtype in (np.float32, np.float64):
+        csr = banded_csr(3000, bandwidth=40, seed=70, dtype=dtype).to(cuda_device)
+        layout = _cut_swell_plan(csr, 1, max_rows, monkeypatch)
+        x = random_x_y(3000, 3000, seed=4, dtype=dtype)[0]
+        dx = torch.from_numpy(x).to(cuda_device)
+        planes = swell.prep_x(layout, dx)
+        a = swell.swell_ax_planes(layout, planes)
+        p = swell.swell_ax_planes_plain(layout, planes)
+        direct = swell.swell_ax(layout, dx)
+        torch.cuda.synchronize()
+        if dtype == np.float32:
+            assert torch.equal(a, direct)
+        else:
+            xt = swell._planes_x(layout, planes, torch.arange(3000, device=cuda_device))
+            gap = np.abs(a.cpu().numpy() - p.cpu().numpy())
+            assert (gap <= 1e-12 * _row_bound(csr, xt.cpu().numpy())).all()
