@@ -9,7 +9,8 @@ compiler.  It builds the four kernel sources of ``spmv_acc_tpu_torch/csrc``
 at once), holds every variant the port launches against its plain PyTorch
 version (swell at float64 and float32, BSR r = 1..4, k = 1, 3, 8 columns; the
 tile and ELL kernels, the plane split (bit for bit) and the plane-form swell at
-both dtypes on every smoke matrix; the swell and tile kernels again with their
+both dtypes on every smoke matrix, the ELL kernel at every lane count, also on
+a slab without padding and with x[0] = inf; the swell and tile kernels again with their
 chunk schedules cut to 1 and 4 slot rows, so that every row block is split and
 its partials go through the fix-up pass, two launches equal bit for bit), and
 drives the port's main paths at full
@@ -26,7 +27,8 @@ kernel as its matvec, and ``spmv-solve`` on af23560.  It then times each
 kernel against its plain version and PyTorch's CSR product (cuSPARSE), beside
 its bound, times the fix-up pass, and sweeps the chunk caps
 (``SWELL_CHUNK_ROWS``, ``TILE_CHUNK_ROWS``) on Ga41As41H72-SPD, TSOPF_RS_b2383
-and boneS10.  Every phase prints lines tagged
+and boneS10, and the ELL kernel's lanes a row on boneS10, Ga41As41H72,
+TSOPF_RS_b2383 and af23560.  Every phase prints lines tagged
 with its name; the first failure exits non-zero.  Without a CUDA device it
 fails at once.  The last three lines are the card, the kernels' JSON record and
 the device JSON record.
@@ -56,6 +58,8 @@ F32_TFLOPS = 67.0
 # the chunk caps the sweep times (slot rows a thread block walks at most)
 SWELL_SWEEP = (8, 16, 32, 64, 128, 256)
 TILE_SWEEP = (32, 64, 128, 256, 512)
+# the ELL kernel's lanes a row, every instantiation
+ELL_SWEEP = (2, 4, 8, 16, 32)
 
 
 def fail(msg: str) -> None:
@@ -348,10 +352,22 @@ def main() -> int:
             compare(f"{name} {np.dtype(dtype).name} r={r}", csr, X, a, p)
     phase("h1-vs-plain", f"kernel launches so far by (dtype, r, k): {dict(swell.LAUNCHES)}")
 
-    # 3b. the tile and ELL row-sum kernels against their plain versions
+    # 3b. the tile and ELL row-sum kernels against their plain versions; the
+    # ELL kernel at every vector size, two launches bit for bit equal
     from spmv_acc_tpu_torch.formats.convert import csr_to_ell
     from spmv_acc_tpu_torch.ops import adaptive_plus as ap
     from spmv_acc_tpu_torch.ops import vector_row as vr
+
+    def twice(label, fn):
+        """``fn()`` twice; fails unless both give the same bits (NaN included)."""
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)):
+            fail(f"{label}: two launches differ")
+        return a
+
+    def ell_vs(ell):
+        return vr.vector_size(ell.width, ell.values.element_size())
 
     for name, make in smoke_matrices(gen).items():
         for dtype in (np.float64, np.float32):
@@ -364,10 +380,65 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(f"tile {name} {np.dtype(dtype).name}", csr, x, a, p, "zoo-vs-plain")
             ell = csr_to_ell(csr)
-            a, p = vr.ell_rowsum(ell, dx)[:m], vr.ell_rowsum_plain(ell, dx)[:m]
+            p = vr.ell_rowsum_plain(ell, dx)[:m]
+            a = vr.ell_rowsum(ell, dx)[:m]
             torch.cuda.synchronize()
-            compare(f"ell {name} {np.dtype(dtype).name} vs={vr.vector_size(ell.width)}", csr, x,
+            compare(f"ell {name} {np.dtype(dtype).name} vs={ell_vs(ell)} (ell_rowsum)", csr, x,
                     a, p, "zoo-vs-plain")
+            for vs in ELL_SWEEP:
+                label = f"ell {name} {np.dtype(dtype).name} vs={vs}"
+                a = twice(label, lambda: vr._launch(ell, dx, vs))[:m]
+                compare(f"{label}, two launches bit for bit equal", csr, x, a, p, "zoo-vs-plain")
+
+    def ell_rows_csr(lens, n, seed, dtype):
+        """A CSR whose rows hold ``lens`` cells each, at distinct random columns;
+        only every fifth row may hold column 0."""
+        rng = np.random.default_rng(seed)
+        cols = [np.sort(rng.choice(np.arange(i % 5 != 0, n), ln, replace=False))
+                for i, ln in enumerate(lens)]
+        return port.CSR.from_numpy(np.concatenate([[0], np.cumsum(lens)]), np.concatenate(cols),
+                                   rng.standard_normal(int(np.sum(lens))).astype(dtype),
+                                   (len(lens), n), device=dev)
+
+    # a slab whose rows all reach the width (no padding term), and x[0] = inf
+    # on a slab with padded and unpadded rows: the kernel must be non-finite on
+    # exactly the rows where the whole-slab plain version is
+    for dtype in (np.float64, np.float32):
+        dn = np.dtype(dtype).name
+        full = ell_rows_csr(np.full(4000, 24), 5000, 81, dtype)
+        ell = csr_to_ell(full)
+        if int(ell.row_len.min()) != ell.width or ell.padded_rows != full.rows:
+            fail("the unpadded slab has padding")
+        x, _ = gen.random_x_y(5000, 4000, seed=82, dtype=dtype)
+        dx = torch.from_numpy(x).to(dev)
+        p = vr.ell_rowsum_plain(ell, dx)
+        for vs in ELL_SWEEP:
+            a = twice(f"ell unpadded {dn} vs={vs}", lambda: vr._launch(ell, dx, vs))
+            compare(f"ell unpadded 4000 rows x width {ell.width} {dn} vs={vs}", full, x, a, p,
+                    "zoo-vs-plain")
+        rng = np.random.default_rng(83)
+        mixed = ell_rows_csr(np.where(np.arange(3001) % 2 == 1, 16, rng.integers(0, 17, 3001)),
+                             3001, 84, dtype)
+        ell = csr_to_ell(mixed)
+        x, _ = gen.random_x_y(3001, 3001, seed=85, dtype=dtype)
+        x[0] = np.inf
+        dx = torch.from_numpy(x).to(dev)
+        p = vr.ell_rowsum_plain(ell, dx)
+        bad = ~torch.isfinite(p)
+        fx = dx.double().abs().nan_to_num(posinf=0.0)
+        bound = (ell.values.double().abs() * fx[ell.col_idx.long()]).sum(1)
+        allowed = ROW_TOL * bound + (F32_ULP * p.double().abs() if dtype == np.float32 else 0.0)
+        for vs in ELL_SWEEP:
+            a = twice(f"ell x[0]=inf {dn} vs={vs}", lambda: vr._launch(ell, dx, vs))
+            same = torch.equal(~torch.isfinite(a), bad)
+            gap = (a.double() - p.double()).abs()[~bad]
+            within = bool((gap <= allowed[~bad]).all())
+            phase("zoo-vs-plain", f"ell x[0]=inf {dn} vs={vs}: {int(bad.sum())} of "
+                  f"{ell.padded_rows} rows non-finite in the plain version, the same rows in "
+                  f"the kernel: {same}; the other rows max|kernel-plain|="
+                  f"{float(gap.max())!r} within {ROW_TOL}*(|A||x|): {within}")
+            if not (same and within) or not bool(bad.any()) or bool(bad.all()):
+                fail(f"ell x[0]=inf {dn} vs={vs}: the kernel disagrees with its plain version")
     phase("zoo-vs-plain", f"launches so far: tile {dict(ap.LAUNCHES)}, ELL {dict(vr.LAUNCHES)}")
 
     # 3c. the plane split (bit for bit) and the plane-form swell on every smoke matrix
@@ -420,13 +491,6 @@ def main() -> int:
     from spmv_acc_tpu_torch.ops import swell_plan, tile_plan
 
     default_rows = (swell_plan.SWELL_CHUNK_ROWS, tile_plan.TILE_CHUNK_ROWS)
-
-    def twice(label, fn):
-        a, b = fn(), fn()
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            fail(f"{label}: two launches differ")
-        return a
 
     for cut in (1, 4):
         swell_plan.SWELL_CHUNK_ROWS = tile_plan.TILE_CHUNK_ROWS = cut
@@ -496,7 +560,8 @@ def main() -> int:
     layout = swell.get_swell_plan(csr)
     phase("main-path", f"boneS10 {m}x{n} nnz={bone.nnz} (generated in {t_gen:.1f}s): "
           f"strategy={h.strategy_used} r={layout.r} kernel launches={launches} "
-          f"analyze={h.analyze_time_us:.0f}us kernel={h.kernel_time_us:.0f}us "
+          f"analyze (get_plan)={h.analyze_time_us:.0f}us picker, layout and kernel="
+          f"{h.kernel_time_us:.0f}us "
           f"slabs={layout.slab_off.numel()} slots={layout.slots} fill={layout.fill!r} verify {rep}")
     if h.strategy_used != "swell" or layout.r != 1:
         fail(f"boneS10 went to {h.strategy_used!r} with r={layout.r}, not swell with r=1")
@@ -524,7 +589,8 @@ def main() -> int:
     tlay = swell.get_swell_plan(tsopf_dev)
     phase("bsr-main-path", f"TSOPF_RS_b2383 {tm}x{tn} nnz={tsopf.nnz} (generated in "
           f"{t_gen:.1f}s): strategy={h.strategy_used} r={tlay.r} kernel launches={launches} "
-          f"analyze={h.analyze_time_us:.0f}us node slots={tlay.slots} fill={tlay.fill!r} "
+          f"analyze (get_plan)={h.analyze_time_us:.0f}us picker, layout and kernel="
+          f"{h.kernel_time_us:.0f}us node slots={tlay.slots} fill={tlay.fill!r} "
           f"verify {rep}")
     if h.strategy_used != "swell" or tlay.r != 4:
         fail(f"TSOPF_RS_b2383 went to {h.strategy_used!r} with r={tlay.r}, not swell with r=4")
@@ -590,7 +656,8 @@ def main() -> int:
     rep = verify_y(out, host_spmv(1.0, 1.0, rp, ci, v.astype(np.float32), x32, y32),
                    dtype=np.float32)
     phase("f32-main-path", f"boneS10 float32: strategy={h.strategy_used} kernel launches="
-          f"{launches} analyze={h.analyze_time_us:.0f}us max_error {rep.max_error!r} verify {rep}")
+          f"{launches} analyze (get_plan)={h.analyze_time_us:.0f}us picker, layout and kernel="
+          f"{h.kernel_time_us:.0f}us max_error {rep.max_error!r} verify {rep}")
     if h.strategy_used != "swell" or launches < 1 or out.dtype != torch.float32 or not rep.ok:
         fail("the float32 main path is wrong")
     records["swell_spmv_f32"] = {"launches": launches}
@@ -611,7 +678,7 @@ def main() -> int:
                        dtype=dtype)
         phase("zoo-main-path", f"{label} {mm}x{nn} nnz={host.nnz} {np.dtype(dtype).name}: "
               f"spmv(strategy={strategy!r}) launches={dict(mod.LAUNCHES)} first call "
-              f"{secs:.2f}s (analyze {h.analyze_time_us:.0f}us, layout and kernel "
+              f"{secs:.2f}s (analyze (get_plan) {h.analyze_time_us:.0f}us, layout and kernel "
               f"{h.kernel_time_us:.0f}us) max_error {rep.max_error!r} verify {rep}")
         if (launches < 1 or h.strategy_used != strategy or tuple(out.shape) != (mm,)
                 or not torch.isfinite(out).all() or not rep.ok):
@@ -632,7 +699,8 @@ def main() -> int:
     bone_ell = port.dispatch._get_ell(bone_dev, port.DEFAULT_TUNE)
     phase("zoo-main-path", f"boneS10 ELL: {bone_ell.padded_rows} x {bone_ell.width} = "
           f"{bone_ell.padded_rows * bone_ell.width} cells (budget "
-          f"{port.dispatch._ELL_MAX_CELLS}), vs={vr.vector_size(bone_ell.width)}")
+          f"{port.dispatch._ELL_MAX_CELLS}), {bone.nnz} stored (row_len), vs f64 "
+          f"{ell_vs(bone_ell)}, f32 {vr.vector_size(bone_ell.width, 4)}")
     zoo_run("TSOPF_RS_b2383", tsopf, tsopf_dev, "adaptive_plus", tx, ty, np.float64, ap,
             lambda k_: k_ == "f64")
     tdp = ap.get_tile_plan(tsopf_dev)
@@ -989,7 +1057,8 @@ def main() -> int:
               f"k={K} {t8!r} us per launch against 8 x the SpMV kernel {8 * t1!r} us")
 
     # 8b. the tile and ELL kernels against their plain versions on boneS10
-    def timed_pair(name, label, kern, plain, csr, x_np, record=None, nbytes=None, inputs=()):
+    def timed_pair(name, label, kern, plain, csr, x_np, record=None, nbytes=None, inputs=(),
+                   layout_bytes=None):
         a, p = kern(), plain()
         torch.cuda.synchronize()
         m_ = csr.rows
@@ -1010,8 +1079,39 @@ def main() -> int:
         if record:
             records[record].update(max_abs_err=max_abs, ms=us_k / 1e3, plain_ms=us_p / 1e3)
         finish(record, f"{name} {label}", spmv_bytes(csr), 2 * csr.nnz, FP64_TFLOPS,
-               library(csr, inputs[-1]), tensor_bytes(*inputs, a))
+               library(csr, inputs[-1]),
+               tensor_bytes(*inputs, a) if layout_bytes is None else layout_bytes)
         return l_k
+
+    def ell_read_bytes(ell):
+        """The bytes the ELL kernel moves: each row's stored values and columns
+        in whole 32-B sectors, row_len, x read once and y written once."""
+        t = ell.values.element_size()
+        lens = ell.row_len.long()
+        start = torch.arange(ell.padded_rows, device=lens.device) * ell.width
+
+        def sectors(item):
+            first, end = start * item // 32, ((start + lens) * item + 31) // 32
+            return int(torch.where(lens > 0, end - first, 0).sum()) * 32
+
+        return sectors(t) + sectors(4) + 4 * ell.padded_rows + (ell.shape[1] + ell.padded_rows) * t
+
+    def timed_ell(name, dcsr, xb, record=None):
+        """The ELL kernel on the slab that spmv(strategy="vector_row") caches."""
+        ell = port.dispatch._get_ell(dcsr, port.DEFAULT_TUNE)
+        dxb = torch.from_numpy(xb).to(dev)
+        dk = _dk(dcsr.dtype)
+        kern = lambda: vr.ell_rowsum(ell, dxb)  # noqa: E731
+        read = ell_read_bytes(ell)
+        timed_pair(name, f"ell_rowsum {dk} vs={ell_vs(ell)}", kern,
+                   lambda: vr.ell_rowsum_plain(ell, dxb), dcsr, xb, record,
+                   bytes_moved(dcsr.rows, dcsr.nnz, dcsr.values.element_size()),
+                   (ell.values, ell.col_idx, ell.row_len, dxb), read)
+        whole = tensor_bytes(ell.values, ell.col_idx, dxb, dxb)
+        phase("times", f"{name} ell_rowsum {dk}: {ell.padded_rows} x {ell.width} slab, "
+              f"{dcsr.nnz} stored cells; device time (torch.profiler) "
+              f"{device_us(kern, 'ell_kernel')!r} us a launch; the whole slab with x and y "
+              f"(what a walk to the width reads) {whole} B, this kernel {read} B; card: {card}")
 
     for dtype, dcsr, xb in ((np.float64, bone_dev, bx), (np.float32, bone32, x32)):
         dk = "f64" if dtype == np.float64 else "f32"
@@ -1022,10 +1122,13 @@ def main() -> int:
         timed_pair("boneS10", f"tile_spmv {dk}", lambda: ap.tile_spmv(dp, dxb),
                    lambda: ap.tile_spmv_plain(dp, dxb), dcsr, xb, f"tile_spmv_{dk}", nb,
                    tile_in)
-        ell = port.dispatch._get_ell(dcsr, port.DEFAULT_TUNE)
-        timed_pair("boneS10", f"ell_rowsum {dk} vs={vr.vector_size(ell.width)}",
-                   lambda: vr.ell_rowsum(ell, dxb), lambda: vr.ell_rowsum_plain(ell, dxb),
-                   dcsr, xb, f"ell_rowsum_{dk}", nb, (ell.values, ell.col_idx, dxb))
+        timed_ell("boneS10", dcsr, xb, f"ell_rowsum_{dk}")
+    # Ga41As41H72 is the unsymmetrised example_like matrix (the solver's
+    # SPD-ized one is gone by now)
+    ga_dev = ga.to(dev)
+    gx = gen.random_x_y(ga.cols, ga.rows, seed=42)[0]
+    timed_ell("TSOPF_RS_b2383", tsopf_dev, tx)
+    timed_ell("Ga41As41H72", ga_dev, gx)
     dtx = torch.from_numpy(tx).to(dev)
     t_tile = timed_pair("TSOPF_RS_b2383", "tile_spmv f64", lambda: ap.tile_spmv(tdp, dtx),
                         lambda: ap.tile_spmv_plain(tdp, dtx), tsopf_dev, tx,
@@ -1057,6 +1160,26 @@ def main() -> int:
                else (lambda p, X=X: swell.swell_amx(p, X)))
         sweep(f"{label} (r={lay.r})", lambda c, lay=lay: swell.rescheduled(lay, c), run,
               SWELL_SWEEP)
+    # the ELL kernel's lanes a row (vector_size), every vs also held against
+    # the plain version, two launches bit for bit equal
+    for label, dcsr, xb in (("boneS10 f64", bone_dev, bx), ("boneS10 f32", bone32, x32),
+                            ("Ga41As41H72 f64", ga_dev, gx), ("TSOPF_RS_b2383 f64", tsopf_dev, tx),
+                            ("af23560 f64", af_dev, ax64)):
+        ell = port.dispatch._get_ell(dcsr, port.DEFAULT_TUNE)
+        dx = torch.from_numpy(xb).to(dev)
+        p = vr.ell_rowsum_plain(ell, dx).double()
+        bound = (ell.values.double().abs() * dx.double().abs()[ell.col_idx.long()]).sum(1)
+        allowed = ROW_TOL * bound + (F32_ULP * p.abs() if dcsr.dtype == torch.float32 else 0.0)
+        for vs in ELL_SWEEP:
+            a = twice(f"{label} ell vs={vs}", lambda: vr._launch(ell, dx, vs))
+            if not bool(((a.double() - p).abs() <= allowed).all()):
+                fail(f"{label} ell vs={vs}: the kernel disagrees with its plain version")
+        up = {vs: loop_us(lambda: vr._launch(ell, dx, vs)) for vs in ELL_SWEEP}
+        down = {vs: loop_us(lambda: vr._launch(ell, dx, vs)) for vs in reversed(ELL_SWEEP)}
+        phase("sweep", f"{label} ELL, width {ell.width}, shipped vs={ell_vs(ell)}: " + "; ".join(
+            f"vs={vs}: {up[vs]!r} / {down[vs]!r} us" for vs in ELL_SWEEP) + "; every vs within "
+            f"{ROW_TOL}*(|A||x|) of the plain version, two launches bit for bit equal; card: "
+            f"{card}")
     # the detector's r is 4; r = 2, 3 check the rule SWELL_CHUNK_ROWS // r
     for r in (4, 3, 2):
         lay = swell.get_swell_plan(tsopf_dev, r=r)

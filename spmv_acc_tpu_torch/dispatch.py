@@ -34,7 +34,10 @@ __all__ = ["Handle", "spmv", "pick_strategy", "make_spmv_fn", "sparse_csr_spmv",
 @dataclasses.dataclass
 class Handle:
     """Profiling handle (SpMVAccHanele analog, src/acc/api/handle.h:8-13): carries
-    analyze/kernel phase times in µs out of a call.  The device is synchronised
+    analyze/kernel phase times in µs out of a call.  As in the reference,
+    ``analyze_time_us`` is ``get_plan`` alone, whatever the strategy name;
+    ``kernel_time_us`` is the rest: the picker, the strategy's layout or pack
+    build where the call makes one, and the kernel.  The device is synchronised
     before each time is taken."""
 
     analyze_time_us: float = 0.0
@@ -215,8 +218,8 @@ def spmv(
         sync(csr.device)
     t0 = time.perf_counter()
     plan = get_plan(csr, tune)
-    chosen = pick_strategy(plan, csr) if strategy == "adaptive" else strategy
     t1 = time.perf_counter()
+    chosen = pick_strategy(plan, csr) if strategy == "adaptive" else strategy
     out = _run(chosen, alpha, beta, csr, x, y, plan)
     if handle is not None:
         sync(csr.device)

@@ -8,7 +8,7 @@ plus the static shape, and the JAX package's BSR and ELL.  COO is still to port.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,11 +139,15 @@ class BSR:
 class ELL:
     """Row-padded ELLPACK slab: ``col_idx``/``values`` are ``(m_padded, width)``;
     padding entries point at column 0 with value 0, so gathers stay in bounds.
-    Produced by :func:`spmv_acc_tpu_torch.formats.convert.csr_to_ell`."""
+    ``row_len`` (int32, ``(m_padded,)``, 0 on padded rows) holds each row's
+    stored cells, which lead the row; the ELL row-sum kernel reads only those.
+    A slab without it is read whole.  Produced by
+    :func:`spmv_acc_tpu_torch.formats.convert.csr_to_ell`."""
 
     col_idx: torch.Tensor  # (m_padded, width) int32
     values: torch.Tensor   # (m_padded, width)
     shape: Tuple[int, int]  # logical (m, n)
+    row_len: Optional[torch.Tensor] = None  # (m_padded,) int32
 
     @property
     def width(self) -> int:

@@ -87,10 +87,15 @@ def csr_to_ell_arrays(row_ptr, col_idx, values, shape, width_multiple=8, sublane
 
 
 def csr_to_ell(csr: CSR, width_multiple=8, sublanes=8) -> ELL:
+    """The padded slab of ``csr_to_ell_arrays`` with each row's length
+    (``np.diff(row_ptr)``, 0 on padded rows), on the CSR's device."""
     rp, ci, v, shape = csr.to_numpy()
-    ec, ev, _, _ = csr_to_ell_arrays(rp, ci, v, shape, width_multiple, sublanes)
-    return ELL(torch.from_numpy(ec).to(csr.device), torch.from_numpy(ev).to(csr.device),
-               csr.shape)
+    ec, ev, _, mp = csr_to_ell_arrays(rp, ci, v, shape, width_multiple, sublanes)
+    row_len = np.zeros(mp, dtype=np.int32)
+    row_len[: shape[0]] = np.diff(rp)
+    dev = csr.device
+    return ELL(torch.from_numpy(ec).to(dev), torch.from_numpy(ev).to(dev), csr.shape,
+               torch.from_numpy(row_len).to(dev))
 
 
 def csr_to_bsr(csr: CSR, blocksize=(8, 128)) -> BSR:

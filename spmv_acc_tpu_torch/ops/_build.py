@@ -41,7 +41,7 @@ SOURCES = {
     },
     TILE_SRC: {"tile_spmv": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I64, _I64,
                              _P]},
-    ELL_SRC: {"ell_rowsum": [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _P]},
+    ELL_SRC: {"ell_rowsum": [_I32, _I32, _P, _P, _P, _P, _P, _I64, _I64, _P]},
     PLANE_SRC: {"plane_split": [_I32, _P, _P, _I64, _I64, _I64, _P]},
 }
 

@@ -2,6 +2,8 @@
 adaptive picker, trans='T', the empty matrix, every strategy through each
 entry point, and the spmv-cli port on csr/mtx/bin2 files."""
 
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -51,6 +53,35 @@ def test_adaptive_picks_swell_and_matches_reference(name):
     assert h.analyze_time_us > 0 and h.kernel_time_us > 0
     assert verify_y(out, host_spmv(ALPHA, BETA, rp, ci, v, x, y)).ok
     assert _close(out, ref_out, rp, ci, v, x, y)
+
+
+def _sleepy(fn, secs=0.2):
+    def slow(*args, **kwargs):
+        time.sleep(secs)
+        return fn(*args, **kwargs)
+
+    return slow
+
+
+def test_handle_puts_the_picker_in_kernel_time(monkeypatch):
+    """As in the reference (spmv_acc_tpu/dispatch.py:222-225), the analyze time
+    ends with get_plan: the picker (which builds the swell layout) falls into
+    kernel_time_us."""
+    csr = _port(random_csr(60, 60, 400, seed=40))
+    monkeypatch.setattr(dispatch, "pick_strategy", _sleepy(dispatch.pick_strategy))
+    h = dispatch.Handle()
+    dispatch.spmv(csr, torch.ones(60, dtype=torch.float64), strategy="adaptive", handle=h)
+    assert h.strategy_used == "swell"
+    assert h.analyze_time_us < 2e5 and h.kernel_time_us >= 2e5
+
+
+@pytest.mark.parametrize("strategy", ["adaptive", "swell"])
+def test_handle_analyze_time_is_get_plan_for_every_strategy_name(monkeypatch, strategy):
+    csr = _port(random_csr(60, 60, 400, seed=41))
+    monkeypatch.setattr(dispatch, "get_plan", _sleepy(dispatch.get_plan))
+    h = dispatch.Handle()
+    dispatch.spmv(csr, torch.ones(60, dtype=torch.float64), strategy=strategy, handle=h)
+    assert h.analyze_time_us >= 2e5 and h.kernel_time_us < 2e5
 
 
 def test_transpose_matches_reference():

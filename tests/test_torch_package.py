@@ -166,22 +166,64 @@ def test_tile_kernel_matches_plain_on_card(cuda_device, dtype, shape):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("vs", [2, 4, 8, 16, 32])
 def test_ell_kernel_matches_plain_on_card(cuda_device, dtype, vs):
-    """ell_rowsum at every vector size against ell_rowsum_plain, same bounds."""
-    from spmv_acc_tpu_torch.formats import csr_to_ell, powerlaw_csr, random_x_y
+    """ell_rowsum at every vector size against ell_rowsum_plain, same bounds:
+    the slab read to each row's length, read to the width (no row_len), and at
+    an odd width (the single-cell walk); two launches equal bit for bit."""
+    from spmv_acc_tpu_torch.formats import ELL, csr_to_ell, powerlaw_csr, random_x_y
     from spmv_acc_tpu_torch.ops import vector_row as vr
 
     csr = powerlaw_csr(3000, 3000, avg_nnz=12, seed=9, dtype=dtype).to(cuda_device)
     x = random_x_y(3000, 3000, seed=3, dtype=dtype)[0]
+    dx = torch.from_numpy(x).to(cuda_device)
     ell = csr_to_ell(csr)
+    pad = torch.nn.functional.pad
+    slabs = (ell, ELL(ell.col_idx, ell.values, ell.shape),
+             ELL(pad(ell.col_idx, (0, 1)), pad(ell.values, (0, 1)), ell.shape, ell.row_len))
     key = ("f64" if dtype == np.float64 else "f32", vs)
     before = vr.LAUNCHES[key]
-    a = vr._launch(ell, torch.from_numpy(x).to(cuda_device), vs)
-    p = vr.ell_rowsum_plain(ell, torch.from_numpy(x).to(cuda_device))
+    for slab in slabs:
+        a, b = vr._launch(slab, dx, vs), vr._launch(slab, dx, vs)
+        p = vr.ell_rowsum_plain(slab, dx)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        a, p = (t.cpu().numpy().astype(np.float64)[:3000] for t in (a, p))
+        ulp = 0.0 if dtype == np.float64 else 2.0**-23
+        assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * _row_bound(csr, x)).all()
+    assert vr.LAUNCHES[key] == before + 2 * len(slabs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("vs", [2, 4, 8, 16, 32])
+def test_ell_kernel_inf_at_x0_on_card(cuda_device, dtype, vs):
+    """x[0] = inf: the kernel, which reads only each row's stored cells, is
+    non-finite on exactly the rows where the whole-slab plain version is (rows
+    with padding, rows that hold column 0) and agrees with it elsewhere."""
+    from spmv_acc_tpu_torch.formats import CSR, csr_to_ell, random_x_y
+    from spmv_acc_tpu_torch.ops import vector_row as vr
+
+    # half the rows reach the width of 16 (no padding); only every fifth may hold column 0
+    rng = np.random.default_rng(9)
+    lens = np.where(np.arange(3000) % 2 == 1, 16, rng.integers(0, 17, 3000))
+    cols = [np.sort(rng.choice(np.arange(i % 5 != 0, 3000), ln, replace=False))
+            for i, ln in enumerate(lens)]
+    csr = CSR.from_numpy(np.concatenate([[0], np.cumsum(lens)]), np.concatenate(cols),
+                         rng.standard_normal(lens.sum()).astype(dtype), (3000, 3000),
+                         device=cuda_device)
+    x = random_x_y(3000, 3000, seed=3, dtype=dtype)[0]
+    x[0] = np.inf
+    dx = torch.from_numpy(x).to(cuda_device)
+    ell = csr_to_ell(csr)
+    a, p = vr._launch(ell, dx, vs), vr.ell_rowsum_plain(ell, dx)
     torch.cuda.synchronize()
-    assert vr.LAUNCHES[key] == before + 1
-    a, p = (t.cpu().numpy().astype(np.float64)[:3000] for t in (a, p))
+    a, p = a.cpu().numpy().astype(np.float64), p.cpu().numpy().astype(np.float64)
+    bad = ~np.isfinite(p)
+    assert bad.any() and not bad.all()
+    assert np.array_equal(~np.isfinite(a), bad)
+    x[0] = 0.0
     ulp = 0.0 if dtype == np.float64 else 2.0**-23
-    assert (np.abs(a - p) <= ulp * np.abs(p) + 1e-12 * _row_bound(csr, x)).all()
+    bound = np.concatenate([_row_bound(csr, x), np.zeros(ell.padded_rows - 3000)])
+    assert (np.abs(a - p)[~bad] <= (ulp * np.abs(p) + 1e-12 * bound)[~bad]).all()
 
 
 # delta 2 (banded), 117 (tall) and three x chunks (wide)

@@ -149,9 +149,13 @@ def test_ell_cell_budget_runs_flat(monkeypatch):
 
 
 def test_vector_size_thresholds():
-    assert [vector_row.vector_size(w) for w in (1, 8, 15, 16, 24, 31, 32, 40, 64, 127, 128,
-                                                 448, 2920)] == \
+    """Lanes a row by its width in 16-B vectors: float64 (8-B values) and
+    float32 (4-B values) at the same widths."""
+    widths = (1, 8, 15, 16, 24, 31, 32, 40, 64, 127, 128, 448, 2920)
+    assert [vector_row.vector_size(w, 8) for w in widths] == \
         [2, 2, 2, 4, 4, 4, 8, 8, 16, 16, 32, 32, 32]
+    assert [vector_row.vector_size(w, 4) for w in widths] == \
+        [2, 2, 2, 2, 2, 2, 4, 4, 8, 8, 16, 32, 32]
 
 
 def test_rowsum_checks_its_input():
