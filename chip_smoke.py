@@ -23,7 +23,15 @@ boneS10 in both dtypes and adaptive_plus on TSOPF_RS_b2383, every strategy on
 af23560, ``spmv-benchmark`` on af23560 (all engines) and boneS10, and the
 solver path: ILU(0) and preconditioned CG on Ga41As41H72 (SPD-ized) and on
 512^2 anisotropic diffusion, CG with the plane split and the plane-form swell
-kernel as its matvec, and ``spmv-solve`` on af23560.  It then times each
+kernel as its matvec, and ``spmv-solve`` on af23560.  Every swell layout the
+run builds goes to the disk plan cache in a fresh directory under ``build/``
+that the run deletes at its end: the ``plan-cache`` phase drops the process's
+caches and runs boneS10 and TSOPF_RS_b2383 again from the saved layouts (the
+kernel over both layouts equal in bytes), then ``spmv-cli`` twice on boneS10
+as subprocesses sharing one cache directory (cold, then warm).  The ``spgemm``
+phase runs A @ A on af23560, epb1 and dw4096 on the card against the host
+golden; ``tools`` runs csr-tool, suitesparse-dl's conv/list/gen, ``trace``
+around a boneS10 swell launch and ``bandwidth_report``.  It then times each
 kernel against its plain version and PyTorch's CSR product (cuSPARSE), beside
 its bound, times the fix-up pass, and sweeps the chunk caps
 (``SWELL_CHUNK_ROWS``, ``TILE_CHUNK_ROWS``) on Ga41As41H72-SPD, TSOPF_RS_b2383
@@ -39,6 +47,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -179,6 +188,37 @@ def sched_text(sc) -> str:
             f"blocks, {sc.nparts} partials)")
 
 
+def layouts_equal(a, b) -> bool:
+    """Two DeviceSwellLayouts equal tensor for tensor (dtypes and devices too),
+    schedule array for array, and in every scalar."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    for f in dataclasses.fields(a):
+        u, v = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "_plain_idx":
+            continue
+        if isinstance(u, torch.Tensor):
+            if u.dtype != v.dtype or u.device != v.device or not torch.equal(u, v):
+                return False
+        elif f.name == "schedule":
+            if not all(np.array_equal(getattr(u, g.name), getattr(v, g.name))
+                       for g in dataclasses.fields(u)):
+                return False
+        elif u != v:
+            return False
+    return True
+
+
+def dir_bytes(path: str) -> tuple:
+    """(files, bytes) under ``path``."""
+    sizes = [os.path.getsize(os.path.join(root, f))
+             for root, _, files in os.walk(path) for f in files]
+    return len(sizes), sum(sizes)
+
+
 def spmv_bytes(csr, k=1, x_bytes=None) -> int:
     """The bytes that A @ X must move, whatever layout computes it: the CSR's
     values and column indices (4 B each), row_ptr at 4 B a row, X read once (or
@@ -189,11 +229,29 @@ def spmv_bytes(csr, k=1, x_bytes=None) -> int:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
+    from spmv_acc_tpu_torch.ops import _build
+
+    # the disk plan cache in a directory of this run alone, deleted at its end:
+    # every swell layout the run builds is saved there, and the run reads back
+    # only entries it wrote
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    plan_dir = tempfile.mkdtemp(prefix="smoke_plans_", dir=_build.BUILD_DIR)
+    os.environ["SPMV_TPU_PLAN_CACHE_DIR"] = plan_dir
+    os.environ.pop("SPMV_TPU_NO_PLAN_CACHE", None)
+    try:
+        return smoke(plan_dir)
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
+
+
+def smoke(plan_dir: str) -> int:
+    import numpy as np
+    import torch
+
     import spmv_acc_tpu_torch as port
     from spmv_acc_tpu_torch.formats import generate as gen
     from spmv_acc_tpu_torch.io import write_bin2
@@ -554,6 +612,7 @@ def main() -> int:
     swell.LAUNCHES.clear()
     out = port.spmv(csr, dx, dy, alpha=1.0, beta=1.0, strategy="adaptive", handle=h)
     torch.cuda.synchronize()
+    cold = {"boneS10": (h.kernel_time_us, dict(swell.PLAN_TIMES))}
     launches = launches_of(swell, "f64", 1, 1)
     rp, ci, v, _ = bone.to_numpy()
     rep = verify_y(out, host_spmv(1.0, 1.0, rp, ci, v, x, y))
@@ -583,6 +642,7 @@ def main() -> int:
     out = port.spmv(tsopf_dev, torch.from_numpy(tx).to(dev), torch.from_numpy(ty).to(dev),
                     alpha=1.0, beta=1.0, strategy="adaptive", handle=h)
     torch.cuda.synchronize()
+    cold["TSOPF_RS_b2383"] = (h.kernel_time_us, dict(swell.PLAN_TIMES))
     launches = launches_of(swell, "f64", 4, 1)
     trp, tci, tv, _ = tsopf.to_numpy()
     rep = verify_y(out, host_spmv(1.0, 1.0, trp, tci, tv, tx, ty))
@@ -597,6 +657,80 @@ def main() -> int:
     if launches < 1 or not torch.isfinite(out).all() or not rep.ok:
         fail("the BSR main path did not launch the r=4 kernel or its output is wrong")
     records["swell_bsr_r4_f64"] = {"launches": launches}
+
+    # 5b. the disk plan cache: phases 4 and 5 built and saved boneS10's and
+    # TSOPF_RS_b2383's layouts (cold); with the process's caches dropped, the
+    # first spmv(strategy="adaptive") loads them (warm), as a second process
+    # would, and runs the kernel over the loaded layout
+    def split(times):
+        return ", ".join(f"{k} {t!r} s" for k, t in times.items())
+
+    for name, host, dcsr, (xn, yn), r in (("boneS10", bone, bone_dev, (x, y), 1),
+                                          ("TSOPF_RS_b2383", tsopf, tsopf_dev, (tx, ty), 4)):
+        live = swell.get_swell_plan(dcsr)
+        hrp, hci, hv, hshape = host.to_numpy()
+        entry = swell._plan_cache_path(hrp, hci, hv, hshape, torch.float64, None)
+        cold_us, cold_times = cold[name]
+        if "save" not in cold_times or not os.path.exists(entry):
+            fail(f"{name}: the cold call saved no layout ({split(cold_times)})")
+        dxn, dyn = torch.from_numpy(xn).to(dev), torch.from_numpy(yn).to(dev)
+        port.dispatch.clear_caches()
+        h = port.Handle()
+        swell.LAUNCHES.clear()
+        out = port.spmv(dcsr, dxn, dyn, alpha=1.0, beta=1.0, strategy="adaptive", handle=h)
+        torch.cuda.synchronize()
+        warm = dict(swell.PLAN_TIMES)
+        launches = launches_of(swell, "f64", r, 1)
+        rep = verify_y(out, host_spmv(1.0, 1.0, hrp, hci, hv, xn, yn))
+        loaded = swell.get_swell_plan(dcsr)
+        same = layouts_equal(live, loaded)
+        phase("plan-cache", f"{name}: cold first call: picker, layout and kernel {cold_us!r} us; "
+              f"split {split(cold_times)}; entry {os.path.getsize(entry) / 1e6!r} MB "
+              f"({os.path.basename(entry)}); warm first call: analyze (get_plan) "
+              f"{h.analyze_time_us!r} us, picker, layout and kernel {h.kernel_time_us!r} us; "
+              f"split {split(warm)}; strategy={h.strategy_used} r={loaded.r} kernel "
+              f"launches={launches}; verify {rep}; loaded layout == live layout tensor for "
+              f"tensor: {same}; card: {card}")
+        if "load" not in warm or "slabs" in warm or "layout" in warm:
+            fail(f"{name}: the warm call did not load the saved layout")
+        if (not same or launches < 1 or h.strategy_used != "swell" or loaded.r != r
+                or not torch.isfinite(out).all() or not rep.ok):
+            fail(f"{name}: the loaded layout differs or its run is wrong")
+        swell.LAUNCHES.clear()
+        a = twice(f"{name} live layout", lambda: swell.swell_ax(live, dxn))
+        b = twice(f"{name} loaded layout", lambda: swell.swell_ax(loaded, dxn))
+        launches = launches_of(swell, "f64", r, 1)
+        equal = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        phase("plan-cache", f"{name}: swell_ax over the live and the loaded layout, two "
+              f"launches each ({launches} launches): equal in bytes: {equal}")
+        if not equal or launches != 4:
+            fail(f"{name}: the kernel over the loaded layout differs from the live one")
+        del live, loaded, a, b
+
+    # spmv-cli twice on boneS10's bin2, two processes sharing a fresh cache
+    # directory: the first builds and saves the layout, the second loads it
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli_dir = tempfile.mkdtemp(prefix="cli_", dir=plan_dir)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "boneS10.bin2")
+        write_bin2(path, *bone.to_numpy())
+        env = dict(os.environ, SPMV_TPU_PLAN_CACHE_DIR=cli_dir)
+        walls = []
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "spmv_acc_tpu_torch.cli.main", path,
+                                   "-f", "bin2"], capture_output=True, text=True, env=env,
+                                  cwd=root, timeout=600)
+            walls.append(time.perf_counter() - t0)
+            for ln in proc.stdout.splitlines():
+                phase("plan-cache", f"spmv-cli {run}: {ln}")
+            files, nbytes = dir_bytes(cli_dir)
+            phase("plan-cache", f"spmv-cli boneS10.bin2 {run} cache: returned "
+                  f"{proc.returncode} in {walls[-1]!r} s wall (taken outside the process); "
+                  f"cache directory {files} entries, {nbytes} B; card: {card}")
+            if proc.returncode != 0 or "Congratulation" not in proc.stdout or files != 1:
+                fail(f"spmv-cli {run}: rc {proc.returncode}; {proc.stderr[-2000:]}")
+    phase("plan-cache", f"spmv-cli boneS10 warm / cold wall: {walls[1] / walls[0]!r}")
 
     # 6. SpMM, k = 8, on the reference's SPMM_MATRICES
     K = 8
@@ -845,6 +979,29 @@ def main() -> int:
           f"blocks; partial buffer {gs.nparts * glay.r * 128 * 8} B at k = 1; device time "
           f"(torch.profiler) chunk kernel {device_us(ga_ax, 'swell_kernel')!r} us, fix-up "
           f"{device_us(ga_ax, 'fixup_kernel')!r} us a launch; card: {card}")
+    # tools: trace around one boneS10 swell launch (the exported trace must name
+    # the kernel) and bandwidth_report of that call.  Here, seconds after the
+    # profiler sessions above: with torch 2.11 (CUDA 12.8) on an H100, a
+    # torch.profiler session that starts some 30 s after the process's
+    # previous one records no CUDA kernels at all
+    from spmv_acc_tpu_torch.utils.profiling import bandwidth_report, trace
+
+    bone_lay = swell.get_swell_plan(bone_dev)
+    bx_dev = torch.from_numpy(gen.random_x_y(bone.cols, bone.rows, seed=42)[0]).to(dev)
+    with tempfile.TemporaryDirectory() as td:
+        with trace(td) as prof:
+            swell.swell_ax(bone_lay, bx_dev)
+        (tfile,) = os.listdir(td)
+        with open(os.path.join(td, tfile)) as f:
+            named = "swell_kernel" in f.read()
+    kernels = sorted({e.key for e in prof.key_averages() if "swell_kernel" in e.key})
+    us = cuda_time_us(lambda: swell.swell_ax(bone_lay, bx_dev))
+    phase("tools", f"trace around one boneS10 swell launch: {tfile} names the swell kernel: "
+          f"{named} ({kernels}); bandwidth_report of the call ({us!r} us per call, median of "
+          f"3): {bandwidth_report(bone.rows, bone.nnz, us)}; card: {card}")
+    if not named or not kernels:
+        fail("the exported trace does not name the swell kernel")
+    del bone_lay
     sweep(f"Ga41As41H72-SPD swell f64 r={glay.r} k=1", lambda c: swell.rescheduled(glay, c),
           lambda lay: swell.swell_ax(lay, g0), SWELL_SWEEP)
     phase("solver", f"Ga41As41H72-SPD swell layout: r={glay.r}, {glay.mrb} row blocks, "
@@ -995,6 +1152,97 @@ def main() -> int:
                 phase("solve-cli", ln)
             if rc != 0 or "Congratulation, solution verified!" not in buf.getvalue():
                 fail(f"spmv-solve --precond {pre} returned {rc}")
+
+    # 7h. SpGEMM: A @ A on the JAX bench's three matrices (bench.py:300-341), the
+    # symbolic phase on the host and the numeric phase (plain PyTorch: a gather
+    # and a segment sum, as the JAX package's XLA ops) on the card, against the
+    # host Gustavson golden within 1e-12 (|A|.|A|) per entry
+    from spmv_acc_tpu_torch.ops.spgemm import spgemm_host, spgemm_numeric, spgemm_symbolic
+
+    for name in ("af23560", "epb1", "dw4096"):
+        host = gen.example_like(name)
+        dcsr = host.to(dev)
+        t0 = time.perf_counter()
+        pattern, a_pos, b_pos, out_pos, c_nnz = spgemm_symbolic(dcsr, dcsr)
+        t_sym = time.perf_counter() - t0
+        numeric = lambda: spgemm_numeric(dcsr.values, dcsr.values, a_pos, b_pos,  # noqa: E731
+                                         out_pos, c_nnz)
+        c = port.spgemm(dcsr, dcsr)
+        torch.cuda.synchronize()
+        us = cuda_time_us(numeric)
+        hrp, hci, hv, hshape = host.to_numpy()
+        g_rp, g_ci, g_v, _ = spgemm_host(hrp, hci, hv, hshape, hrp, hci, hv, hshape)
+        scale = spgemm_host(hrp, hci, np.abs(hv), hshape, hrp, hci, np.abs(hv), hshape)[2]
+        c_rp, c_ci, c_v, _ = c.to_numpy()
+        same_pattern = np.array_equal(c_rp, g_rp) and np.array_equal(c_ci, g_ci)
+        gap = np.abs(c_v - g_v) if same_pattern else np.array([np.inf])
+        within = bool((gap <= ROW_TOL * scale).all()) if same_pattern else False
+        lib = "refused"
+        try:
+            mat = torch.sparse_csr_tensor(dcsr.row_ptr.long(), dcsr.col_idx.long(),
+                                          dcsr.values, size=dcsr.shape, check_invariants=False)
+            lib = f"{cuda_time_us(lambda: mat @ mat)!r} us"
+        except RuntimeError as e:
+            lib = f"refused ({e})"
+        # where the numeric phase's time goes, and index_add_ (atomic, its sum
+        # order varies from call to call; not used) on the same products
+        prod = dcsr.values[a_pos] * dcsr.values[b_pos]
+        lengths = torch.bincount(out_pos, minlength=c_nnz)
+        parts = {
+            "gather": cuda_time_us(lambda: dcsr.values[a_pos] * dcsr.values[b_pos]),
+            "bincount": cuda_time_us(lambda: torch.bincount(out_pos, minlength=c_nnz)),
+            "segment_reduce": cuda_time_us(
+                lambda: torch.segment_reduce(prod, "sum", lengths=lengths)),
+            "index_add_": cuda_time_us(
+                lambda: prod.new_zeros(c_nnz).index_add_(0, out_pos, prod))}
+        phase("spgemm", f"{name} numeric phase by step, us per call: " + ", ".join(
+            f"{k} {t!r}" for k, t in parts.items()) + f"; card: {card}")
+        phase("spgemm", f"{name} A@A: nnz {host.nnz} -> c_nnz {c_nnz} (host golden "
+              f"{len(g_ci)}), {len(a_pos)} products; symbolic (host) {t_sym!r} s; numeric "
+              f"(plain PyTorch gather + segment_reduce on the card) {us!r} us per call "
+              f"(median of 3 after 10 warmups); max|card - golden| {float(gap.max())!r} within "
+              f"{ROW_TOL}*(|A||A|): {within}; result on {c.values.device}, pattern on "
+              f"{c.row_ptr.device}; PyTorch's CSR @ CSR (cuSPARSE, not used): {lib}; card: "
+              f"{card}")
+        if (c_nnz != len(g_ci) or not same_pattern or not within
+                or c.values.device.type != dev.type or c.row_ptr.device.type != dev.type):
+            fail(f"spgemm {name}: the card's product differs from the host golden")
+
+    # 7i. the tools: csr-tool and suitesparse-dl on a small file (trace and
+    # bandwidth_report ran in the solver phase)
+    from spmv_acc_tpu_torch.cli import csr_tool, suitesparse_dl
+    from spmv_acc_tpu_torch.io import load_matrix, write_mtx
+
+    def run_tool(main_fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn(argv)
+        for ln in buf.getvalue().splitlines()[:6]:
+            phase("tools", f"{argv[0]}: {ln}")
+        if rc != 0:
+            fail(f"{argv[0]} returned {rc}")
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as td:
+        hrp, hci, hv, hshape = af.to_numpy()
+        mtx = os.path.join(td, "af23560.mtx")
+        write_mtx(mtx, np.repeat(np.arange(hshape[0]), np.diff(hrp)), hci, hv, hshape)
+        b2 = os.path.join(td, "af23560.bin2")
+        run_tool(suitesparse_dl.main, ["conv", mtx, "-o", b2])
+        got = load_matrix(b2)
+        conv_ok = all(np.array_equal(a_, b_) for a_, b_ in zip(got[:3], (hrp, hci, hv)))
+        nnz_text = run_tool(csr_tool.main, ["nnz", "-i", b2, "-p", "4"])
+        dist_text = run_tool(csr_tool.main, ["dist", "-i", b2])
+        list_text = run_tool(suitesparse_dl.main, ["list", td])
+        gen_text = run_tool(suitesparse_dl.main, ["gen", td, "-o", os.path.join(td, "batch")])
+        ok = (conv_ok and nnz_text.startswith(f"matrix: rows={hshape[0]} cols={hshape[1]} "
+                                              f"nnz={len(hv)}")
+              and dist_text.splitlines()[1] == "row_length,count"
+              and "af23560.bin2" in list_text and gen_text.startswith("generated 2 scripts"))
+        phase("tools", f"conv mtx -> bin2 array for array: {conv_ok}; csr-tool nnz/dist, list, "
+              f"gen: {ok}")
+        if not ok:
+            fail("the tools' output is wrong")
 
     # 8. times: each kernel against its plain version at the main paths' shapes,
     # per call (reference protocol, in turns plain, kernel, kernel, plain) and
@@ -1276,6 +1524,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": f"spmv_acc_tpu_torch/csrc/{source}",
                         "replaces": replaces, **rec})
+    files, nbytes = dir_bytes(plan_dir)
+    phase("plan-cache", f"this run wrote {files} entries, {nbytes} B, to the disk plan cache "
+          f"(deleted at the end of the run)")
     phase("done", f"{time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,17 @@
 """spmv_acc_tpu_torch — the PyTorch/CUDA port of spmv_acc_tpu.
 
 The JAX package (``spmv_acc_tpu``) is the reference; this package keeps its
-module paths and public names.  Ported so far: the CSR, BSR and ELL containers,
-matrix ingest (csr/mtx/bin2) and generators, golden verification, the analyze
-pass, every SpMV strategy of ``STRATEGIES`` behind ``spmv`` and the adaptive
-picker, the plain-PyTorch ``spmm`` strategies and BSR products, and the
-``spmv-cli`` and ``spmv-benchmark`` entry points.  Three strategies run
+module paths and public names, and exports every name of the JAX package's
+``__all__``.  Ported so far: the CSR, COO, BSR and ELL containers, matrix ingest
+(csr/mtx/bin2) and generators, golden verification, the analyze pass, every
+SpMV strategy of ``STRATEGIES`` behind ``spmv`` and the adaptive picker, the
+plain-PyTorch ``spmm`` strategies and BSR products, ``spgemm`` (symbolic on the
+host, numeric in plain PyTorch on the device), the ``spmv-cli``,
+``spmv-benchmark``, ``csr-tool`` and ``suitesparse-dl`` entry points, and the
+timing and profiling utilities (``utils.time_fn``, ``utils.profiling``).  The
+swell layout is kept in a content-hashed disk plan cache
+(``config.cache_dir("plans")``, for CUDA matrices), so a second process loads
+it instead of rebuilding it.  Three strategies run
 hand-written CUDA kernels on an NVIDIA Hopper card and their plain PyTorch
 versions on the CPU: ``swell`` (float64 and float32, BSR r x r micro-blocks, k
 right-hand sides; ``csrc/swell_spmv.cu``), ``adaptive_plus``
@@ -34,9 +40,11 @@ from .dispatch import (
 )
 from .formats import (
     BSR,
+    COO,
     CSR,
     ELL,
     banded_csr,
+    coo_to_csr,
     csr_to_bsr,
     csr_to_ell,
     example_like,
@@ -48,6 +56,7 @@ from .formats import (
 from .io import load_csr, load_matrix, read_bin2, read_csr_text, read_mtx, write_bin2
 from .ops.bsr import bsr_spmm, bsr_spmv
 from .ops.golden import host_spmm, host_spmv
+from .ops.spgemm import spgemm
 from .ops.spmm import spmm
 from .ops.trisolve import ilu0, trisolve
 from .plan import Plan, analyze, get_plan
@@ -65,9 +74,11 @@ __all__ = [
     "sparse_csr_spmv",
     "spmv",
     "CSR",
+    "COO",
     "BSR",
     "ELL",
     "banded_csr",
+    "coo_to_csr",
     "csr_to_bsr",
     "csr_to_ell",
     "example_like",
@@ -85,6 +96,7 @@ __all__ = [
     "host_spmm",
     "bsr_spmv",
     "bsr_spmm",
+    "spgemm",
     "spmm",
     "ilu0",
     "trisolve",

@@ -3,7 +3,8 @@
 The same numbers as the JAX package's ``spmv_acc_tpu/config.py``: the reference's
 verification contract, its benchmark protocol, the bin2 format and the picker
 thresholds.  ``cache_dir`` resolves to the same repo-local ``.cache/`` so both
-packages share the generated corpus.
+packages share the generated corpus; their plan caches share the directory
+but never an entry.
 """
 
 from __future__ import annotations
@@ -59,12 +60,14 @@ DEFAULT_TUNE = TuneConfig()
 
 
 def cache_dir(kind: str) -> str:
-    """Disk-cache directory for ``kind``; the port has one kind so far, ``corpus``
-    (the disk plan cache is still to port).
+    """Disk-cache directory for ``kind``: ``corpus`` (generated matrices) or
+    ``plans`` (the swell layouts of ``ops.swell``'s disk plan cache).
 
-    Env override first (``SPMV_TPU_CORPUS_CACHE``); otherwise the gitignored
-    ``.cache/<kind>`` at the repo root, the directory the JAX package uses too."""
-    env = {"corpus": "SPMV_TPU_CORPUS_CACHE"}[kind]
+    Env override first (``SPMV_TPU_CORPUS_CACHE`` / ``SPMV_TPU_PLAN_CACHE_DIR``);
+    otherwise the gitignored ``.cache/<kind>`` at the repo root, the directory
+    the JAX package uses too (plan entries carry a prefix of their own, so
+    neither package reads the other's)."""
+    env = {"corpus": "SPMV_TPU_CORPUS_CACHE", "plans": "SPMV_TPU_PLAN_CACHE_DIR"}[kind]
     v = os.environ.get(env)
     if v:
         return v
@@ -74,4 +77,4 @@ def cache_dir(kind: str) -> str:
         os.makedirs(d, exist_ok=True)
         return d
     except OSError:  # read-only installs fall back to /tmp
-        return {"corpus": "/tmp/spmv_corpus"}[kind]
+        return {"corpus": "/tmp/spmv_corpus", "plans": "/tmp/spmv_plans"}[kind]

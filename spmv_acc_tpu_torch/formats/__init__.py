@@ -1,9 +1,11 @@
-"""Sparse formats: the CSR, BSR and ELL containers, host conversions and generators."""
+"""Sparse formats: the CSR, COO, BSR and ELL containers, conversions and generators."""
 
-from .containers import BSR, CSR, ELL, sparse_operation
+from .containers import BSR, COO, CSR, ELL, sparse_operation
 from .convert import (
+    coo_to_csr,
     coo_to_csr_arrays,
     csr_to_bsr,
+    csr_to_coo,
     csr_to_dense,
     csr_to_ell,
     csr_to_ell_arrays,
@@ -23,11 +25,14 @@ from .generate import (
 
 __all__ = [
     "CSR",
+    "COO",
     "BSR",
     "ELL",
     "sparse_operation",
+    "coo_to_csr",
     "coo_to_csr_arrays",
     "csr_to_bsr",
+    "csr_to_coo",
     "csr_to_dense",
     "csr_to_ell",
     "csr_to_ell_arrays",

@@ -2,7 +2,8 @@
 
 The port's counterpart of ``spmv_acc_tpu/formats/containers.py``: the reference's
 ``csr_desc<I,T>`` (``src/acc/api/types.h:8-41``) as three tensors on one device
-plus the static shape, and the JAX package's BSR and ELL.  COO is still to port.
+plus the static shape, the COO triplets of Matrix-Market ingest
+(``cli/sparse_format.h:84-98``), and the JAX package's BSR and ELL.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["CSR", "BSR", "ELL", "sparse_operation"]
+__all__ = ["CSR", "COO", "BSR", "ELL", "sparse_operation"]
 
 
 class sparse_operation:
@@ -101,6 +102,56 @@ class CSR:
         return (
             self.row_ptr.cpu().numpy(),
             self.col_idx.cpu().numpy(),
+            self.values.cpu().numpy(),
+            self.shape,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class COO:
+    """COO triplets, the Matrix-Market ingest format (cli/sparse_format.h:84-98):
+    ``rows``/``cols`` (nnz, int32) and ``values`` (nnz, T) on one device, with the
+    static ``shape``.  Entries are in any order and may repeat (a repeat sums)."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    values: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def to(self, device) -> "COO":
+        """The same triplets on ``device`` (self when they are already there)."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        return COO(self.rows.to(device), self.cols.to(device), self.values.to(device),
+                   self.shape)
+
+    @staticmethod
+    def from_numpy(rows, cols, values, shape, device="cpu") -> "COO":
+        """Build from host arrays (copied), as :meth:`CSR.from_numpy`."""
+        return COO(
+            _as_index(rows, device),
+            _as_index(cols, device),
+            _as_tensor_nodowncast(values, device),
+            (int(shape[0]), int(shape[1])),
+        )
+
+    def to_numpy(self):
+        return (
+            self.rows.cpu().numpy(),
+            self.cols.cpu().numpy(),
             self.values.cpu().numpy(),
             self.shape,
         )

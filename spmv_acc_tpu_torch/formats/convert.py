@@ -1,6 +1,7 @@
 """Host-side (numpy) format conversions, the same functions as the JAX package's
 ``spmv_acc_tpu/formats/convert.py`` (reference ``cli/sparse_format.h:100-128``).
-``csr_to_ell`` and ``csr_to_bsr`` put their result on the CSR's device."""
+``coo_to_csr``, ``csr_to_coo``, ``csr_to_ell`` and ``csr_to_bsr`` put their
+result on their argument's device."""
 
 from __future__ import annotations
 
@@ -9,10 +10,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .containers import BSR, CSR, ELL
+from .containers import BSR, COO, CSR, ELL
 
-__all__ = ["coo_to_csr_arrays", "csr_transpose_arrays", "csr_to_dense", "csr_to_ell_arrays",
-           "csr_to_ell", "csr_to_bsr"]
+__all__ = ["coo_to_csr_arrays", "coo_to_csr", "csr_to_coo", "csr_transpose_arrays",
+           "csr_to_dense", "csr_to_ell_arrays", "csr_to_ell", "csr_to_bsr"]
 
 
 def coo_to_csr_arrays(
@@ -45,6 +46,21 @@ def coo_to_csr_arrays(
         cols.astype(np.int32),
         values,
     )
+
+
+def coo_to_csr(coo: COO) -> CSR:
+    """The CSR of ``coo`` (rows sorted, columns sorted within a row, repeats
+    summed) on the COO's device."""
+    rp, ci, v = coo_to_csr_arrays(*coo.to_numpy())
+    return CSR.from_numpy(rp, ci, v, coo.shape, device=coo.device)
+
+
+def csr_to_coo(csr: CSR) -> COO:
+    """The triplets of ``csr`` in its row-major order, on the CSR's device."""
+    rows = torch.repeat_interleave(
+        torch.arange(csr.rows, dtype=torch.int32, device=csr.device),
+        torch.diff(csr.row_ptr.long()))
+    return COO(rows, csr.col_idx, csr.values, csr.shape)
 
 
 def csr_transpose_arrays(row_ptr, col_idx, values, shape):

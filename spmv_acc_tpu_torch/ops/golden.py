@@ -11,7 +11,7 @@ import numpy as np
 
 from ..utils.host import host_array
 
-__all__ = ["host_spmv", "host_spmv_plain", "host_spmm"]
+__all__ = ["host_spmv", "host_spmv_plain", "host_spmm", "host_spgemm_dense"]
 
 
 def host_spmv(alpha, beta, row_ptr, col_idx, values, x, y):
@@ -54,3 +54,12 @@ def host_spmm(alpha, beta, row_ptr, col_idx, values, X, Y):
     if prod.size:
         out[nz] = np.add.reduceat(prod, row_ptr[:-1][nz], axis=0)
     return alpha * out + beta * Y
+
+
+def host_spgemm_dense(rp_a, ci_a, v_a, shape_a, rp_b, ci_b, v_b, shape_b):
+    """Dense-materialised golden for SpGEMM C = A@B (small test matrices only)."""
+    from ..formats.convert import csr_to_dense
+
+    A = csr_to_dense(host_array(rp_a), host_array(ci_a), host_array(v_a), shape_a)
+    B = csr_to_dense(host_array(rp_b), host_array(ci_b), host_array(v_b), shape_b)
+    return A @ B

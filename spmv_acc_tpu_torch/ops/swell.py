@@ -1,13 +1,14 @@
-"""The swell SpMV/SpMM strategy on PyTorch: plan cache, the Hopper kernel's
+"""The swell SpMV/SpMM strategy on PyTorch: plan caches, the Hopper kernel's
 wrappers and their plain PyTorch version.
 
 Counterpart of ``spmv_acc_tpu/ops/swell.py``.  The host plan
-(:mod:`.swell_plan`) is built once per (matrix, dtype, r) and moved to the
-matrix's device with its chunk schedule (row-blocks cut into chunks of at most
-``SWELL_CHUNK_ROWS // r`` slot rows, one CUDA thread block each); ``swell_ax``
-computes A@x and ``swell_amx`` A@X over it, in float64 or float32, on a scalar
-plan (r = 1) or on the BSR node pattern of r x r micro-blocks (r = 2..4,
-chosen by the reference's detector).  On a CUDA tensor
+(:mod:`.swell_plan`) is built once per (matrix, dtype, r) in a process, or
+loaded from the content-hashed disk plan cache that an earlier process wrote,
+and moved to the matrix's device with its chunk schedule (row-blocks cut into
+chunks of at most ``SWELL_CHUNK_ROWS // r`` slot rows, one CUDA thread block
+each); ``swell_ax`` computes A@x and ``swell_amx`` A@X over it, in float64 or
+float32, on a scalar plan (r = 1) or on the BSR node pattern of r x r
+micro-blocks (r = 2..4, chosen by the reference's detector).  On a CUDA tensor
 they launch the hand-written Hopper kernel in ``csrc/swell_spmv.cu``; on a CPU
 tensor they run ``swell_amx_plain``, the same sum written with torch gathers and
 ``index_add_`` in float64.  There is no fallback from one to the other.  Sums
@@ -28,17 +29,23 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import os
+import tempfile
+import time
+import zipfile
+import zlib
 
 import numpy as np
 import torch
 
-from ..config import LANES
+from ..config import LANES, cache_dir
 from .bsr_block import bsr_condense, detect_block_size
 from .swell_plan import (ChunkSchedule, SwellLayout, _canonicalize, build_swell_layout,
                          build_swell_schedule, swell_slabs)
 from .xla import axpby_finish
 
-__all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan", "swell_plan_within_cap", "clear_swell_cache", "kernel_group",
+__all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "PLAN_TIMES", "get_swell_plan",
+           "swell_plan_within_cap", "clear_swell_cache", "kernel_group",
            "rescheduled", "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain", "prep_x",
            "prep_x_plain", "swell_ax_planes", "swell_ax_planes_plain", "spmv_swell",
            "make_swell_run", "make_swell_amx_run"]
@@ -104,7 +111,9 @@ class DeviceSwellLayout:
         return int(self.lidx.shape[0])
 
     @staticmethod
-    def from_host(lay: SwellLayout, device, out_rows: int, x_rows: int) -> "DeviceSwellLayout":
+    def from_host(lay: SwellLayout, device, out_rows: int, x_rows: int,
+                  schedule: ChunkSchedule) -> "DeviceSwellLayout":
+        """``lay`` and its ``schedule`` (``build_swell_schedule(lay)``) on ``device``."""
         def t(a, dtype=None):
             a = np.ascontiguousarray(a if dtype is None else a.astype(dtype))
             return torch.from_numpy(a).to(device)
@@ -115,7 +124,7 @@ class DeviceSwellLayout:
             slab_log2d=t(lay.slab_log2d), slab_col_base=t(lay.slab_col_base),
             rb_slab_ptr=t(lay.rb_slab_ptr), tail_rows=t(lay.tail_rows, np.int64),
             tail_ci=t(lay.tail_ci, np.int64), tail_v=t(lay.tail_v),
-            **_device_schedule(build_swell_schedule(lay), device),
+            **_device_schedule(schedule, device),
         )
 
 
@@ -145,16 +154,28 @@ def _torch_dtype(dtype) -> torch.dtype:
 # build a new CSR (or call clear_swell_cache) after changing one.
 _SWELL_CACHE: dict = {}
 
+# Seconds of each step of the last layout ``_plan`` built or loaded (the steps it
+# took: host_copy, hash, load, slabs, layout, save, schedule, h2d).
+PLAN_TIMES: dict = {}
+
 
 def clear_swell_cache() -> None:
     _SWELL_CACHE.clear()
 
 
-def _slabs(csr, dtype: torch.dtype, r):
-    """The slab decomposition in ``dtype`` on the scalar pattern or, when the
-    block size (``r``, or the reference's detector when None) is above 1, on the
-    r x r node pattern (the reference's ``get_swell_plan``, swell.py:2037-2058)."""
-    rp, ci, v, (m, n) = csr.to_numpy()
+def _timed(step: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PLAN_TIMES[step] = time.perf_counter() - t0
+    return out
+
+
+def _slabs(rp, ci, v, shape, dtype: torch.dtype, r):
+    """The slab decomposition of the host CSR arrays in ``dtype`` on the scalar
+    pattern or, when the block size (``r``, or the reference's detector when
+    None) is above 1, on the r x r node pattern (the reference's
+    ``get_swell_plan``, swell.py:2037-2058)."""
+    m, n = shape
     v = v.astype(np.float64 if dtype == torch.float64 else np.float32, copy=False)
     if r != 1:
         # canonicalise BEFORE condensing: bsr_condense writes each cell once, so
@@ -166,6 +187,109 @@ def _slabs(csr, dtype: torch.dtype, r):
         return swell_slabs(rp, ci, v, (m, n))
     rp_b, ci_b, vals2d = bsr_condense(rp_c, ci_c, v_c, (m, n), r)
     return swell_slabs(rp_b, ci_b, vals2d, (len(rp_b) - 1, -(-n // r)))
+
+
+# ---- disk plan cache ---------------------------------------------------------
+# The reference's content-hashed plan cache (swell.py:1884-1995) for the port's
+# host SwellLayout: a second process on the same matrix loads the layout
+# instead of rebuilding it (boneS10: a 7.6 s build).  The chunk schedule is
+# rebuilt from the loaded layout, so SWELL_CHUNK_ROWS and ``rescheduled`` act
+# on it as on a fresh one.  Consulted for a CSR on a CUDA device, or anywhere
+# when SPMV_TPU_PLAN_CACHE is set; SPMV_TPU_NO_PLAN_CACHE turns it off.  Entries
+# live in ``config.cache_dir("plans")`` under a prefix of their own, so the JAX
+# package's ``plan_v*`` entries there are never read, nor these by it.
+# Bump _PLAN_CACHE_ABI with every change to the layout or to what decides it
+# (the slab decomposition, the spill rule, the BSR detector).
+_PLAN_CACHE_ABI = 1
+_LAYOUT_ARRAYS = ("vals", "lidx", "slab_off", "slab_log2d", "slab_col_base", "rb_slab_ptr",
+                  "tail_rows", "tail_ci", "tail_v")
+
+
+def _plan_cache_on(device) -> bool:
+    if os.environ.get("SPMV_TPU_NO_PLAN_CACHE"):
+        return False
+    return torch.device(device).type == "cuda" or bool(os.environ.get("SPMV_TPU_PLAN_CACHE"))
+
+
+def _plan_cache_path(rp, ci, v, shape, dtype: torch.dtype, r) -> str:
+    """The entry of the layout of (rp, ci, v) in the plan dtype ``dtype`` for
+    the requested block size ``r`` (None: the detector decides).  The key is a
+    crc32 over every byte of the three arrays (a sample once served a stale
+    layout for same-pattern matrices with new values, in the reference), the
+    values' dtype, and the one variable that changes the layout,
+    SPMV_TPU_SPILL (when set).  SPMV_TPU_NO_NATIVE is not in it: the native and
+    numpy analyze passes give the same layout, array for array."""
+    h = 0
+    for a in (rp, ci, v):
+        h = zlib.crc32(np.ascontiguousarray(a), h)
+    pins = f"values={np.dtype(v.dtype).str}"
+    spill = os.environ.get("SPMV_TPU_SPILL")
+    if spill is not None:
+        pins += f",spill={spill}"
+    h = zlib.crc32(pins.encode(), h)
+    name = (f"torch_swell_v{_PLAN_CACHE_ABI}_{shape[0]}x{shape[1]}_{len(ci)}_"
+            f"{_DTYPES[dtype]}_r{'auto' if r is None else r}_{h:08x}.npz")
+    return os.path.join(cache_dir("plans"), name)
+
+
+def _plan_cache_save(path: str, lay: SwellLayout, cells: int) -> None:
+    """Write the layout atomically: a temporary file in the entry's directory,
+    then ``os.replace``, so racing writers of one key leave a whole entry."""
+    meta = np.array([lay.rows, lay.cols, lay.r, lay.nnz, lay.delta, lay.nchunks,
+                     lay.kernel_nnz, cells], dtype=np.int64)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, meta=meta, fill=np.float64(lay.fill),
+                     **{name: getattr(lay, name) for name in _LAYOUT_ARRAYS})
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def _plan_cache_load(path: str, dtype: torch.dtype):
+    """(SwellLayout, value cells) from an entry; raises on one that does not
+    hold a whole layout of ``dtype``."""
+    with np.load(path, allow_pickle=False) as z:
+        rows, cols, r, nnz, delta, nchunks, kernel_nnz, cells = (int(x) for x in z["meta"])
+        arrays = {name: z[name] for name in _LAYOUT_ARRAYS}
+        fill = float(z["fill"])
+    lay = SwellLayout(rows=rows, cols=cols, r=r, nnz=nnz, delta=delta, nchunks=nchunks,
+                      kernel_nnz=kernel_nnz, fill=fill, **arrays)
+    nslabs = len(lay.slab_off)
+    if (lay.vals.dtype != (np.float64 if dtype == torch.float64 else np.float32)
+            or len(lay.vals) != len(lay.lidx) * r * r or cells != len(lay.vals)
+            or len(lay.slab_log2d) != nslabs or len(lay.slab_col_base) != nslabs
+            or lay.rb_slab_ptr[-1] != nslabs):
+        raise ValueError(f"{path} does not hold a whole {dtype} swell layout")
+    return lay, cells
+
+
+def _host_layout(csr, tdtype: torch.dtype, r):
+    """(host SwellLayout or None past the cap, value cells): loaded from the
+    disk plan cache when it is on and holds the entry, else built (and saved)."""
+    rp, ci, v, shape = _timed("host_copy", csr.to_numpy)
+    path = _timed("hash", _plan_cache_path, rp, ci, v, shape, tdtype, r) if (
+        _plan_cache_on(csr.device)) else None
+    if path is not None and os.path.exists(path):
+        try:
+            lay, cells = _timed("load", _plan_cache_load, path, tdtype)
+            return (lay if cells <= SWELL_MAX_SLOTS else None), cells
+        except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile):
+            pass  # a stale or corrupt entry is rebuilt and replaced below
+    sl = _timed("slabs", _slabs, rp, ci, v, shape, tdtype, r)
+    cells = sl.padded_slots * sl.r * sl.r
+    if cells > SWELL_MAX_SLOTS:
+        return None, cells
+    lay = _timed("layout", build_swell_layout, sl)
+    if path is not None:
+        try:
+            _timed("save", _plan_cache_save, path, lay, cells)
+        except OSError:
+            pass  # the cache is best-effort: a failed save leaves the call whole
+    return lay, cells
 
 
 def _plan(csr, dtype, r):
@@ -183,11 +307,12 @@ def _plan(csr, dtype, r):
     if (hit is not None and hit[0] is csr.row_ptr and hit[1] is csr.col_idx
             and hit[2] is csr.values):
         return hit[3:]
-    sl = _slabs(csr, tdtype, r)
-    cells = sl.padded_slots * sl.r * sl.r
+    PLAN_TIMES.clear()
+    lay, cells = _host_layout(csr, tdtype, r)
     layout = None
-    if cells <= SWELL_MAX_SLOTS:
-        layout = DeviceSwellLayout.from_host(build_swell_layout(sl), csr.device, *csr.shape)
+    if lay is not None:
+        sched = _timed("schedule", build_swell_schedule, lay)
+        layout = _timed("h2d", DeviceSwellLayout.from_host, lay, csr.device, *csr.shape, sched)
     _SWELL_CACHE[key] = (csr.row_ptr, csr.col_idx, csr.values, layout, cells)
     return layout, cells
 

@@ -4,7 +4,9 @@ PyTorch returns before the device finishes, so ``WallTimer`` synchronises the
 device it is given at start and at stop.  ``cuda_time_us`` is the reference's
 benchmark protocol (benchmark/csr_spmv.hpp:48-74): ``WARMUP_ITERS`` warmup
 calls, then the median of ``BENCHMARK_ARRAY_SIZE`` single-call repetitions,
-each bracketed by CUDA events.
+each bracketed by CUDA events.  ``time_fn`` is the JAX package's wall-clock
+``time_fn``, synchronising the device of the result instead of
+``jax.block_until_ready``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from ..config import BENCHMARK_ARRAY_SIZE, WARMUP_ITERS
 
-__all__ = ["WallTimer", "sync", "cuda_time_us"]
+__all__ = ["WallTimer", "sync", "cuda_time_us", "time_fn"]
 
 
 def sync(device) -> None:
@@ -62,3 +64,35 @@ def cuda_time_us(fn, warmups: int = WARMUP_ITERS, reps: int = BENCHMARK_ARRAY_SI
         t1.synchronize()
         times.append(t0.elapsed_time(t1) * 1e3)
     return statistics.median(times)
+
+
+def _result_devices(out) -> set:
+    """The devices of the tensors in ``out`` (a tensor, or a tuple, list or
+    dict of them, nested)."""
+    if isinstance(out, torch.Tensor):
+        return {out.device}
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return set().union(*(_result_devices(o) for o in out))
+    return set()
+
+
+def time_fn(fn, *args, iters: int = 1, block=True):
+    """Time ``fn(*args)`` over ``iters`` calls after one untimed call; returns
+    (result, per-call µs of wall time).  With ``block`` the devices of the
+    result are synchronised before the clock starts and before it stops, so
+    the time covers the device work too."""
+    def wait(out):
+        if block:
+            for dev in _result_devices(out):
+                sync(dev)
+
+    out = fn(*args)
+    wait(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    wait(out)
+    dt = (time.perf_counter() - t0) / max(iters, 1)
+    return out, dt * 1e6

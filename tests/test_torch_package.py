@@ -418,3 +418,54 @@ def test_split_plane_form_equals_direct_on_card(cuda_device, monkeypatch, max_ro
             xt = swell._planes_x(layout, planes, torch.arange(3000, device=cuda_device))
             gap = np.abs(a.cpu().numpy() - p.cpu().numpy())
             assert (gap <= 1e-12 * _row_bound(csr, xt.cpu().numpy())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("r", [None, 1, 4])
+def test_disk_cached_layout_runs_the_kernel_on_card(cuda_device, tmp_path, monkeypatch, dtype, r):
+    """A CUDA matrix's layout is saved by default; with the process's cache
+    dropped it is loaded (not rebuilt), equals the live layout tensor for
+    tensor, and the kernel over both gives the same bytes."""
+    import dataclasses
+
+    from spmv_acc_tpu_torch.formats import fem_like_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import swell
+
+    monkeypatch.setenv("SPMV_TPU_PLAN_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("SPMV_TPU_NO_PLAN_CACHE", raising=False)
+    csr = fem_like_csr(3001, 3001, 90000, block=4, seed=5, dtype=dtype).to(cuda_device)
+    swell.clear_swell_cache()
+    live = swell.get_swell_plan(csr, r=r)
+    assert len(list(tmp_path.glob("torch_swell_*.npz"))) == 1
+    swell.clear_swell_cache()
+    loaded = swell.get_swell_plan(csr, r=r)
+    assert "load" in swell.PLAN_TIMES and "slabs" not in swell.PLAN_TIMES
+    for f in dataclasses.fields(live):
+        a, b = getattr(live, f.name), getattr(loaded, f.name)
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and a.device == b.device and torch.equal(a, b), f.name
+    x = torch.from_numpy(random_x_y(3001, 3001, seed=2, dtype=dtype)[0]).to(cuda_device)
+    a, b = swell.swell_ax(live, x), swell.swell_ax(loaded, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dw4096", "epb1"])
+def test_spgemm_on_card(cuda_device, name):
+    """A @ A on the card: the host golden's pattern, values within 1e-12
+    (|A|·|A|), the result on the card."""
+    from spmv_acc_tpu_torch import spgemm
+    from spmv_acc_tpu_torch.formats import example_like
+    from spmv_acc_tpu_torch.ops.spgemm import spgemm_host
+
+    host = example_like(name)
+    c = spgemm(host.to(cuda_device), host.to(cuda_device))
+    assert c.values.device.type == "cuda" and c.row_ptr.device.type == "cuda"
+    rp, ci, v, shape = host.to_numpy()
+    g_rp, g_ci, g_v, _ = spgemm_host(rp, ci, v, shape, rp, ci, v, shape)
+    scale = spgemm_host(rp, ci, np.abs(v), shape, rp, ci, np.abs(v), shape)[2]
+    c_rp, c_ci, c_v, _ = c.to_numpy()
+    assert np.array_equal(c_rp, g_rp) and np.array_equal(c_ci, g_ci)
+    assert (np.abs(c_v - g_v) <= 1e-12 * scale).all()
