@@ -31,7 +31,16 @@ kernel over both layouts equal in bytes), then ``spmv-cli`` twice on boneS10
 as subprocesses sharing one cache directory (cold, then warm).  The ``spgemm``
 phase runs A @ A on af23560, epb1 and dw4096 on the card against the host
 golden; ``tools`` runs csr-tool, suitesparse-dl's conv/list/gen, ``trace``
-around a boneS10 swell launch and ``bandwidth_report``.  It then times each
+around a boneS10 swell launch and ``bandwidth_report``.  The ``dist`` phase
+runs the multi-device layer on the one card: ``dryrun_multichip(1)`` in an
+NCCL group joined through a file under ``build/`` (gate 4b reported
+skipped), the structural baseline ``dist_swell_serial_fn`` at D = 4 on
+``banded_csr(1048576, bandwidth=17, seed=11)`` (one swell-kernel launch a
+shard, each held against its plain version and equal to the whole-matrix
+``swell_ax``), the all-gather and halo paths at D = 1 (the all-gather is a
+real NCCL call; the halo path has no neighbour at world size 1 and issues no
+collective, so NCCL's point-to-point exchange runs only on several cards),
+and the swell CG at D = 1 against ``cg_solve``'s iterations.  It then times each
 kernel against its plain version and PyTorch's CSR product (cuSPARSE), beside
 its bound, times the fix-up pass, and sweeps the chunk caps
 (``SWELL_CHUNK_ROWS``, ``TILE_CHUNK_ROWS``) on Ga41As41H72-SPD, TSOPF_RS_b2383
@@ -226,6 +235,226 @@ def spmv_bytes(csr, k=1, x_bytes=None) -> int:
     t = csr.values.element_size()
     x_bytes = csr.cols * k * t if x_bytes is None else x_bytes
     return csr.nnz * (t + 4) + 4 * (csr.rows + 1) + x_bytes + csr.rows * k * t
+
+
+def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
+    """The multi-device layer on one card.  One H100 is one device and NCCL
+    refuses two ranks on one card, so: the dry run at world size 1 (an NCCL
+    group joined through a rendezvous file ``rdzv``), the structural baseline
+    at D = 4 on the scaling bench's matrix at full size (four shard layouts,
+    one swell-kernel launch each), the all-gather and halo paths at D = 1
+    (the swell kernel as the shard's product; the all-gather is a real NCCL
+    call, the halo path has no neighbour and issues no collective) and the
+    swell CG at D = 1, its dots all-reduced over NCCL.  Records
+    ``swell_dist_f64``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from spmv_acc_tpu_torch.dryrun import _spd_fem, dryrun_multichip
+    from spmv_acc_tpu_torch.formats import generate as gen
+    from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops.golden import host_spmv
+    from spmv_acc_tpu_torch.parallel import gather_padded, make_mesh
+    from spmv_acc_tpu_torch.parallel.dist_spmv import all_reduced_dot, gather_mesh
+    from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_cg_solve,
+                                                        dist_swell_serial_fn, dist_swell_spmv_fn,
+                                                        pad_global)
+    from spmv_acc_tpu_torch.parallel.multihost import init_distributed
+    from spmv_acc_tpu_torch.utils import verify_y
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def same_bytes(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    init_distributed(coordinator_address="file://" + rdzv, num_processes=1, process_id=0,
+                     device=dev.type)
+    try:
+        # the dry run: gates 1-6, gate 4b skipped below two devices
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            dryrun_multichip(1, device=dev.type)
+        secs = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            phase("dist", f"dryrun: {ln}")
+        skipped = any("gate 4b skipped" in ln for ln in lines)
+        phase("dist", f"dryrun_multichip(1) on {dist.get_backend()} passed gates 1-6 in "
+              f"{secs:.1f}s; gate 4b reported skipped: {skipped}")
+        if not skipped or dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            fail("the dry run did not report gate 4b skipped, or ran on another backend")
+
+        # the structural baseline at D = 4, full size: the scaling bench's
+        # generator, 4 x 262,144 rows
+        t0 = time.perf_counter()
+        band = gen.banded_csr(1_048_576, bandwidth=17, seed=11)
+        t_gen = time.perf_counter() - t0
+        brp, bci, bv, (bm, bn) = band.to_numpy()
+        band_dev = band.to(dev)
+        t0 = time.perf_counter()
+        d4 = build_dist_swell(band_dev, 4)
+        t_build = time.perf_counter() - t0
+        build_split = ", ".join(f"{k} {t!r} s" for k, t in swell.PLAN_TIMES.items())
+        bxn = gen.random_x_y(bn, bm, seed=42)[0]
+        bx = torch.from_numpy(bxn).to(dev)
+        xp4 = pad_global(d4, bx)
+        serial = dist_swell_serial_fn(d4, dev)
+        swell.LAUNCHES.clear()
+        y4 = serial(xp4)
+        sync()
+        launches = sum(n for k, n in swell.LAUNCHES.items() if len(k) == 3 and k[0] == "f64")
+        launch_keys = dict(swell.LAUNCHES)
+        whole_lay = swell.get_swell_plan(band_dev)
+        whole = swell.swell_ax(whole_lay, bx)
+        sync()
+        bound_rows = host_spmv(1.0, 0.0, brp, bci, np.abs(bv), np.abs(bxn), np.zeros(bm))
+        gap = (y4[:bm] - whole).abs().cpu().numpy()
+        equal = same_bytes(y4[:bm], whole)
+        within = bool((gap <= ROW_TOL * bound_rows).all())
+        rep = verify_y(y4[:bm], host_spmv(1.0, 0.0, brp, bci, bv, bxn, np.zeros(bm)))
+        finite = bool(torch.isfinite(y4).all())
+        phase("dist", f"banded_csr(1048576, bandwidth=17, seed=11) f64: nnz={band.nnz} "
+              f"(generated in {t_gen:.1f}s); build_dist_swell(., 4) {t_build!r} s ({build_split}): "
+              f"r={d4.r}, {d4.blocks_per_shard} row blocks a shard, rows_local={d4.rows_local}, "
+              f"halo_ok={d4.halo_ok}, tail {d4.tail_nnz}, slots a shard "
+              f"{[len(s.lidx) for s in d4.shards]}; dist_swell_serial_fn: swell kernel launches "
+              f"{launches} ({launch_keys}); y == whole-matrix swell_ax bit for bit: {equal}, "
+              f"within {ROW_TOL}*(|A||x|): {within}; verify_y {rep}; finite: {finite}")
+        if launches < 4 or not finite or not rep.ok or not within or (
+                d4.tail_nnz == 0 and not equal):
+            fail("the D = 4 serial path is wrong or did not launch the swell kernel per shard")
+        records["swell_dist_f64"] = {"launches": launches}
+
+        # each shard's kernel against its plain version, timed beside its
+        # bound and PyTorch's CSR product of the shard's rows
+        L = d4.rows_local
+        lays = [d4.device_layout(d, dev) for d in range(4)]
+        xg = torch.cat([xp4.new_zeros(L), xp4, xp4.new_zeros(L)]) if d4.halo_ok else None
+        per = []
+        for d, lay in enumerate(lays):
+            xw = xg[d * L: (d + 3) * L] if d4.halo_ok else xp4[:bn]
+            a, p = swell.swell_ax(lay, xw), swell.swell_ax_plain(lay, xw)
+            sync()
+            r0, r1 = d * L, min((d + 1) * L, bm)
+            sgap = (a - p).abs().cpu().numpy()
+            ok = (bool((sgap[: r1 - r0] <= ROW_TOL * bound_rows[r0:r1]).all())
+                  and not sgap[r1 - r0:].any())
+            if not ok or not bool(torch.isfinite(a).all()):
+                fail(f"shard {d}: the swell kernel disagrees with its plain version")
+            kern = lambda lay=lay, xw=xw: swell.swell_ax(lay, xw)  # noqa: E731
+            plain = lambda lay=lay, xw=xw: swell.swell_ax_plain(lay, xw)  # noqa: E731
+            t_p1, t_k1, t_k2, t_p2 = time_us(plain), time_us(kern), time_us(kern), time_us(plain)
+            rp_d = brp[r0: r1 + 1] - brp[r0]
+            shard_csr = CSR.from_numpy(rp_d, bci[brp[r0]: brp[r1]], bv[brp[r0]: brp[r1]],
+                                       (r1 - r0, bn), device=dev)
+            nbytes = shard_csr.nnz * 12 + 4 * (r1 - r0 + 1) + 8 * L + 8 * (r1 - r0)
+            per.append(dict(max_abs=float(sgap.max()), k=(t_k1 + t_k2) / 2, p=(t_p1 + t_p2) / 2,
+                            loop=loop_us(kern), nbytes=nbytes, ops=2 * shard_csr.nnz,
+                            lib=library(shard_csr, bx), nnz=shard_csr.nnz))
+            b = bound_of(nbytes, 2 * shard_csr.nnz, FP64_TFLOPS)
+            phase("dist", f"shard {d}: {shard_csr.nnz} nnz, {lay.slots} slots; max|kernel-plain| "
+                  f"{per[-1]['max_abs']!r} within {ROW_TOL}*(|A||x|); kernel {t_k1!r} / {t_k2!r}"
+                  f" us, plain {t_p1!r} / {t_p2!r} us per call (median of 3 after 10 warmups); "
+                  f"loop of 20: {per[-1]['loop']!r} us per launch; bound {b['bound_ms'] * 1e3!r} "
+                  f"us by {b['bound_by']} (8(2L+nnz)+4(L+1+nnz) = {nbytes} B); PyTorch CSR "
+                  f"product of the shard's rows {per[-1]['lib'][1]!r} us per call in a loop of "
+                  f"20, {per[-1]['lib'][0]!r} ms per call; card: {card}")
+        mean = lambda key: sum(s[key] for s in per) / len(per)  # noqa: E731
+        libs = [s["lib"][0] for s in per]
+        records["swell_dist_f64"].update(
+            max_abs_err=max(s["max_abs"] for s in per), ms=mean("k") / 1e3,
+            plain_ms=mean("p") / 1e3,
+            library_ms=None if None in libs else sum(libs) / len(libs),
+            **bound_of(mean("nbytes"), mean("ops"), FP64_TFLOPS))
+
+        # the paths at D = 1: all-gather (one NCCL all_gather) and halo (no
+        # neighbour, so no collective), each equal to swell_ax bit for bit
+        mesh = make_mesh(1)
+        per_call = {}
+        for halo in (None, False):
+            d1 = build_dist_swell(band_dev, 1, halo=halo, mesh=mesh)
+            run = dist_swell_spmv_fn(d1, mesh)
+            x1 = pad_global(d1, bx)
+            swell.LAUNCHES.clear()
+            y1 = run(x1)
+            sync()
+            n_launch, keys1 = sum(swell.LAUNCHES.values()), dict(swell.LAUNCHES)
+            label = "halo" if d1.halo_ok else "all-gather"
+            per_call[label] = loop_us(lambda: run(x1))
+            eq = same_bytes(y1[:bm], whole)
+            phase("dist", f"dist_swell_spmv_fn over {dist.get_backend()} at world size 1, "
+                  f"{label}: {n_launch} launch(es) {keys1}, equal to the "
+                  f"whole-matrix swell_ax bit for bit: {eq}; {per_call[label]!r} us per call "
+                  f"(loop of 20); card: {card}")
+            if not eq or n_launch < 1:
+                fail(f"the D = 1 {label} path differs from swell_ax")
+        xl = pad_global(d4, bx)[:L].contiguous()
+        t_gather = loop_us(lambda: gather_mesh(xl, mesh))
+        t_serial = loop_us(lambda: serial(xp4))
+        t_whole = loop_us(lambda: swell.swell_ax(whole_lay, bx))
+        phase("dist", f"all_gather at world size 1 of {L} f64 ({8 * L} B): {t_gather!r} us per "
+              f"call; serial D = 4 (4 launches) {t_serial!r} us against one whole-matrix "
+              f"swell_ax {t_whole!r} us: structural ratio {t_whole / t_serial!r}; per-shard "
+              f"launch (loop of 20) {[s['loop'] for s in per]} us; card: {card}")
+
+        # the swell CG at D = 1 on gate 3's recipe at full size
+        t0 = time.perf_counter()
+        frp, fci, fv, spd = _spd_fem(1_048_576, np.float64)
+        t_spd = time.perf_counter() - t0
+        fm = spd.rows
+        spd_dev = spd.to(dev)
+        x_true = np.random.default_rng(7).uniform(-1, 1, size=fm)
+        fb = host_spmv(1.0, 0.0, frp, fci, fv, x_true, np.zeros(fm))
+        fb_dev = torch.from_numpy(fb).to(dev)
+        swell.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res, dspc = dist_swell_cg_solve(spd_dev, fb_dev, mesh, tol=1e-8, max_iters=400)
+        sync()
+        t_cg = time.perf_counter() - t0
+        cg_launches = sum(swell.LAUNCHES.values())
+        xs = gather_padded(res.x, mesh)[:fm].cpu().numpy()
+        err = float(np.linalg.norm(xs - x_true) / np.linalg.norm(x_true))
+        met = float(res.residual_norm) <= 1e-8 * float(np.linalg.norm(fb))
+        ref = cg_solve(spd_dev, fb_dev, tol=1e-8, max_iters=400, strategy="swell")
+        sync()
+        # µs per iteration from fixed-trip loops (tol 0) of 5 and 25 iterations,
+        # short of convergence
+        runc = dist_swell_spmv_fn(dspc, mesh)
+        Lc = dspc.rows_local
+        bc = pad_global(dspc, fb_dev)[:Lc].contiguous()
+        whole_c = swell.get_swell_plan(spd_dev)
+
+        dot = all_reduced_dot(mesh)  # the dots dist_swell_cg_solve runs
+
+        def trips(n, matvec, b, d):
+            t = time.perf_counter()
+            _cg_loop(matvec, None, b, torch.zeros_like(b), 0.0, n, d)
+            sync()
+            return time.perf_counter() - t
+
+        it_dist = (trips(25, runc, bc, dot) - trips(5, runc, bc, dot)) / 20 * 1e6
+        one = lambda v: swell.swell_ax(whole_c, v)  # noqa: E731
+        it_one = (trips(25, one, fb_dev, torch.dot) - trips(5, one, fb_dev, torch.dot)) / 20 * 1e6
+        phase("dist", f"gate 3's SPD recipe at m={fm}: nnz={spd.nnz} (made in {t_spd:.1f}s), "
+              f"r={dspc.r}, halo_ok={dspc.halo_ok}; dist_swell_cg_solve at world size 1: "
+              f"{res.iters} iterations, residual {float(res.residual_norm)!r} (met: {met}), rel "
+              f"err against x_true {err!r}, {t_cg!r} s with the build, swell launches "
+              f"{cg_launches}; cg_solve(strategy='swell'): {ref.iters} iterations; per iteration "
+              f"(fixed-trip loops of 5 and 25, host clock): dist {it_dist!r} us, single-device "
+              f"{it_one!r} us; card: {card}")
+        if not met or not err < 1e-5 or abs(res.iters - ref.iters) > 1 or cg_launches < res.iters:
+            fail("the distributed swell CG did not converge or left cg_solve's iteration count")
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1244,6 +1473,14 @@ def smoke(plan_dir: str) -> int:
         if not ok:
             fail("the tools' output is wrong")
 
+    # 7j. the multi-device layer on the card (dist_phase): the dry run, the
+    # D = 4 structural baseline, the all-gather and halo paths and the swell
+    # CG at D = 1
+    t0 = time.perf_counter()
+    dist_phase(dev, card, os.path.join(plan_dir, "dist_rendezvous"), records, loop_us,
+               cuda_time_us, library, bound_of)
+    phase("dist", f"phase took {time.perf_counter() - t0:.1f}s")
+
     # 8. times: each kernel against its plain version at the main paths' shapes,
     # per call (reference protocol, in turns plain, kernel, kernel, plain) and
     # per launch in a loop of 20, beside its bound and PyTorch's CSR product
@@ -1504,10 +1741,13 @@ def smoke(plan_dir: str) -> int:
                            ("swell_spmv_f32", "spmv_acc_tpu/ops/swell.py:334"),
                            ("swell_bsr_r4_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_spmm_k8_f64", "spmv_acc_tpu/ops/swell.py:455"),
-                           ("swell_solver_f64", "spmv_acc_tpu/ops/swell.py:455")):
+                           ("swell_solver_f64", "spmv_acc_tpu/ops/swell.py:455"),
+                           ("swell_dist_f64", "spmv_acc_tpu/ops/swell.py:455")):
         rec = records[name]
         if set(rec) != keys:
             fail(f"{name} was not timed")
+        if name == "swell_dist_f64" and rec["launches"] < 4:
+            fail("the D = 4 distributed path launched the swell kernel fewer than 4 times")
         kernels.append({"name": name, "route": "cuda",
                         "source": "spmv_acc_tpu_torch/csrc/swell_spmv.cu",
                         "replaces": replaces, **rec})

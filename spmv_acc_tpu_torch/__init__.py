@@ -19,7 +19,11 @@ right-hand sides; ``csrc/swell_spmv.cu``), ``adaptive_plus``
 solver path: ILU(0) and triangular solves (``ilu0``, ``trisolve``), CG
 (``models.cg_solve``) and ``spmv-solve``.  The JAX package's bf16 x planes
 (``ops.swell.prep_x``, ``csrc/plane_split.cu``) and the swell kernel's plane
-form are there too, off the default path.
+form are there too, off the default path.  The multi-device layer
+(``parallel``: row partitions, the all-gather and 1-hop halo SpMV, the swell
+kernel as each shard's product, ``models.cg.dist_cg_solve``, the hybrid mesh,
+weak scaling; ``dryrun``) runs on ``torch.distributed`` with one process per
+device: NCCL on the cards, gloo on the CPU.
 
 Public API::
 

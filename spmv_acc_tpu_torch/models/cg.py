@@ -7,7 +7,10 @@ iteration, and the same iteration count.  The JAX package runs the loop as a
 ``lax.while_loop`` on the device; here it is a Python loop of PyTorch ops whose
 condition reads one scalar per iteration on the host.  Dot products are
 ``torch.dot`` (the JAX package's ``_vdot`` works around a TPU cost of f64 dots).
-The mesh-distributed ``dist_cg_solve`` is not ported yet.
+``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
+group (``parallel/``): each rank holds a row block of A and the same block of
+every vector, dot products are a local ``torch.dot`` and an ``all_reduce``, and
+the matvec takes the 1-hop halo exchange or the all-gather of x.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from ..formats.containers import CSR
 
-__all__ = ["CGResult", "cg_solve", "jacobi_preconditioner"]
+__all__ = ["CGResult", "cg_solve", "dist_cg_solve", "jacobi_preconditioner"]
 
 
 class CGResult(NamedTuple):
@@ -94,3 +97,39 @@ def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: 
             return spmv(csr, v, strategy=chosen)
 
     return _cg_loop(matvec, precond, b, x0, tol, max_iters)
+
+
+def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGResult:
+    """Mesh-distributed CG on a row-partitioned SPD matrix, called by every
+    rank of the 1-D ``mesh``.
+
+    A is square-partitioned so that each shard's y rows line up with its x
+    rows (``partition_rows(csr, D, balance=False)``).  ``b`` is the padded
+    ``(D*local_rows,)`` right-hand side (``pad_vector``); each rank takes its
+    block, and the result's ``x`` is this rank's ``(local_rows,)`` block of
+    the padded solution, on its device (all blocks: ``launch.gather_padded``;
+    global rows: ``unpad_vector``).  Dot products are a local ``torch.dot``
+    and an ``all_reduce``; the matvec is ``dist_spmv_halo_fn`` on
+    ``col_idx_padded`` when every shard's columns (in padded coordinates) fit
+    its own block and its two neighbours', else ``dist_spmv_fn``.
+
+    Every rank takes the same number of iterations, or the next collective
+    would wait forever: the stop test reads the all-reduced ``dot(r, r)``,
+    which is the same value on every rank."""
+    from ..parallel.dist_spmv import (all_reduced_dot, dist_spmv_fn, dist_spmv_halo_fn,
+                                      halo_feasible, mesh_device, shard_partitioned)
+
+    part = shard_partitioned(part, mesh)
+    d, lr, D = part.shard, part.local_rows, part.num_shards
+    build = dist_spmv_halo_fn if halo_feasible(part, mesh, padded=True) else dist_spmv_fn
+    run, _ = build(mesh, part, padded=True)
+
+    def matvec(v):
+        return run(part.values, part.col_idx_padded, part.row_ids, v)
+
+    b = torch.as_tensor(b)
+    if tuple(b.shape) != (D * lr,):
+        raise ValueError(f"b must be the padded ({D * lr},) right-hand side, got {tuple(b.shape)}")
+    b_local = b[d * lr: (d + 1) * lr].to(mesh_device(mesh)).contiguous()
+    return _cg_loop(matvec, None, b_local, torch.zeros_like(b_local), tol, max_iters,
+                    all_reduced_dot(mesh))

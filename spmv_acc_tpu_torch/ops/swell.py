@@ -267,12 +267,13 @@ def _plan_cache_load(path: str, dtype: torch.dtype):
     return lay, cells
 
 
-def _host_layout(csr, tdtype: torch.dtype, r):
+def _host_layout(csr, tdtype: torch.dtype, r, device=None):
     """(host SwellLayout or None past the cap, value cells): loaded from the
-    disk plan cache when it is on and holds the entry, else built (and saved)."""
+    disk plan cache when it is on (for ``device``, default ``csr``'s) and holds
+    the entry, else built (and saved)."""
     rp, ci, v, shape = _timed("host_copy", csr.to_numpy)
     path = _timed("hash", _plan_cache_path, rp, ci, v, shape, tdtype, r) if (
-        _plan_cache_on(csr.device)) else None
+        _plan_cache_on(csr.device if device is None else device)) else None
     if path is not None and os.path.exists(path):
         try:
             lay, cells = _timed("load", _plan_cache_load, path, tdtype)

@@ -469,3 +469,122 @@ def test_spgemm_on_card(cuda_device, name):
     c_rp, c_ci, c_v, _ = c.to_numpy()
     assert np.array_equal(c_rp, g_rp) and np.array_equal(c_ci, g_ci)
     assert (np.abs(c_v - g_v) <= 1e-12 * scale).all()
+
+
+@pytest.fixture
+def nccl_group(cuda_device, tmp_path):
+    """A one-rank NCCL group on the card (one H100 is one device: NCCL
+    refuses two ranks on one card)."""
+    import torch.distributed as dist
+
+    from spmv_acc_tpu_torch.parallel.multihost import init_distributed
+
+    init_distributed(coordinator_address="file://" + str(tmp_path / "rendezvous"),
+                     num_processes=1, process_id=0, device="cuda")
+    try:
+        yield cuda_device
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dist_spmv_and_cg_on_card(nccl_group):
+    """NCCL at world size 1: the all-gather and halo SpMV pass the f64 gate,
+    dist_cg_solve reaches x_true, every block on the card."""
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import banded_csr, random_x_y
+    from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.models.cg import dist_cg_solve
+    from spmv_acc_tpu_torch.ops.golden import host_spmv_plain
+    from spmv_acc_tpu_torch.parallel import (dist_spmv, gather_padded, make_mesh, pad_vector,
+                                             partition_rows, unpad_y, unpad_vector)
+    from spmv_acc_tpu_torch.utils import verify_y
+
+    csr = banded_csr(4000, bandwidth=9, seed=13)
+    x = random_x_y(4000, 4000, seed=5)[0]
+    mesh = make_mesh(1)
+    part = partition_rows(csr, 1, balance=False)
+    for halo in (True, False):
+        y = dist_spmv(part, x, mesh, halo=halo)
+        assert y.device.type == "cuda"
+        assert verify_y(unpad_y(part, gather_padded(y, mesh)), host_spmv_plain(
+            *csr.to_numpy()[:3], x)).ok
+    rp, ci, v, _ = csr.to_numpy()
+    spd = spdize(rp.astype(np.int64), ci.astype(np.int64), v, 4000)
+    a = CSR.from_numpy(*spd, (4000, 4000))
+    x_true = np.random.default_rng(3).standard_normal(4000)
+    b = host_spmv_plain(*spd, x_true)
+    pa = partition_rows(a, 1, balance=False)
+    res = dist_cg_solve(pa, pad_vector(pa, b), mesh, tol=1e-10, max_iters=500)
+    xs = unpad_vector(pa, gather_padded(res.x, mesh)).cpu().numpy()
+    assert res.x.device.type == "cuda" and 0 < res.iters < 500
+    assert np.linalg.norm(xs - x_true) < 1e-8 * np.linalg.norm(x_true)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("halo", [None, False])
+def test_dist_swell_equals_swell_ax_on_card(nccl_group, dtype, halo):
+    """dist_swell_spmv_fn over NCCL at world size 1 launches the swell kernel
+    once a call and equals the single-device swell_ax bit for bit (the same
+    slots in the same order; the halo path reads x through a rebased
+    window); the serial baseline at D = 4 launches it 4 times, equal too."""
+    from spmv_acc_tpu_torch.formats import fem_like_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.parallel import make_mesh
+    from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_serial_fn,
+                                                        dist_swell_spmv_fn, pad_global)
+
+    m = 16384
+    csr = fem_like_csr(m, m, 6 * m, block=3, seed=21, dtype=dtype).to(nccl_group)
+    x = torch.from_numpy(random_x_y(m, m, seed=22, dtype=dtype)[0]).to(nccl_group)
+    whole = swell.swell_ax(swell.get_swell_plan(csr), x)
+    mesh = make_mesh(1)
+    dsp = build_dist_swell(csr, 1, halo=halo, mesh=mesh)
+    assert dsp.halo_ok == (halo is None)
+    run = dist_swell_spmv_fn(dsp, mesh)
+    key = ("f64" if dtype == np.float64 else "f32", dsp.r, 1)
+    before = swell.LAUNCHES[key]
+    y = run(pad_global(dsp, x).contiguous())
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[key] == before + 1
+    assert torch.equal(y[:m].view(torch.uint8), whole.view(torch.uint8))
+    d4 = build_dist_swell(csr, 4, halo=halo)
+    before = swell.LAUNCHES[key]
+    y4 = dist_swell_serial_fn(d4, nccl_group)(pad_global(d4, x))
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[key] == before + 4
+    assert torch.equal(y4[:m].view(torch.uint8), whole.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_dist_swell_cg_on_card(nccl_group):
+    """dist_swell_cg_solve over NCCL at world size 1 takes cg_solve's
+    iterations (the same kernel sums, dots all-reduced over one rank)."""
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import fem_like_csr
+    from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.models.cg import cg_solve
+    from spmv_acc_tpu_torch.ops.golden import host_spmv_plain
+    from spmv_acc_tpu_torch.parallel import make_mesh
+    from spmv_acc_tpu_torch.parallel.dist_swell import dist_swell_cg_solve
+
+    m = 8192
+    rp, ci, v, _ = fem_like_csr(m, m, 6 * m, block=3, seed=31).to_numpy()
+    spd = spdize(rp.astype(np.int64), ci.astype(np.int64), v, m)
+    csr = CSR.from_numpy(*spd, (m, m), device=nccl_group)
+    x_true = np.random.default_rng(32).uniform(-1, 1, size=m)
+    b = torch.from_numpy(host_spmv_plain(*spd, x_true))
+    res, dsp = dist_swell_cg_solve(csr, b, make_mesh(1), tol=1e-10, max_iters=300)
+    ref = cg_solve(csr, b.to(nccl_group), tol=1e-10, max_iters=300, strategy="swell")
+    assert res.iters == ref.iters and 0 < res.iters < 300
+    assert np.linalg.norm(res.x[:m].cpu().numpy() - x_true) < 1e-7 * np.linalg.norm(x_true)
+
+
+@pytest.mark.cuda
+def test_dryrun_one_card(cuda_device):
+    """The dry run in a spawned rank on the card (NCCL at world size 1)."""
+    from spmv_acc_tpu_torch.dryrun import dryrun_multichip
+    from spmv_acc_tpu_torch.parallel import spawn
+
+    assert spawn(dryrun_multichip, 1, "cuda", 1, "cuda") == [None]
