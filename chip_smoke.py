@@ -40,7 +40,12 @@ shard, each held against its plain version and equal to the whole-matrix
 ``swell_ax``), the all-gather and halo paths at D = 1 (the all-gather is a
 real NCCL call; the halo path has no neighbour at world size 1 and issues no
 collective, so NCCL's point-to-point exchange runs only on several cards),
-and the swell CG at D = 1 against ``cg_solve``'s iterations.  It then times each
+and the swell CG at D = 1 against ``cg_solve``'s iterations.  The ``bench``
+phase runs the port's benchmark (``python -m spmv_acc_tpu_torch.bench``) as a
+user does, on Hardesty3 (rectangular, 8.2 M rows), RM07R (the detector's r =
+3), largebasis (a layout at fill 0.59) and rajat03, and fails unless its last
+line is whole, both verify flags hold and each large matrix went to the swell
+kernel at its r; then ``entry()``'s step against its plain version.  It then times each
 kernel against its plain version and PyTorch's CSR product (cuSPARSE), beside
 its bound, times the fix-up pass, and sweeps the chunk caps
 (``SWELL_CHUNK_ROWS``, ``TILE_CHUNK_ROWS``) on Ga41As41H72-SPD, TSOPF_RS_b2383
@@ -78,6 +83,12 @@ SWELL_SWEEP = (8, 16, 32, 64, 128, 256)
 TILE_SWEEP = (32, 64, 128, 256, 512)
 # the ELL kernel's lanes a row, every instantiation
 ELL_SWEEP = (2, 4, 8, 16, 32)
+# the port's bench in the ``bench`` phase: the large matrices whose shapes no
+# other phase has (the record each goes to, the r the detector picks on the
+# CPU), then one small matrix
+BENCH_LARGE = (("Hardesty3", "swell_rect_f64", 1), ("RM07R", "swell_bsr_r3_f64", 3),
+               ("largebasis", "swell_lowfill_f64", 1))
+BENCH_SMALL = ("rajat03",)
 
 
 def fail(msg: str) -> None:
@@ -1123,6 +1134,78 @@ def smoke(plan_dir: str) -> int:
         planes_check(f"boneS10 {str(dcsr.dtype)[6:]}", dcsr, swell.get_swell_plan(dcsr),
                      torch.from_numpy(xb).to(dev))
 
+    # 7e'. the port's benchmark as a user runs it, on the large shapes no other
+    # phase has (Hardesty3: rectangular, the most rows; RM07R: the detector's
+    # r = 3; largebasis: the lowest fill) and rajat03, SpGEMM and the solvers
+    # left to their phases; each matrix's stderr line gives the swell kernel's
+    # launches in its adaptive call, counted from 0 in the bench's process
+    import ast
+
+    t0 = time.perf_counter()
+    names = [nm for nm, _, _ in BENCH_LARGE] + list(BENCH_SMALL)
+    proc = subprocess.run([sys.executable, "-m", "spmv_acc_tpu_torch.bench"], capture_output=True,
+                          text=True, cwd=root, timeout=600, env=dict(
+                              os.environ, SPMV_TPU_BENCH_ONLY=",".join(names),
+                              SPMV_TPU_BENCH_SPGEMM="0", SPMV_TPU_BENCH_SOLVER="0"))
+    secs = time.perf_counter() - t0
+    for ln in proc.stderr.splitlines():
+        phase("bench", ln.strip())
+    out_lines = proc.stdout.strip().splitlines()
+    try:
+        last = json.loads(out_lines[-1])
+    except (IndexError, ValueError):
+        fail(f"the bench printed no JSON last line (rc {proc.returncode})")
+    phase("bench", f"python -m spmv_acc_tpu_torch.bench ({','.join(names)}) returned "
+          f"{proc.returncode} in {secs!r} s; {len(out_lines)} JSON lines; last: {out_lines[-1]}; "
+          f"card: {card}")
+    if (proc.returncode != 0 or "partial" in last or last.get("verify_all_pass") is not True
+            or last.get("verify_raw_kernel_all_pass") is not True
+            or last.get("large_done") != len(BENCH_LARGE) or last.get("corpus") != len(names)):
+        fail("the bench's last line is partial, failed a verify flag or misses a matrix")
+    for nm, record, r in BENCH_LARGE:
+        got = re.search(rf"^  {nm}: .* strategy=(\S+) r=(\d+) .* launches=(\{{.*?\}})  device",
+                        proc.stderr, re.M)
+        if not got:
+            fail(f"the bench printed no line for {nm}")
+        counts = ast.literal_eval(got.group(3))
+        n_launch = counts.get(("f64", r, 1), 0)
+        phase("bench", f"{nm}: strategy={got.group(1)} r={got.group(2)}, swell kernel launches "
+              f"in the adaptive call {counts}")
+        if got.group(1) != "swell" or int(got.group(2)) != r or n_launch < 1:
+            fail(f"{nm} went to {got.group(1)} r={got.group(2)}, not swell r={r} with a launch")
+        records[record] = {"launches": n_launch}
+
+    # entry(): the flagship step on the card (float32 swell, r = 1) against its
+    # plain version, within 1e-12 (|A||x|) plus a float32 ulp of each rounding
+    from spmv_acc_tpu_torch.entry import entry
+
+    efn, eargs = entry()
+    elay, ex, ey = eargs
+    swell.LAUNCHES.clear()
+    ea = efn(*eargs)
+    torch.cuda.synchronize()
+    e_launches = launches_of(swell, "f32", 1, 1)
+    eax = swell.swell_ax_plain(elay, ex)
+    ep = eax + ey
+    ecsr = gen.random_csr(512, 512, 4096, seed=7, dtype=np.float32).to(dev)
+    egap = (ea.double() - ep.double()).abs().cpu().numpy()
+    eallowed = (ROW_TOL * row_bound(ecsr, ex.cpu().numpy())[:, 0]
+                + F32_ULP * (eax.double().abs() + ep.double().abs()).cpu().numpy())
+    e_ok = bool(torch.isfinite(ea).all()) and bool((egap <= eallowed).all())
+    phase("bench", f"entry(): fn(layout, x, y) on {ea.device} {tuple(ea.shape)} {ea.dtype}; swell "
+          f"launches {dict(swell.LAUNCHES)}; max|fn - plain| {float(egap.max())!r} within "
+          f"{ROW_TOL}*(|A||x|) + 2^-23(|Ax| + |plain|): {e_ok}")
+    if not e_ok or e_launches != 1:
+        fail("entry()'s step disagrees with its plain version or did not launch the kernel once")
+    e_k = [cuda_time_us(lambda: efn(*eargs)) for _ in range(2)]
+    e_p = [cuda_time_us(lambda: swell.swell_ax_plain(elay, ex) + ey) for _ in range(2)]
+    records["swell_entry_f32"] = {"launches": e_launches, "max_abs_err": float(egap.max()),
+                                  "ms": sum(e_k) / 2e3, "plain_ms": sum(e_p) / 2e3}
+    phase("bench", f"entry() step: {e_k!r} us per call, plain {e_p!r} us (median of 3 after 10 "
+          f"warmups); card: {card}")
+    finish("swell_entry_f32", "entry() f32 r=1 k=1", spmv_bytes(ecsr) + 4 * 512, 2 * ecsr.nnz,
+           F32_TFLOPS, library(ecsr, ex))
+
     # 7f. the solver path at full size: the JAX package's two solver workloads
     # (bench.py bench_solver, bench_solver_aniso)
     from spmv_acc_tpu_torch.cli.solve import spdize
@@ -1734,6 +1817,17 @@ def smoke(plan_dir: str) -> int:
     time_planes("boneS10", bone_dev, swell.get_swell_plan(bone_dev),
                 torch.from_numpy(bx).to(dev))
 
+    # 8d. the bench phase's large shapes: the swell kernel over the layouts the
+    # bench saved (loaded from the plan cache) on the corpus it cached
+    for nm, record, r in BENCH_LARGE:
+        host = gen.example_like(nm)
+        dcsr = host.to(dev)
+        lay = swell.get_swell_plan(dcsr)
+        timed(f"f64 r={lay.r} k=1 fill={lay.fill:.3f} (bench shape)", nm, dcsr, lay,
+              gen.random_x_y(host.cols, host.rows, seed=42)[0], record, ref_bytes(host))
+        del host, dcsr, lay
+        swell.clear_swell_cache()
+
     # 9. records
     keys = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = []
@@ -1742,10 +1836,14 @@ def smoke(plan_dir: str) -> int:
                            ("swell_bsr_r4_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_spmm_k8_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_solver_f64", "spmv_acc_tpu/ops/swell.py:455"),
-                           ("swell_dist_f64", "spmv_acc_tpu/ops/swell.py:455")):
+                           ("swell_dist_f64", "spmv_acc_tpu/ops/swell.py:455"),
+                           ("swell_rect_f64", "spmv_acc_tpu/ops/swell.py:455"),
+                           ("swell_bsr_r3_f64", "spmv_acc_tpu/ops/swell.py:455"),
+                           ("swell_lowfill_f64", "spmv_acc_tpu/ops/swell.py:455"),
+                           ("swell_entry_f32", "spmv_acc_tpu/ops/swell.py:334")):
         rec = records[name]
-        if set(rec) != keys:
-            fail(f"{name} was not timed")
+        if set(rec) != keys or rec["launches"] < 1:
+            fail(f"{name} was not launched on the main path or not timed")
         if name == "swell_dist_f64" and rec["launches"] < 4:
             fail("the D = 4 distributed path launched the swell kernel fewer than 4 times")
         kernels.append({"name": name, "route": "cuda",

@@ -23,7 +23,9 @@ form are there too, off the default path.  The multi-device layer
 (``parallel``: row partitions, the all-gather and 1-hop halo SpMV, the swell
 kernel as each shard's product, ``models.cg.dist_cg_solve``, the hybrid mesh,
 weak scaling; ``dryrun``) runs on ``torch.distributed`` with one process per
-device: NCCL on the cards, gloo on the CPU.
+device: NCCL on the cards, gloo on the CPU.  The entry points are
+``entry`` (the flagship swell step with example arguments) and
+``dryrun_multichip``; ``python -m spmv_acc_tpu_torch.bench`` is the benchmark.
 
 Public API::
 
@@ -42,6 +44,7 @@ from .dispatch import (
     sparse_csr_spmv,
     spmv,
 )
+from .entry import entry
 from .formats import (
     BSR,
     COO,
@@ -109,5 +112,18 @@ __all__ = [
     "get_plan",
     "verify",
     "verify_y",
+    "entry",
+    "dryrun_multichip",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # loaded on first use: importing the dry run with the package would load
+    # torch.distributed for every caller, and `python -m spmv_acc_tpu_torch.dryrun`
+    # would warn that its module was imported before it ran
+    if name == "dryrun_multichip":
+        from .dryrun import dryrun_multichip
+
+        return dryrun_multichip
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -588,3 +588,28 @@ def test_dryrun_one_card(cuda_device):
     from spmv_acc_tpu_torch.parallel import spawn
 
     assert spawn(dryrun_multichip, 1, "cuda", 1, "cuda") == [None]
+
+
+@pytest.mark.cuda
+def test_entry_on_card(cuda_device):
+    """entry()'s step on the card launches the float32 swell kernel once and
+    matches its plain version within 1e-12 (|A|·|x|) plus one float32 ulp of
+    each rounding: A @ x to float32, then the sum with y."""
+    from spmv_acc_tpu_torch.entry import entry
+    from spmv_acc_tpu_torch.formats import random_csr
+    from spmv_acc_tpu_torch.ops import swell
+
+    fn, (layout, x, y) = entry()
+    assert layout.device.type == x.device.type == y.device.type == "cuda"
+    before = swell.LAUNCHES[("f32", 1, 1)]
+    a = fn(layout, x, y)
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[("f32", 1, 1)] == before + 1
+    ax = swell.swell_ax_plain(layout, x)
+    p = (ax + y).cpu().numpy().astype(np.float64)
+    ax = ax.cpu().numpy().astype(np.float64)
+    a = a.cpu().numpy().astype(np.float64)
+    xs = x.cpu().numpy().astype(np.float64)
+    bound = _row_bound(random_csr(512, 512, 4096, seed=7, dtype=np.float32), np.abs(xs))
+    assert np.isfinite(a).all()
+    assert (np.abs(a - p) <= 2.0**-23 * (np.abs(ax) + np.abs(p)) + 1e-12 * bound).all()
