@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Run from the repo root on a machine with a Hopper card, ``nvcc`` and a C++
-compiler.  It builds the four kernel sources of ``spmv_acc_tpu_torch/csrc``
-(swell with its plane form, tile, ELL row sum, plane split; one nvcc each, all
-at once), holds every variant the port launches against its plain PyTorch
-version (swell at float64 and float32, BSR r = 1..4, k = 1, 3, 8 columns; the
+compiler.  It builds the five kernel sources of ``spmv_acc_tpu_torch/csrc``
+(swell with its plane form, tile, ELL row sum, plane split, the chain's
+feedback F-1; one nvcc each, all at once), holds every variant the port
+launches against its plain PyTorch version (swell at float64 and float32,
+BSR r = 1..4, k = 1, 3, 8 columns; the
 tile and ELL kernels, the plane split (bit for bit) and the plane-form swell at
 both dtypes on every smoke matrix, the ELL kernel at every lane count, also on
 a slab without padding and with x[0] = inf; the swell and tile kernels again with their
@@ -23,7 +24,16 @@ boneS10 in both dtypes and adaptive_plus on TSOPF_RS_b2383, every strategy on
 af23560, ``spmv-benchmark`` on af23560 (all engines) and boneS10, and the
 solver path: ILU(0) and preconditioned CG on Ga41As41H72 (SPD-ized) and on
 512^2 anisotropic diffusion, CG with the plane split and the plane-form swell
-kernel as its matvec, and ``spmv-solve`` on af23560.  Every swell layout the
+kernel as its matvec, and ``spmv-solve`` on af23560.  The chained loops run
+as captured CUDA graphs (``utils/graphs.py``): the ``graphs`` phase holds
+``make_swell_run`` and ``make_swell_amx_run`` on boneS10 and TSOPF_RS_b2383
+against the eager chains (x bit for bit, µs an iteration in turns, capture
+seconds and graph memory, the launches of every replay counted) and F-1
+(``csrc/feedback.cu``) against its plain version, beside its bound; the
+``solver`` phase holds ``cg_solve``'s captured blocks against the eager loop
+(the recorded iterations 10 / 4 on Ga41As41H72-SPD and 1347 / 417 on aniso,
+Jacobi / ILU; x bit for bit; µs an iteration) and captures a CG block over
+the exact chunk-scheduled ILU apply.  Every swell layout the
 run builds goes to the disk plan cache in a fresh directory under ``build/``
 that the run deletes at its end: the ``plan-cache`` phase drops the process's
 caches and runs boneS10 and TSOPF_RS_b2383 again from the saved layouts (the
@@ -31,7 +41,7 @@ kernel over both layouts equal in bytes), then ``spmv-cli`` twice on boneS10
 as subprocesses sharing one cache directory (cold, then warm).  The ``spgemm``
 phase runs A @ A on af23560, epb1 and dw4096 on the card against the host
 golden; ``tools`` runs csr-tool, suitesparse-dl's conv/list/gen, ``trace``
-around a boneS10 swell launch and ``bandwidth_report``.  The ``dist`` phase
+around three boneS10 swell launches and ``bandwidth_report``.  The ``dist`` phase
 runs the multi-device layer on the one card: ``dryrun_multichip(1)`` in an
 NCCL group joined through a file under ``build/`` (gate 4b reported
 skipped), the structural baseline ``dist_swell_serial_fn`` at D = 4 on
@@ -58,6 +68,7 @@ the device JSON record.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -89,6 +100,10 @@ ELL_SWEEP = (2, 4, 8, 16, 32)
 BENCH_LARGE = (("Hardesty3", "swell_rect_f64", 1), ("RM07R", "swell_bsr_r3_f64", 3),
                ("largebasis", "swell_lowfill_f64", 1))
 BENCH_SMALL = ("rajat03",)
+# cg_solve's iterations at tol 1e-8 on the bench's two solver systems, as the
+# eager loop took them on the H100 (scripts/torch_probe_graphs.py tune)
+CG_ITERS = {("Ga41As41H72-SPD", "jacobi"): 10, ("Ga41As41H72-SPD", "ilu"): 4,
+            ("aniso 512^2", "jacobi"): 1347, ("aniso 512^2", "ilu"): 417}
 
 
 def fail(msg: str) -> None:
@@ -176,7 +191,8 @@ def ptxas_summary(log: str) -> str:
     """One 'swell f64 r1 g1: 31 regs, 0 B spill' item per kernel instantiation."""
     out, cur, spill = [], None, "spill not reported"
     for ln in log.splitlines():
-        m = re.search(r"(swell|tile|ell|plane_split|fixup)_kernelI([df])((?:L[ib]\d+E)*)E", ln)
+        m = re.search(r"(swell|tile|ell|plane_split|fixup|feedback_partials|feedback_scale)"
+                      r"(?:_kernel)?I([df])((?:L[ib]\d+E)*)E", ln)
         if m and "Compiling entry function" in ln:
             params = " ".join(re.findall(r"L[ib](\d+)E", m.group(3)))
             cur = f"{m.group(1)} f{'64' if m.group(2) == 'd' else '32'} {params}".strip()
@@ -466,6 +482,240 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
             fail("the distributed swell CG did not converge or left cg_solve's iteration count")
     finally:
         dist.destroy_process_group()
+
+
+def first_call(fn):
+    """(seconds, device bytes above the allocation before it at its peak) of
+    ``fn()``: a captured loop's first call, its capture included."""
+    import torch
+
+    gc.collect()  # what an earlier loop left in reference cycles is freed here, not inside
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def same_or_close(label, got, runs):
+    """``got`` against the eager loop's results ``runs`` (two runs): bit for
+    bit where the eager loop repeats itself bit for bit, else (index_add_'s
+    atomics in a COO tail) within 1e-12 relative.  Returns the phase text."""
+    import torch
+
+    repeats = torch.equal(runs[0], runs[1])
+    rel = float((got - runs[0]).norm() / runs[0].norm().clamp(min=1e-300))
+    if repeats and not torch.equal(got, runs[0]):
+        fail(f"{label}: the captured loop differs from the eager loop, which repeats itself")
+    if not repeats and not rel <= 1e-12:
+        fail(f"{label}: the captured loop is {rel!r} from the eager loop")
+    return (f"equal bit for bit: {torch.equal(got, runs[0])} (eager repeats itself: "
+            f"{repeats}; relative difference {rel!r})")
+
+
+def graphs_phase(dev, card, records, mats, spmm_X, bound_of, flush_buf):
+    """The bench's chained loops as captured CUDA graphs (``utils/graphs.py``)
+    against the eager loops they replace, and F-1 (``csrc/feedback.cu``, the
+    chain's feedback) against its plain version, on boneS10 and
+    TSOPF_RS_b2383 (``mats``: (name, CSR on the card)) and the SpMM chains on
+    ``spmm_X``.  Each chain: at the bench's loop length on the bench's data,
+    the launches of every replay counted and x bit for bit the same steps run
+    eagerly (the step function launched from the host); on data that moves x
+    (x and y scaled until the multiplier is 1 + 1e-9 a step, the product
+    carrying most of s), x bit for bit the eager steps and within the float32
+    mean's rounding of the eager PyTorch chain; µs an iteration at the bench's
+    loop lengths, eager PyTorch chain against captured, in three turns each;
+    the first call's capture seconds and graph memory.  F-1 alone at
+    boneS10's shapes: the bench's data (bit for bit), and s ~ 1e11 from ax and
+    y both, alpha 2, beta -0.5, and the SpMM form at k = 8 (within the
+    tolerance).  The boneS10 chain is F-1's main path: its counts are read
+    from 0.  Records ``feedback_f64``.  No profiler session here (the
+    ``tools`` check traces first, in the ``solver`` phase): device times are
+    CUDA events."""
+    import torch
+
+    from spmv_acc_tpu_torch import bench
+    from spmv_acc_tpu_torch.formats.generate import random_x_y
+    from spmv_acc_tpu_torch.ops import feedback, swell
+    from spmv_acc_tpu_torch.utils import cuda_time_us
+    from spmv_acc_tpu_torch.utils.graphs import UNROLL
+
+    eps = 2.0**-52
+
+    def plain_chain(layout, x, y, n):
+        """The chain as eager PyTorch ops (the loop before graphs)."""
+        for _ in range(n):
+            x = (feedback.feedback_plain(x, swell.swell_ax(layout, x), y) if y is not None
+                 else feedback.feedback_plain(x, swell.swell_amx(layout, x)))
+        return x
+
+    def step_chain(layout, x, y, n):
+        """The captured step launched from the host: swell, tail, F-1."""
+        x = x.clone()
+        for _ in range(n):
+            if y is not None:
+                feedback.feedback_(x, swell.swell_ax(layout, x), y)
+            else:
+                feedback.feedback_(x, swell.swell_amx(layout, x))
+        return x
+
+    def turns(eager, captured, n0, n1):
+        """µs an iteration, eager and captured, in turns e c c e e c."""
+        got = {"eager": [], "captured": []}
+        for which in ("eager", "captured", "captured", "eager", "eager", "captured"):
+            fn = eager if which == "eager" else captured
+            got[which].append(bench._slope_us(fn, n0, n1, dev))
+        return got
+
+    def spread(v):
+        return f"{v!r} (spread {(max(v) - min(v)) / min(v) if min(v) > 0 else 0.0!r})"
+
+    def sq_mean(t):
+        return float((t.float() ** 2).mean())
+
+    def moving(label, layout, x, y, run):
+        """The chain on data that moves x: ``UNROLL + 3`` steps (the graphs of
+        UNROLL, 2 and 1) against the eager steps (bits) and the eager PyTorch
+        chain (n·(1e-5·(multiplier - 1) + 4 ulps) relative a step)."""
+        ax = swell.swell_ax(layout, x) if y is not None else swell.swell_amx(layout, x)
+        s_mean = sq_mean(ax if y is None else ax + y)
+        sigma = (1e21 / s_mean) ** 0.5  # mean(s^2) * 1e-30 = 1e-9
+        xm = x * sigma
+        ym = None if y is None else y * sigma
+        n = UNROLL + 3
+        got = run(xm, ym, n)
+        text = same_or_close(f"{label} moving chain", got,
+                             [step_chain(layout, xm, ym, n) for _ in range(2)])
+        plain = plain_chain(layout, xm, ym, n)
+        axm = swell.swell_ax(layout, xm) if y is not None else swell.swell_amx(layout, xm)
+        mult = sq_mean(axm if y is None else axm + ym) * 1e-30
+        share = 1.0 if y is None else sq_mean(axm) / sq_mean(axm + ym)
+        move = float(((got - xm).abs() / xm.abs().clamp(min=1e-300)).max())
+        gap = float(((got - plain).abs() / plain.abs().clamp(min=1e-300)).max())
+        allowed = n * (1e-5 * mult + 4 * eps)
+        phase("graphs", f"{label} on data that moves x ({n} steps, multiplier - 1 = {mult!r} a "
+              f"step, the product's share of mean(s^2) {share!r}): x moved {move!r} relative; "
+              f"against the eager steps {text}; against the eager PyTorch chain max relative "
+              f"{gap!r} (allowed {allowed!r}); card: {card}")
+        if not move > 0.5 * n * mult or not share > 0.01:
+            fail(f"{label}: the moving chain did not move x through the product")
+        if not gap <= allowed:
+            fail(f"{label}: the captured chain is {gap!r} from the eager PyTorch chain")
+
+    f1 = {}
+    for name, dcsr in mats:
+        layout = swell.get_swell_plan(dcsr)
+        x, y = (torch.from_numpy(a).to(dev) for a in random_x_y(dcsr.cols, dcsr.rows, seed=42))
+        run = swell.make_swell_run(dcsr)
+        it = bench._iters_for(dcsr.nnz)
+        secs, mem = first_call(lambda: run(x, y, 1 + it))  # captures the 64- and 1-step graphs
+        swell.LAUNCHES.clear()
+        feedback.LAUNCHES.clear()
+        out = run(x, y, 1 + it)
+        torch.cuda.synchronize()
+        n_swell, n_f1 = launches_of(swell, "f64", layout.r, 1), feedback.LAUNCHES["f64"]
+        if name == "boneS10":
+            f1["launches"] = n_f1
+        text = same_or_close(f"{name} chain", out, [step_chain(layout, x, y, 1 + it)
+                                                     for _ in range(2)])
+        per = turns(lambda n: plain_chain(layout, x, y, n), lambda n: run(x, y, n),
+                    1 + it // 4, 1 + it)
+        phase("graphs", f"{name} make_swell_run, {1 + it} steps replayed: swell launches "
+              f"{n_swell}, F-1 launches {n_f1}; x against the eager steps {text}; us an "
+              f"iteration (bench loop lengths {1 + it // 4}, {1 + it}): eager PyTorch chain "
+              f"{spread(per['eager'])}, captured {spread(per['captured'])}; first call "
+              f"(capture of the {UNROLL}- and 1-step graphs) {secs!r} s, graph memory {mem} B; "
+              f"card: {card}")
+        if n_swell != 1 + it or n_f1 != 1 + it or not torch.isfinite(out).all():
+            fail(f"{name}: the replays did not count one swell and one F-1 launch a step")
+        moving(f"{name} make_swell_run", layout, x, y, run)
+        X = spmm_X[name]
+        run_amx = swell.make_swell_amx_run(dcsr, 8)
+        n_amx = max(16, it // 8)
+        secs, mem = first_call(lambda: run_amx(X, UNROLL))
+        text = same_or_close(f"{name} SpMM chain", run_amx(X, 1 + n_amx),
+                             [step_chain(layout, X, None, 1 + n_amx) for _ in range(2)])
+        per = turns(lambda n: plain_chain(layout, X, None, n), lambda n: run_amx(X, n),
+                    1 + n_amx // 4, 1 + n_amx)
+        phase("graphs", f"{name} make_swell_amx_run k=8: x against the eager steps {text}; us "
+              f"an iteration: eager PyTorch chain {spread(per['eager'])}, captured "
+              f"{spread(per['captured'])}; first call {secs!r} s, graph memory {mem} B; "
+              f"card: {card}")
+        moving(f"{name} make_swell_amx_run k=8", layout, X, None,
+               lambda xx, _, n: run_amx(xx, n))
+
+    # F-1 alone at boneS10's chain shapes: the bench's data (the multiplier
+    # rounds to 1: x bit for bit), then s ~ 1e11 from ax and y both with alpha
+    # 2 and beta -0.5, and the SpMM form (no y) on AX ~ 1e11: within 1e-5 of
+    # the multiplier's move plus 4 ulps (the float32 mean summed in another order)
+    name, dcsr = mats[0]
+    layout = swell.get_swell_plan(dcsr)
+    x, y = (torch.from_numpy(a).to(dev) for a in random_x_y(dcsr.cols, dcsr.rows, seed=42))
+    ax = swell.swell_ax(layout, x)
+    AX = swell.swell_amx(layout, spmm_X[name])
+    err = 0.0
+    for label, xx, a, yy, alpha, beta in (
+            ("bench data", x, ax, y, 1.0, 1.0),
+            ("ax, y ~ 1e11, alpha 2, beta -0.5", x, ax * 1e11, y * 1e11, 2.0, -0.5),
+            ("SpMM k=8, bench data", spmm_X[name], AX, None, 1.0, 1.0),
+            ("SpMM k=8, AX ~ 1e11", spmm_X[name], AX * 1e11, None, 1.0, 1.0)):
+        plain = feedback.feedback_plain(xx, a, yy, alpha, beta)
+        got = feedback.feedback_(xx.clone(), a, yy, alpha, beta)
+        torch.cuda.synchronize()
+        s = (a if yy is None else alpha * a + beta * yy).float()
+        moved = float((s * s).mean()) * 1e-30
+        gap = (got - plain).abs()
+        ok = bool((gap <= (1e-5 * moved + 4 * eps) * plain.abs()).all())
+        if "bench data" in label:
+            ok = ok and torch.equal(got, plain) and torch.equal(plain, xx)
+        elif not moved > 1e-9:
+            ok = False
+        err = max(err, float(gap.max()))
+        phase("graphs", f"F-1 {name} f64 m={dcsr.rows} n={dcsr.cols}, {label}: multiplier - 1 = "
+              f"{moved!r}; max|kernel - plain| {float(gap.max())!r}; bit for bit: "
+              f"{torch.equal(got, plain)}; within the tolerance: {ok}")
+        if not ok:
+            fail(f"F-1 disagrees with its plain version ({label})")
+    xs = x.clone()
+    kern = lambda: feedback.feedback_(xs, ax, y)  # noqa: E731  (the multiplier is 1)
+    plain = lambda: feedback.feedback_plain(x, ax, y)  # noqa: E731
+    t_p1, t_k1, t_k2, t_p2 = (cuda_time_us(plain), cuda_time_us(kern), cuda_time_us(kern),
+                              cuda_time_us(plain))
+
+    def cold_us(fn, n=21):
+        """Median device µs of ``fn`` between CUDA events, each call after a
+        256 MB read (5x the L2: it leaves clean lines, as the swell kernel's
+        layout does before F-1 in the chain), so ``fn`` reads its inputs from
+        HBM; the read takes long enough that the events and ``fn``'s launches
+        are queued before it ends."""
+        fn()
+        times = []
+        for _ in range(n):
+            flush_buf.sum()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1) * 1e3)
+        return sorted(times)[n // 2]
+
+    d_k1, d_e1, d_e2, d_k2 = cold_us(kern), cold_us(plain), cold_us(plain), cold_us(kern)
+    m, n = dcsr.rows, dcsr.cols
+    b = bound_of(16 * m + 16 * n, 5 * m + n, 34.0)
+    records["feedback_f64"] = {"launches": f1["launches"], "max_abs_err": err,
+                               "ms": (t_k1 + t_k2) / 2e3, "plain_ms": (t_p1 + t_p2) / 2e3,
+                               "library_ms": None, **b}
+    phase("graphs", f"F-1 {name} f64: kernel {t_k1!r} / {t_k2!r} us, plain (the eager "
+          f"sequence) {t_p1!r} / {t_p2!r} us per call (median of 3 after 10 warmups, CUDA "
+          f"events, L2-warm); device time a call from HBM (median of 21, CUDA events after a "
+          f"256 MB read): kernel's two passes {d_k1!r} / {d_k2!r} us, eager sequence "
+          f"{d_e1!r} / {d_e2!r} us; bound {b['bound_ms'] * 1e3!r} us by {b['bound_by']} "
+          f"(16m + 16n = {16 * m + 16 * n} B); no single PyTorch call computes it; card: {card}")
+    if f1["launches"] < 1:
+        fail("the boneS10 chain launched F-1 no time")
 
 
 def main() -> int:
@@ -999,6 +1249,12 @@ def smoke(plan_dir: str) -> int:
         fail("the SpMM path launched the kernel no time")
     records["swell_spmm_k8_f64"] = {"launches": launches}
 
+    # 6b. the chained loops as captured CUDA graphs, and F-1
+    t0 = time.perf_counter()
+    graphs_phase(dev, card, records, [("boneS10", bone_dev), ("TSOPF_RS_b2383", tsopf_dev)],
+                 spmm_X, bound_of, flush_buf)
+    phase("graphs", f"phase took {time.perf_counter() - t0:.1f}s")
+
     # 7. float32: spmv-cli on af23560 and boneS10 through spmv(adaptive)
     from spmv_acc_tpu_torch.cli.main import main as cli_main
 
@@ -1224,6 +1480,54 @@ def smoke(plan_dir: str) -> int:
             fail(f"{label}: rel err {err!r} misses the {gate} gate")
         return err
 
+    def captured_vs_eager(system, label, lay, pre, b, max_iters, res):
+        """cg_solve's result (``res``: plain iterations, then captured blocks)
+        and a ``CGBlocks`` captured from the first iteration against the eager
+        loop on the same swell matvec: iterations equal and the recorded ones,
+        x bit for bit where the eager loop repeats itself; the solve's wall
+        seconds and µs an iteration of fixed-trip loops (tol 0, 65 and 513
+        iterations), captured and eager in turns."""
+        from spmv_acc_tpu_torch import bench
+        from spmv_acc_tpu_torch.models.cg import CGBlocks
+
+        M = pre.solve if isinstance(pre, tri.ILU0) else pre
+        mv = lambda v: swell.swell_ax(lay, v)  # noqa: E731
+        x0 = torch.zeros_like(b)
+        walls, runs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(_cg_loop(mv, M, b, x0, 1e-8, max_iters))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        solver = CGBlocks(mv, M, b, eager_iters=0)
+        first = solver.solve(b, x0, 1e-8, max_iters)  # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = solver.solve(b, x0, 1e-8, max_iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = same_or_close(f"{system} cg[{label}]", res.x, [r.x for r in runs])
+        text_c = same_or_close(f"{system} cg[{label}] captured", first.x, [r.x for r in runs])
+        want = CG_ITERS[(system, label)]
+        per = {"eager": [], "captured": []}
+        if system.startswith("aniso"):  # Ga41As41H72-SPD's residual reaches 0 before 513
+            for which in ("eager", "captured", "captured", "eager"):
+                fn = ((lambda n: _cg_loop(mv, M, b, x0, 0.0, n).residual_norm)
+                      if which == "eager" else
+                      (lambda n: solver.solve(b, x0, 0.0, n).residual_norm))
+                per[which].append(bench._slope_us(fn, 65, 513, dev))
+        phase("solver", f"{system} cg[{label}] against the eager loop: iterations cg_solve "
+              f"{res.iters}, captured from the first iteration {first.iters}, {again.iters} "
+              f"again, eager {runs[0].iters} (recorded {want}); x of cg_solve {text}; x "
+              f"captured {text_c}; solve wall captured {wall!r} s (its graphs captured "
+              f"before), eager {walls!r} s; us an iteration (fixed-trip loops of 65 and 513, "
+              f"aniso): captured {per['captured']!r}, eager {per['eager']!r}; card: {card}")
+        if not res.iters == first.iters == runs[0].iters == again.iters == want:
+            fail(f"{system} cg[{label}]: cg_solve {res.iters}, captured {first.iters}, eager "
+                 f"{runs[0].iters} iterations, recorded {want}")
+        return min(per["captured"], default=None)
+
     t0 = time.perf_counter()
     ga = gen.example_like("Ga41As41H72")
     grp, gci, gv, (gm, _) = ga.to_numpy()
@@ -1285,35 +1589,38 @@ def smoke(plan_dir: str) -> int:
            2 * gcsr.nnz, FP64_TFLOPS, library(gcsr, g0), tensor_bytes(
                glay.vals, glay.lidx, glay.slab_off, glay.slab_log2d, glay.slab_col_base,
                glay.rb_slab_ptr, g0, g0))
-    gs = glay.schedule
-    ga_ax = lambda: swell.swell_ax(glay, g0)  # noqa: E731
-    phase("solver", f"Ga41As41H72-SPD swell schedule: {sched_text(gs)} for {glay.mrb} row "
-          f"blocks; partial buffer {gs.nparts * glay.r * 128 * 8} B at k = 1; device time "
-          f"(torch.profiler) chunk kernel {device_us(ga_ax, 'swell_kernel')!r} us, fix-up "
-          f"{device_us(ga_ax, 'fixup_kernel')!r} us a launch; card: {card}")
-    # tools: trace around one boneS10 swell launch (the exported trace must name
-    # the kernel) and bandwidth_report of that call.  Here, seconds after the
-    # profiler sessions above: with torch 2.11 (CUDA 12.8) on an H100, a
-    # torch.profiler session that starts some 30 s after the process's
-    # previous one records no CUDA kernels at all
+    # tools: trace around three boneS10 swell launches (the exported trace must
+    # name the kernel) and bandwidth_report of one call.  Here, as the process's
+    # first torch.profiler session, with the others seconds after it: with torch
+    # 2.11 (CUDA 12.8) on an H100, a session that starts some 30 s after the
+    # process's previous one records no CUDA kernels at all, and a later session
+    # recorded none of this region in three smoke runs where it came after two
+    # sessions minutes earlier and two just before
     from spmv_acc_tpu_torch.utils.profiling import bandwidth_report, trace
 
     bone_lay = swell.get_swell_plan(bone_dev)
     bx_dev = torch.from_numpy(gen.random_x_y(bone.cols, bone.rows, seed=42)[0]).to(dev)
     with tempfile.TemporaryDirectory() as td:
         with trace(td) as prof:
-            swell.swell_ax(bone_lay, bx_dev)
+            for _ in range(3):
+                swell.swell_ax(bone_lay, bx_dev)
         (tfile,) = os.listdir(td)
         with open(os.path.join(td, tfile)) as f:
             named = "swell_kernel" in f.read()
     kernels = sorted({e.key for e in prof.key_averages() if "swell_kernel" in e.key})
     us = cuda_time_us(lambda: swell.swell_ax(bone_lay, bx_dev))
-    phase("tools", f"trace around one boneS10 swell launch: {tfile} names the swell kernel: "
-          f"{named} ({kernels}); bandwidth_report of the call ({us!r} us per call, median of "
-          f"3): {bandwidth_report(bone.rows, bone.nnz, us)}; card: {card}")
+    phase("tools", f"trace around three boneS10 swell launches: {tfile} names the swell "
+          f"kernel: {named} ({kernels}); bandwidth_report of one call ({us!r} us per call, "
+          f"median of 3): {bandwidth_report(bone.rows, bone.nnz, us)}; card: {card}")
     if not named or not kernels:
         fail("the exported trace does not name the swell kernel")
     del bone_lay
+    gs = glay.schedule
+    ga_ax = lambda: swell.swell_ax(glay, g0)  # noqa: E731
+    phase("solver", f"Ga41As41H72-SPD swell schedule: {sched_text(gs)} for {glay.mrb} row "
+          f"blocks; partial buffer {gs.nparts * glay.r * 128 * 8} B at k = 1; device time "
+          f"(torch.profiler) chunk kernel {device_us(ga_ax, 'swell_kernel')!r} us, fix-up "
+          f"{device_us(ga_ax, 'fixup_kernel')!r} us a launch; card: {card}")
     sweep(f"Ga41As41H72-SPD swell f64 r={glay.r} k=1", lambda c: swell.rescheduled(glay, c),
           lambda lay: swell.swell_ax(lay, g0), SWELL_SWEEP)
     phase("solver", f"Ga41As41H72-SPD swell layout: r={glay.r}, {glay.mrb} row blocks, "
@@ -1339,16 +1646,18 @@ def smoke(plan_dir: str) -> int:
     g_launches = {}
     for label, pre in (("jacobi", jacobi_preconditioner(gcsr)), ("ilu", gfact)):
         swell.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        res = cg_solve(gcsr, dgb, tol=1e-8, max_iters=300, strategy="swell", precond=pre)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        box = []
+        secs, mem = first_call(lambda: box.append(cg_solve(
+            gcsr, dgb, tol=1e-8, max_iters=300, strategy="swell", precond=pre)))
+        res = box[0]
         launches = g_launches[label] = launches_of(swell, "f64")
-        solved(f"Ga41As41H72-SPD cg[{label}] ({secs!r} s; swell launches "
-               f"{dict(swell.LAUNCHES)})", res, x_true, gb_norm, 1e-8, 300, gate=1e-6)
+        solved(f"Ga41As41H72-SPD cg[{label}] ({secs!r} s, any capture included, graph memory "
+               f"{mem} B; swell launches {dict(swell.LAUNCHES)})", res, x_true, gb_norm, 1e-8,
+               300, gate=1e-6)
         if launches < res.iters:
             fail(f"Ga41As41H72-SPD cg[{label}] launched the swell kernel {launches} times "
                  f"in {res.iters} iterations")
+        captured_vs_eager("Ga41As41H72-SPD", label, glay, pre, dgb, 300, res)
     # the ILU-preconditioned solve is the solver path's record
     records["swell_solver_f64"]["launches"] = g_launches["ilu"]
     del gfact, glay, gcsr
@@ -1372,61 +1681,45 @@ def smoke(plan_dir: str) -> int:
     torch.cuda.synchronize()
     compare(f"aniso {nx}^2 r={alay.r} slots={alay.slots}", acsr, axs.cpu().numpy(), a, p,
             "solver")
-    aiters = {}
+    aiters, aper = {}, {}
     for label, pre in (("jacobi", ajac), ("ilu", afact)):
         swell.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        res = cg_solve(acsr, ab, tol=1e-8, max_iters=4000, strategy="swell", precond=pre)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        solved(f"aniso cg[{label}] ({secs!r} s, {secs / max(res.iters, 1) * 1e6!r} us per "
-               f"iteration with one host read each; swell launches {dict(swell.LAUNCHES)})",
-               res, ax_true, ab_norm, 1e-8, 4000)
+        box = []
+        secs, mem = first_call(lambda: box.append(cg_solve(
+            acsr, ab, tol=1e-8, max_iters=4000, strategy="swell", precond=pre)))
+        res = box[0]
+        solved(f"aniso cg[{label}] ({secs!r} s, any capture included, graph memory {mem} B, "
+               f"{secs / max(res.iters, 1) * 1e6!r} us per iteration; swell launches "
+               f"{dict(swell.LAUNCHES)})", res, ax_true, ab_norm, 1e-8, 4000)
         if launches_of(swell, "f64") < res.iters:
             fail(f"aniso cg[{label}] launched the swell kernel fewer times than it iterated")
         aiters[label] = res.iters
+        aper[label] = captured_vs_eager(f"aniso {nx}^2", label, alay, pre, ab, 4000, res)
 
-    def aniso_matvec(v):
-        return swell.swell_ax(alay, v)
-
-    def fixed_trip(M, n):
-        """n CG iterations with no host read (bench.py:470-506)."""
-        x_ = torch.zeros_like(ab)
-        r_ = ab - aniso_matvec(x_)
-        z_ = M(r_)
-        p_, rz = z_, torch.dot(r_, z_)
-        for _ in range(n):
-            ap_ = aniso_matvec(p_)
-            alpha = rz / torch.dot(p_, ap_)
-            x_ = x_ + alpha * p_
-            r_ = r_ - alpha * ap_
-            z_ = M(r_)
-            rzn = torch.dot(r_, z_)
-            p_ = z_ + (rzn / rz) * p_
-            rz = rzn
-        return torch.dot(r_, r_)
-
-    def per_iter_us(M):
-        def once(k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            float(fixed_trip(M, k))
-            return time.perf_counter() - t0
-
-        once(65)
-        once(513)
-        w1 = min(once(65) for _ in range(3))
-        w2 = min(once(513) for _ in range(3))
-        return max(w2 - w1, 0.0) / (513 - 65) * 1e6
-
-    per_j, per_i = per_iter_us(ajac), per_iter_us(afact.solve)
+    per_j, per_i = aper["jacobi"], aper["ilu"]
     win = (aiters["jacobi"] * per_j) / (aiters["ilu"] * per_i)
     exact = tri.ILU0(afact.l_plan, afact.u_plan, sweeps=0)
     ms_exact = loop_us(lambda: exact.solve(ab), 2) / 1e3
-    phase("solver", f"aniso per iteration (fixed-trip loops of 65 and 513, host clock): "
-          f"jacobi {per_j!r} us, ilu(3 sweeps) {per_i!r} us; total_wall_win {win!r}; exact "
-          f"chunk-scheduled ILU apply ({afact.l_plan.num_iters} + {afact.u_plan.num_iters} "
-          f"iterations) {ms_exact!r} ms; card: {card}")
+    phase("solver", f"aniso per iteration (captured fixed-trip loops of 65 and 513, host "
+          f"clock): jacobi {per_j!r} us, ilu(3 sweeps) {per_i!r} us; total_wall_win {win!r}; "
+          f"exact chunk-scheduled ILU apply ({afact.l_plan.num_iters} + "
+          f"{afact.u_plan.num_iters} iterations) {ms_exact!r} ms; card: {card}")
+    # the exact trisolve captured too: its schedule lives on the host, so one
+    # apply is num_iters steps of small launches in the graph
+    from spmv_acc_tpu_torch.models.cg import CGBlocks
+
+    amv = lambda v: swell.swell_ax(alay, v)  # noqa: E731
+    eager_x = [_cg_loop(amv, exact.solve, ab, torch.zeros_like(ab), 0.0, 8).x for _ in range(2)]
+    box = []
+    ablock = CGBlocks(amv, exact.solve, ab, eager_iters=0)
+    secs, mem = first_call(lambda: box.append(ablock.solve(ab, torch.zeros_like(ab), 0.0, 8)))
+    text = same_or_close("aniso cg[exact ilu]", box[0].x, eager_x)
+    phase("solver", f"aniso cg[exact ilu], 8 iterations in one captured block of "
+          f"{box[0].iters}: x against the eager loop {text}; first call {secs!r} s with the "
+          f"capture, graph memory {mem} B; card: {card}")
+    if box[0].iters != 8:
+        fail("the captured exact-ILU CG did not run its 8 iterations")
+    del ablock
 
     # the JAX package's on-chip form: every matvec splits p into bf16 planes and
     # reads them in the plane-form swell kernel
@@ -1855,7 +2148,9 @@ def smoke(plan_dir: str) -> int:
             ("ell_rowsum_f64", "ell_rowsum.cu", "spmv_acc_tpu/ops/vector_row.py:83"),
             ("ell_rowsum_f32", "ell_rowsum.cu", "spmv_acc_tpu/ops/vector_row.py:36"),
             ("plane_split_f64", "plane_split.cu", "spmv_acc_tpu/ops/swell.py:2197"),
-            ("swell_planes_f64", "swell_spmv.cu", "spmv_acc_tpu/ops/swell.py:455")):
+            ("swell_planes_f64", "swell_spmv.cu", "spmv_acc_tpu/ops/swell.py:455"),
+            # F-1 replaces no pallas_call: XLA's fusion of _swell_power_run's body
+            ("feedback_f64", "feedback.cu", "spmv_acc_tpu/ops/swell.py:2681")):
         rec = records[name]
         if set(rec) != keys or rec["launches"] < 1:
             fail(f"{name} was not launched on the main path or not timed")

@@ -23,7 +23,11 @@ form are there too, off the default path.  The multi-device layer
 (``parallel``: row partitions, the all-gather and 1-hop halo SpMV, the swell
 kernel as each shard's product, ``models.cg.dist_cg_solve``, the hybrid mesh,
 weak scaling; ``dryrun``) runs on ``torch.distributed`` with one process per
-device: NCCL on the cards, gloo on the CPU.  The entry points are
+device: NCCL on the cards, gloo on the CPU.  The hot loops (the bench's
+chains, ``utils.time_device_loop``, ``cg_solve``) run on a card as captured
+CUDA graphs (``utils.graphs``), the chain's feedback in one kernel
+(``csrc/feedback.cu``), as the JAX package runs each as one device program.
+The entry points are
 ``entry`` (the flagship swell step with example arguments) and
 ``dryrun_multichip``; ``python -m spmv_acc_tpu_torch.bench`` is the benchmark.
 

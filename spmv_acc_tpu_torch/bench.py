@@ -9,9 +9,12 @@ checked against ``host_spmv`` (``verify_y`` and ``isfinite``), one
 ``spmv(strategy="swell")`` for the raw-kernel flag, then a chained loop of
 SpMVs with a power-iteration feedback (x is rescaled through the result, so no
 iteration can be skipped) whose per-iteration time is the slope between two
-loop lengths.  The roofline fraction divides the reference's bytes model
-(``utils.stats.bytes_moved``) over that time by the card's peak HBM rate
-(``utils.stats.chip_peak_gbs``).
+loop lengths.  As in the JAX bench the loop is one device program: on the card
+it runs as replays of captured CUDA graphs (``utils.graphs``), the swell
+chain's feedback in one kernel (``ops/feedback.py``); so do
+``time_device_loop``'s loops and the solver's CG.  The roofline fraction
+divides the reference's bytes model (``utils.stats.bytes_moved``) over that
+time by the card's peak HBM rate (``utils.stats.chip_peak_gbs``).
 
 Corpus and order: the reference's large set first (the headline), then its
 small set, all from ``example_like``, in float64.  Headline: the geometric mean
@@ -59,9 +62,10 @@ from .dispatch import Handle, make_spmv_fn, spmv
 from .formats.generate import example_like, random_x_y
 from .ops import swell
 from .ops.golden import host_spmv
+from .utils.graphs import UNROLL
 from .utils.host import host_array
 from .utils.stats import BenchTimes, bytes_moved, chip_peak_gbs, flops, print_statistics
-from .utils.timer import sync
+from .utils.timer import sync, time_device_loop
 from .utils.verify import verify_y
 
 __all__ = ["SMALL", "LARGE", "main", "emit", "bench_matrix", "bench_spmm", "bench_spgemm",
@@ -184,9 +188,16 @@ def _slope_us(run, n0: int, n1: int, device, reps: int = 3) -> float:
     return max(hi - lo, 0.0) / (n1 - n0) * 1e6
 
 
-def _device_loop_us(step, init, device, iters: int = 64) -> float:
-    """µs per iteration of ``carry = step(carry)``: the slope between 1 and
-    1 + iters chained steps (the JAX package's ``time_device_loop``)."""
+def _device_loop_us(step, init, iters: int = 64) -> float:
+    """µs per iteration of ``carry = step(carry)`` as one device program: the
+    slope between 1 and 1 + iters chained steps (``time_device_loop``)."""
+    return time_device_loop(step, init, iters)[0]
+
+
+def _host_loop_us(step, init, device, iters: int) -> float:
+    """``_device_loop_us`` for a step that reads the host (SpGEMM's numeric
+    phase), which no captured graph can hold: the same slope over a Python
+    loop."""
     def run(n):
         c = init
         for _ in range(n):
@@ -201,7 +212,8 @@ def _profile(run, n: int):
     iteration) of ``run(n)`` by ``torch.profiler``, in the second of two
     profiler steps (the first warms the tracer up: a step that starts cold
     recorded 2-4 of 5 launches on an H100); (None, 0, None) when it records
-    no swell kernel."""
+    no swell kernel.  The kernels inside a graph replay are recorded (H100,
+    torch 2.11)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     events = []  # the active step's, handed over when it ends (after exit they are gone)
@@ -285,7 +297,7 @@ def bench_matrix(name: str, log, device="cuda", peak_gbs=None, iters=None) -> Ma
             return ax * torch.rsqrt((ax * ax).mean() + 1e-30)
 
         def _measure():
-            return _device_loop_us(step, dx, dev, _iters_for(csr.nnz) if iters is None else iters)
+            return _device_loop_us(step, dx, _iters_for(csr.nnz) if iters is None else iters)
 
     b = bytes_moved(m, csr.nnz, np.dtype(DTYPE).itemsize)
     per_us = _measure()
@@ -301,10 +313,11 @@ def bench_matrix(name: str, log, device="cuda", peak_gbs=None, iters=None) -> Ma
     layout = swell.get_swell_plan(csr) if swelled else None
     dev_text = "device: not measured (cpu)"
     if swelled and dev.type == "cuda":
-        k_us, count, busy = _profile(run, 5)
+        k_us, count, busy = _profile(run, UNROLL)  # one replay of the longest graph
         dev_text = ("device: the profiler recorded no kernel" if k_us is None else
-                    f"device: swell kernel {k_us:.1f}us a launch ({count} of 5 recorded), "
-                    f"busy {busy:.1f}us an iteration (idle share {1 - busy / per_us:.3f})")
+                    f"device: swell kernel {k_us:.1f}us a launch ({count} of {UNROLL} "
+                    f"recorded), busy {busy:.1f}us an iteration (idle share "
+                    f"{1 - busy / per_us:.3f})")
     plan = "warm" if "load" in plan_times else "cold"
     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     lay_text = (f"r={layout.r} fill={layout.fill:.3f} slots={layout.slots} "
@@ -364,7 +377,8 @@ def bench_spgemm(log, device="cuda") -> dict:
             c = spgemm_numeric(vals, av, a_pos, b_pos, out_pos, c_nnz)
             return vals * (1.0 + (c * c).mean() * 1e-30)
 
-        per_us = _device_loop_us(step, av, dev, iters=32)
+        # the numeric phase's bincount reads its output size on the host
+        per_us = _host_loop_us(step, av, dev, 32)
         print(f"  spgemm {name}: A@A nnz {csr.nnz} -> {c_nnz}, symbolic "
               f"{t_sym:.2f}s, numeric {per_us:.0f}us/iter, verify "
               f"{'OK' if ok else 'FAIL'}", file=log, flush=True)
@@ -403,11 +417,11 @@ def bench_solver(log, device="cuda") -> dict:
 
     layout = swell.get_swell_plan(csr)
     x0 = torch.ones(m, dtype=torch.float64, device=dev)
-    us_spmv = _device_loop_us(lambda vv: _normalized(swell.swell_ax(layout, vv)), x0, dev, 32)
+    us_spmv = _device_loop_us(lambda vv: _normalized(swell.swell_ax(layout, vv)), x0, 32)
     us_apply = -1.0
     if fact.swell is not None:
         us_apply = _device_loop_us(
-            lambda vv: _normalized(sweep_apply_swell(fact.swell, fact.sweeps, vv)), x0, dev, 16)
+            lambda vv: _normalized(sweep_apply_swell(fact.swell, fact.sweeps, vv)), x0, 16)
 
     rng = np.random.default_rng(5)
     x_true = rng.standard_normal(m)
@@ -438,11 +452,12 @@ def bench_solver(log, device="cuda") -> dict:
 def bench_solver_aniso(log, device="cuda") -> dict:
     """ILU against Jacobi where the preconditioner pays: 2D anisotropic
     diffusion (``ANISO_NX``^2, eps 1e-4) is SPD but only weakly diagonally
-    dominant.  Per-iteration costs come from fixed-trip CG loops (no host read
-    inside, lengths ``ANISO_TRIPS``), and ``solver_total_wall_win`` =
+    dominant.  Per-iteration costs come from fixed-trip CG loops (``CGBlocks``
+    captured from the first iteration, at tol 0, lengths ``ANISO_TRIPS``), and
+    ``solver_total_wall_win`` =
     (iters_j * per_j) / (iters_i * per_i)."""
     from .formats.generate import aniso_laplacian_csr
-    from .models.cg import cg_solve, jacobi_preconditioner
+    from .models.cg import CGBlocks, cg_solve, jacobi_preconditioner
     from .ops.trisolve import ilu0
 
     dev = torch.device(device)
@@ -467,21 +482,11 @@ def bench_solver_aniso(log, device="cuda") -> dict:
     diag_inv = torch.full((m,), 1.0 / (2.0 * eps + 2.0), dtype=torch.float64, device=dev)
 
     def timed_cg(M):
-        def run(n):
-            x = torch.zeros_like(b)
-            r = b - swell.swell_ax(layout, x)
-            z = M(r)
-            p, rz = z, torch.dot(r, z)
-            for _ in range(n):
-                ap = swell.swell_ax(layout, p)
-                alpha = rz / torch.dot(p, ap)
-                x = x + alpha * p
-                r = r - alpha * ap
-                z = M(r)
-                rzn = torch.dot(r, z)
-                p = z + (rzn / rz) * p
-                rz = rzn
-            return float(torch.dot(r, r))
+        solver = CGBlocks(lambda v: swell.swell_ax(layout, v), M, b, eager_iters=0)
+        x0 = torch.zeros_like(b)
+
+        def run(n):  # tol 0: exactly n iterations
+            return solver.solve(b, x0, 0.0, n).residual_norm
 
         return _slope_us(run, *ANISO_TRIPS, dev)
 

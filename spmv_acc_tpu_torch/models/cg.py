@@ -4,9 +4,19 @@ Counterpart of ``spmv_acc_tpu/models/cg.py``'s single-device ``cg_solve``:
 textbook preconditioned CG with the same stopping test, the residual
 ``dot(r, r) > tol^2 * max(dot(b, b), 1e-300)`` checked before every
 iteration, and the same iteration count.  The JAX package runs the loop as a
-``lax.while_loop`` on the device; here it is a Python loop of PyTorch ops whose
-condition reads one scalar per iteration on the host.  Dot products are
-``torch.dot`` (the JAX package's ``_vdot`` works around a TPU cost of f64 dots).
+``lax.while_loop`` on the device.  Here ``cg_solve`` runs its first
+``CG_EAGER_ITERS`` iterations as the plain loop (``_cg_loop``'s, the stop test
+read on the host before each), and what is left in blocks of ``CG_BLOCK``
+masked iterations: each computes ``active = dot(r, r) > tol2 and it <
+max_iters`` on the device, takes the new x, r, z, p and rz where active and
+keeps the old ones where not, and adds ``active`` to a device iteration
+count, so a block's launches do not depend on any value.  On the card a block
+is a captured CUDA graph (``utils.graphs.Loop``) and the host reads one flag
+after each block; on the CPU the same block runs eagerly.  A short solve thus
+pays no capture, and a long one pays it once.  Once the solve has converged a
+masked iteration changes nothing, so the iterations and x are the plain
+loop's, bit for bit.  Dot products are ``torch.dot``
+(the JAX package's ``_vdot`` works around a TPU cost of f64 dots).
 ``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
 group (``parallel/``): each rank holds a row block of A and the same block of
 every vector, dot products are a local ``torch.dot`` and an ``all_reduce``, and
@@ -15,6 +25,7 @@ the matvec takes the 1-hop halo exchange or the all-gather of x.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -22,7 +33,25 @@ import torch
 
 from ..formats.containers import CSR
 
-__all__ = ["CGResult", "cg_solve", "dist_cg_solve", "jacobi_preconditioner"]
+__all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CGBlocks", "cg_solve", "dist_cg_solve",
+           "jacobi_preconditioner"]
+
+# Masked CG iterations in one block: the host reads one flag a block.  A solve
+# runs whole blocks, so up to CG_BLOCK - 1 masked iterations after convergence
+# are wasted work, and each block's replay and flag read cost the host once.
+# On the H100 (scripts/torch_probe_graphs.py tune, PERF.md) 8 was within 4 %
+# of the best solve time on 512^2 aniso (1347 and 417 iterations) and cost
+# 2.3 ms more than 4 on Ga41As41H72-SPD's 4-iteration ILU solve.
+CG_BLOCK = 8
+
+# Plain iterations before the first captured block.  Beyond its warm-up (the
+# block's iterations, run for real) a block's capture cost 5-35 ms on the H100
+# (2.4-3.5 s over the exact ILU apply; 65-90 ms more for a process's first
+# capture; scripts/torch_probe_graphs.py solve, PERF.md): the time of 11-240
+# plain iterations on the bench's solver systems, af23560 and dw4096.  A
+# solve shorter than this pays no capture (Ga41As41H72-SPD's 10 and 4
+# iterations run at the plain loop's time); a longer one pays it once.
+CG_EAGER_ITERS = 64
 
 
 class CGResult(NamedTuple):
@@ -43,20 +72,22 @@ def jacobi_preconditioner(csr: CSR) -> Callable:
     return lambda r: inv * r
 
 
-def _cg_loop(matvec: Callable, precond: Optional[Callable], b, x0, tol, max_iters: int,
-             dot: Callable = torch.dot) -> CGResult:
-    """Preconditioned CG on any ``matvec`` and ``dot``: stops when
-    ``dot(r, r) <= tol^2 * max(dot(b, b), 1e-300)`` or after ``max_iters``."""
-    M = precond if precond is not None else (lambda r: r)
-    x = x0
+def _cg_start(matvec: Callable, M: Callable, b, x0, tol, dot: Callable):
+    """The initial carry (x, r, z, p, rz, it) and tol2, as ``_cg_loop`` forms them."""
     r = b - matvec(x0)
     z = M(r)
-    p = z
-    rz = dot(r, z)
     tol_t = torch.as_tensor(tol, dtype=b.dtype, device=b.device)
     tol2 = tol_t * tol_t * torch.clamp(dot(b, b), min=1e-300)
-    it = 0
-    while it < max_iters and bool(dot(r, r) > tol2):
+    it = torch.zeros((), dtype=torch.int64, device=b.device)
+    return (x0.clone(), r, z, z, dot(r, z), it), tol2
+
+
+def _plain_steps(matvec: Callable, M: Callable, dot: Callable, tol2, carry, limit: int):
+    """Up to ``limit`` CG iterations from ``carry``, each after the stop test
+    ``dot(r, r) > tol2`` read on the host: (the carry, the iterations run)."""
+    x, r, z, p, rz, it = carry
+    done = 0
+    while done < limit and bool(dot(r, r) > tol2):
         ap = matvec(p)
         alpha = rz / dot(p, ap)
         x = x + alpha * p
@@ -65,8 +96,89 @@ def _cg_loop(matvec: Callable, precond: Optional[Callable], b, x0, tol, max_iter
         rz_new = dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
-        it += 1
+        done += 1
+    return (x, r, z, p, rz, it + done), done
+
+
+def _cg_loop(matvec: Callable, precond: Optional[Callable], b, x0, tol, max_iters: int,
+             dot: Callable = torch.dot) -> CGResult:
+    """Preconditioned CG on any ``matvec`` and ``dot``: stops when
+    ``dot(r, r) <= tol^2 * max(dot(b, b), 1e-300)`` or after ``max_iters``."""
+    M = precond if precond is not None else (lambda r: r)
+    carry, tol2 = _cg_start(matvec, M, b, x0, tol, dot)
+    (x, r, _, _, _, _), it = _plain_steps(matvec, M, dot, tol2, carry, max_iters)
     return CGResult(x=x, iters=it, residual_norm=torch.sqrt(dot(r, r)))
+
+
+def _more(carry, dot, tol2, max_iters):
+    """The stop test, on the device: dot(r, r) > tol2 and it < max_iters."""
+    r, it = carry[1], carry[5]
+    return (dot(r, r) > tol2) & (it < max_iters)
+
+
+def _masked_step(matvec, M, dot, tol2, max_iters, carry):
+    """One CG iteration where the stop test holds; the carry unchanged where not."""
+    x, r, z, p, rz, it = carry
+    active = _more(carry, dot, tol2, max_iters)
+    ap = matvec(p)
+    alpha = rz / dot(p, ap)
+    x_new = x + alpha * p
+    r_new = r - alpha * ap
+    z_new = M(r_new)
+    rz_new = dot(r_new, z_new)
+    p_new = z_new + (rz_new / rz) * p
+    return (torch.where(active, x_new, x), torch.where(active, r_new, r),
+            torch.where(active, z_new, z), torch.where(active, p_new, p),
+            torch.where(active, rz_new, rz), it + active)
+
+
+class CGBlocks:
+    """Preconditioned CG on any ``matvec`` and preconditioner callable:
+    ``eager_iters`` plain iterations, then blocks of ``block`` masked ones
+    (module docstring), captured CUDA graphs for CUDA tensors, eager for CPU
+    ones.  The last block before ``max_iters`` is cut to the iterations left,
+    so a solve at tol 0 runs exactly ``max_iters``.  The graphs are captured
+    at the first solve that reaches a block and kept for later solves with the
+    same shapes (``tol`` and ``max_iters`` live in device buffers)."""
+
+    def __init__(self, matvec: Callable, precond: Optional[Callable], b: torch.Tensor,
+                 block: int = CG_BLOCK, dot: Callable = torch.dot,
+                 eager_iters: int = CG_EAGER_ITERS):
+        self.matvec = matvec
+        self.M = precond if precond is not None else (lambda r: r)
+        self.dot = dot
+        self.block = block
+        self.eager_iters = eager_iters
+        self.tol2 = torch.zeros((), dtype=b.dtype, device=b.device)
+        self.max_iters = torch.zeros((), dtype=torch.int64, device=b.device)
+        self.loop = None
+
+    def solve(self, b: torch.Tensor, x0: torch.Tensor, tol, max_iters: int) -> CGResult:
+        from ..utils.graphs import Loop
+
+        carry, tol2 = _cg_start(self.matvec, self.M, b, x0, tol, self.dot)
+        limit = min(self.eager_iters, max_iters)
+        carry, done = _plain_steps(self.matvec, self.M, self.dot, tol2, carry, limit)
+        if done < limit:  # converged
+            x, r, _, _, _, it = carry
+            return CGResult(x=x, iters=int(it), residual_norm=torch.sqrt(self.dot(r, r)))
+        self.tol2.copy_(tol2)
+        self.max_iters.fill_(max_iters)
+        if self.loop is not None:
+            self.loop.load(carry)
+        # done: iterations run, masked ones included: never past max_iters
+        while done < max_iters and bool(_more(carry, self.dot, self.tol2, self.max_iters)):
+            if self.loop is None:
+                # the step holds no reference to self: the loop's graphs go with it
+                step = functools.partial(_masked_step, self.matvec, self.M, self.dot, self.tol2,
+                                         self.max_iters)
+                self.loop = Loop(step, carry, unroll=self.block)
+            k = min(self.block, max_iters - done)
+            self.loop.advance(k)
+            done += k
+            carry = self.loop.carry
+        x, r, _, _, _, it = carry
+        return CGResult(x=x.clone(), iters=int(it), residual_norm=torch.sqrt(self.dot(r, r)))
 
 
 def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: float = 1e-8,
@@ -75,7 +187,9 @@ def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: 
     """Solve A x = b (A symmetric positive definite) with the strategy zoo's
     SpMV, on ``csr``'s device.  ``strategy="swell"``, or ``"adaptive"`` when the
     picker chooses swell, runs every matvec on the swell layout (the swell
-    kernel on a card); ``precond`` is a callable or an :class:`~..ops.trisolve.ILU0`."""
+    kernel on a card); ``precond`` is a callable or an :class:`~..ops.trisolve.ILU0`.
+    Runs :class:`CGBlocks`: the plain loop for ``CG_EAGER_ITERS`` iterations,
+    then captured CUDA graphs on a card."""
     from ..dispatch import pick_strategy, spmv
     from ..ops.trisolve import ILU0
     from ..plan import get_plan
@@ -84,7 +198,8 @@ def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: 
         x0 = torch.zeros_like(b)
     if isinstance(precond, ILU0):
         precond = precond.solve
-    chosen = pick_strategy(get_plan(csr), csr) if strategy == "adaptive" else strategy
+    plan = get_plan(csr)
+    chosen = pick_strategy(plan, csr) if strategy == "adaptive" else strategy
     if chosen == "swell":
         from ..ops.swell import get_swell_plan, swell_ax
 
@@ -95,8 +210,8 @@ def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: 
     else:
         def matvec(v):
             return spmv(csr, v, strategy=chosen)
-
-    return _cg_loop(matvec, precond, b, x0, tol, max_iters)
+    return CGBlocks(matvec, precond, b, block=CG_BLOCK,
+                    eager_iters=CG_EAGER_ITERS).solve(b, x0, tol, max_iters)
 
 
 def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGResult:

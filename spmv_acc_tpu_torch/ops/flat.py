@@ -14,17 +14,19 @@ deterministic:
 
 When one chunk can span more than ``MAX_ROWS_PER_CHUNK`` rows the partials would
 bloat, so the direct sorted segment sum over the plan's row ids runs instead.
+Both choices come from the plan (``flat_rows_per_chunk``, ``flat_two_level``,
+made on the host at analyze time): an SpMV reads nothing back from the device,
+so a captured CUDA graph can hold it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..plan import FLAT_MAX_ROWS_PER_CHUNK as MAX_ROWS_PER_CHUNK
 from .xla import axpby_finish
 
 __all__ = ["spmv_flat", "MAX_ROWS_PER_CHUNK"]
-
-MAX_ROWS_PER_CHUNK = 1024
 
 
 def _flat_two_level(csr, x, plan, max_rpc):
@@ -53,14 +55,8 @@ def _flat_direct(csr, x, plan):
 
 def spmv_flat(alpha, beta, csr, x, y, plan):
     """Full strategy entry (dispatch contract): y_out = alpha*A@x + beta*y."""
-    cfr = plan.chunk_first_row.cpu()
-    span = (cfr[1:] - cfr[:-1]).long()
-    max_rpc = int(span.max()) + 1 if len(cfr) > 1 else csr.rows
-    # +1: a chunk may end mid-row, touching first_row..first_row+span inclusive
-    max_rpc = min(-(-max_rpc // 8) * 8, MAX_ROWS_PER_CHUNK)
-    span_ok = bool((span + 1 <= max_rpc).all()) if len(cfr) > 1 else False
-    if span_ok and plan.num_chunks > 1:
-        ax = _flat_two_level(csr, x, plan, max_rpc)
+    if plan.flat_two_level:
+        ax = _flat_two_level(csr, x, plan, plan.flat_rows_per_chunk)
     else:
         ax = _flat_direct(csr, x, plan)
     return axpby_finish(alpha, beta, ax, y)

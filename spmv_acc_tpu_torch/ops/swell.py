@@ -670,34 +670,56 @@ def spmv_swell(alpha, beta, csr, x, y, plan=None):
 
 
 def make_swell_run(csr, alpha=1.0, beta=1.0):
-    """Bench helper: ``run(x, y, n)`` executes n chained SpMV iterations.  The
-    feedback multiplier depends on every output element and perturbs x by
-    ~1e-30 relatively, so no iteration can be skipped and magnitudes stay put."""
+    """Bench helper: ``run(x, y, n)`` executes n chained SpMV iterations and
+    returns the final x (a new tensor).  Each step is ``swell_ax`` and the
+    feedback F-1 (:func:`.feedback.feedback_`): x is scaled in place by a
+    multiplier that depends on every output element and perturbs it by ~1e-30
+    relatively, so no iteration can be skipped and magnitudes stay put.  On a
+    CUDA x the chain runs as replays of captured CUDA graphs (the JAX package's
+    one device program, ``utils.graphs.Loop``), captured at the first call and
+    kept with ``run``; on the CPU the same step runs eagerly."""
+    from ..utils.graphs import Loop
+    from .feedback import feedback_
+
     layout = get_swell_plan(csr)
+    ybuf, loop = [], []  # the chain's y and its Loop, made at the first call
+
+    def step(x):
+        return feedback_(x, swell_ax(layout, x), ybuf[0], alpha, beta)
 
     def run(x, y, n):
-        for _ in range(n):
-            s = axpby_finish(alpha, beta, swell_ax(layout, x), y).float()
-            x = x * (1.0 + (s * s).mean().to(x.dtype) * 1e-30)
-        return x
+        if y.shape != (layout.out_rows,):
+            raise ValueError(f"run takes y of shape ({layout.out_rows},), got {tuple(y.shape)}")
+        if not loop:
+            ybuf.append(torch.empty(layout.out_rows, dtype=layout.dtype, device=x.device))
+            loop.append(Loop(step, x))
+        ybuf[0].copy_(y)
+        return loop[0].run(x, n)
 
     return run
 
 
 def make_swell_amx_run(csr, k: int):
     """Bench helper: ``run(X, n)`` executes n chained k-column SpMM iterations
-    (square matrices: X feeds back through the result's scale, as in
-    ``make_swell_run``)."""
+    (square matrices: X feeds back through the result's scale, F-1 without y,
+    as in ``make_swell_run``; captured CUDA graphs on the card, eager on the
+    CPU)."""
+    from ..utils.graphs import Loop
+    from .feedback import feedback_
+
     layout = get_swell_plan(csr)
     if layout.out_rows != layout.x_rows:
         raise ValueError("make_swell_amx_run needs a square matrix")
+    loop = []
+
+    def step(X):
+        return feedback_(X, swell_amx(layout, X))
 
     def run(X, n):
         if X.dim() != 2 or X.shape[1] != k:
             raise ValueError(f"run takes X of shape (n, {k}), got {tuple(X.shape)}")
-        for _ in range(n):
-            s = swell_amx(layout, X).float()
-            X = X * (1.0 + (s * s).mean().to(X.dtype) * 1e-30)
-        return X
+        if not loop:
+            loop.append(Loop(step, X))
+        return loop[0].run(X, n)
 
     return run

@@ -31,12 +31,12 @@ import torch
 import torch.distributed as dist
 
 
-def _loop_us(step, x, iters: int, device, group=None) -> float:
+def _loop_us(step, x, iters: int, device, group=None, reps: int = 3) -> float:
     """µs per call of ``step`` chained ``iters`` times.  On the card: CUDA
     events around a chain that follows one untimed chain and, with ``group``,
     a barrier over it, so that no rank's one-off start (its first calls of
     the step) falls into another rank's timed window as a wait at the first
-    collective.  On the CPU ``utils.timer.time_fn``, the least of three
+    collective.  On the CPU ``utils.timer.time_fn``, the least of ``reps``
     chains (CPU ranks share the host with whatever else runs)."""
     def chain(v):
         for _ in range(iters):
@@ -56,7 +56,11 @@ def _loop_us(step, x, iters: int, device, group=None) -> float:
         return t0.elapsed_time(t1) * 1e3 / iters
     from ..utils.timer import time_fn
 
-    return min(time_fn(chain, x)[1] for _ in range(3)) / iters
+    return min(time_fn(chain, x)[1] for _ in range(reps)) / iters
+
+
+# turns of the distributed and the serial chain in run_weak_scaling
+_ROUNDS = 5
 
 
 def _renormalised(run, group):
@@ -132,11 +136,7 @@ def run_weak_scaling(device_counts, rows_per_device=32768, avg_nnz=16, iters=20,
 
                 def run(v, sp=sp, part=part):
                     return sp(part.values, part.col_idx, part.row_ids, v)
-            per_us = _loop_us(_renormalised(run, group), x, iters, dev, group)
-            top = torch.tensor([per_us], dtype=torch.float64, device=dev)
-            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)  # the slowest rank
-            per_us = float(top.item())
-            single_us = None
+            serial = None
             if engine == "swell":
                 y_dist = gather_padded(run(x), mesh)
                 if rank == 0:
@@ -147,7 +147,21 @@ def run_weak_scaling(device_counts, rows_per_device=32768, avg_nnz=16, iters=20,
                     np.testing.assert_allclose(y_ser.cpu().numpy(), y_dist.cpu().numpy(),
                                                rtol=1e-6, atol=1e-12,
                                                err_msg="serial baseline != dist output")
-                    single_us = _loop_us(_renormalised(run_ser, None), x_pad, iters, dev)
+                    serial = _renormalised(run_ser, None)
+            # the distributed chain (every rank, the slowest counts) and the
+            # serial one (rank 0) in turns, the least of each: CPU ranks share
+            # the host, and a burst of load during one of two measurements
+            # taken one after the other skewed their ratio 0.44-2.1x
+            per_us, single_us = float("inf"), None
+            for _ in range(_ROUNDS):
+                top = torch.tensor([_loop_us(_renormalised(run, group), x, iters, dev, group,
+                                             reps=1)], dtype=torch.float64, device=dev)
+                dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)  # the slowest rank
+                per_us = min(per_us, float(top.item()))
+                if serial is not None:
+                    us = _loop_us(serial, x_pad, iters, dev, reps=1)
+                    single_us = us if single_us is None else min(single_us, us)
+                dist.barrier(group=group)  # no rank starts a chain while rank 0 runs serial
             if rank == 0:
                 rate = csr.nnz / (per_us * 1e-6) if per_us > 0 else 0.0
                 row = dict(devices=d, rows=m, nnz=csr.nnz, us_per_spmv=per_us, nnz_per_s=rate)

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``spmv_acc_tpu/plan.py``: one O(m) numpy scan o
 ``row_ptr`` (the csr_adaptive_plus_analyze.cpp:12-98 analog) gives the row
 statistics the strategy picker walks, the row id of every stored element and the
 flat strategy's chunk break points, the latter two as tensors on the CSR's
-device.  Plans are cached per matrix so repeated SpMV amortises the scan.
+device, and the flat strategy's per-chunk row span, so that no SpMV reads a
+plan tensor back to the host.  Plans are cached per matrix so repeated SpMV
+amortises the scan.
 """
 
 from __future__ import annotations
@@ -82,6 +84,23 @@ class Plan:
     # (num_chunks + 1,) int32: first row touched by each chunk (flat break_points)
     chunk_first_row: torch.Tensor
     tune: TuneConfig
+    # flat's partials a chunk (a multiple of 8, at most FLAT_MAX_ROWS_PER_CHUNK)
+    # and whether every chunk's rows fit them (else flat sums directly)
+    flat_rows_per_chunk: int = 0
+    flat_two_level: bool = False
+
+
+# Past this many rows in one chunk flat's partials would bloat (ops/flat.py)
+FLAT_MAX_ROWS_PER_CHUNK = 1024
+
+
+def _flat_span(cfr: np.ndarray) -> Tuple[int, bool]:
+    """flat's (rows per chunk, two-level) from the chunk break points."""
+    span = np.diff(cfr.astype(np.int64))
+    # +1: a chunk may end mid-row, touching first_row..first_row+span inclusive
+    rpc = int(span.max()) + 1
+    rpc = min(-(-rpc // 8) * 8, FLAT_MAX_ROWS_PER_CHUNK)
+    return rpc, bool((span + 1 <= rpc).all()) and len(span) > 1
 
 
 def analyze(csr: CSR, tune: TuneConfig = DEFAULT_TUNE) -> Plan:
@@ -98,6 +117,7 @@ def analyze(csr: CSR, tune: TuneConfig = DEFAULT_TUNE) -> Plan:
     bounds = np.arange(num_chunks + 1, dtype=np.int64) * chunk_nnz
     cfr = np.searchsorted(row_ptr, np.minimum(bounds, nnz), side="right") - 1
     cfr = np.clip(cfr, 0, m).astype(np.int32)
+    rpc, two_level = _flat_span(cfr)
     return Plan(
         stats=stats,
         row_ids=torch.from_numpy(row_ids).to(csr.device),
@@ -106,6 +126,8 @@ def analyze(csr: CSR, tune: TuneConfig = DEFAULT_TUNE) -> Plan:
         num_chunks=num_chunks,
         chunk_first_row=torch.from_numpy(cfr).to(csr.device),
         tune=tune,
+        flat_rows_per_chunk=rpc,
+        flat_two_level=two_level,
     )
 
 

@@ -10,7 +10,7 @@ from .stats import (
     print_statistics,
     roofline_fraction,
 )
-from .timer import WallTimer, cuda_time_us, sync, time_fn
+from .timer import WallTimer, cuda_time_us, sync, time_device_loop, time_fn
 from .verify import VerifyReport, tolerances_for, verify, verify_y
 
 __all__ = [
@@ -26,6 +26,7 @@ __all__ = [
     "cuda_time_us",
     "sync",
     "time_fn",
+    "time_device_loop",
     "VerifyReport",
     "tolerances_for",
     "verify",

@@ -20,7 +20,19 @@ import torch
 
 from .stats import bytes_moved, chip_peak_gbs
 
-__all__ = ["trace", "PhaseTimer", "bandwidth_report"]
+__all__ = ["trace", "Trace", "PhaseTimer", "bandwidth_report"]
+
+
+class Trace:
+    """What :func:`trace` yields: the trace file's ``path`` and, once the
+    region has ended, the ``key_averages()`` of the kernels and ops it ran."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._averages = []
+
+    def key_averages(self):
+        return self._averages
 
 
 @contextlib.contextmanager
@@ -28,20 +40,35 @@ def trace(log_dir: Optional[str] = None):
     """Record a ``torch.profiler`` trace around a code region and write it to
     ``log_dir/trace_<pid>_<ns>.json`` (default ``log_dir``: ``spmv_trace`` in
     the temporary directory; Chrome trace format: open it in
-    ``chrome://tracing`` or Perfetto).  Yields the profiler, whose
-    ``key_averages()`` lists the kernels the region ran."""
-    from torch.profiler import ProfilerActivity, profile
+    ``chrome://tracing`` or Perfetto).  Yields a :class:`Trace`.
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    The profiler runs one warm-up step (a small kernel on the card, not
+    recorded) before the region and records the region alone as its active
+    step.  On an H100 (torch 2.11) a session that was not the process's first
+    often recorded none of a one-launch region's kernels; the first session
+    of a process recorded them."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "spmv_trace")
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
+    out = Trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+    def ready(prof):
+        prof.export_chrome_trace(out.path)
+        out._averages = prof.key_averages()
+
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        if cuda:
+            torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+        prof.step()
+        yield out
+        if cuda:
+            torch.cuda.synchronize()
+        prof.step()
 
 
 class PhaseTimer:

@@ -6,7 +6,9 @@ benchmark protocol (benchmark/csr_spmv.hpp:48-74): ``WARMUP_ITERS`` warmup
 calls, then the median of ``BENCHMARK_ARRAY_SIZE`` single-call repetitions,
 each bracketed by CUDA events.  ``time_fn`` is the JAX package's wall-clock
 ``time_fn``, synchronising the device of the result instead of
-``jax.block_until_ready``.
+``jax.block_until_ready``.  ``time_device_loop`` is the JAX package's: the
+per-iteration time of a chained loop run as one device program, here the
+replays of a captured CUDA graph (``utils.graphs.Loop``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ..config import BENCHMARK_ARRAY_SIZE, WARMUP_ITERS
 
-__all__ = ["WallTimer", "sync", "cuda_time_us", "time_fn"]
+__all__ = ["WallTimer", "sync", "cuda_time_us", "time_fn", "time_device_loop"]
 
 
 def sync(device) -> None:
@@ -96,3 +98,30 @@ def time_fn(fn, *args, iters: int = 1, block=True):
     wait(out)
     dt = (time.perf_counter() - t0) / max(iters, 1)
     return out, dt * 1e6
+
+
+def time_device_loop(step, init, iters: int = 64, reps: int = 3):
+    """Per-iteration time of ``carry = step(carry)`` with the loop on the
+    device (the JAX package's ``utils/timer.py::time_device_loop``): the loop
+    runs as replays of captured CUDA graphs (:class:`~.graphs.Loop`; eagerly on
+    the CPU), 1 and ``1 + iters`` steps from ``init`` are timed on the host
+    clock with the device synchronised at both ends, after one warm run of
+    each, and the slope between the least of ``reps`` runs of each is the
+    result.  Returns (per-iteration µs, the carry after ``1 + iters`` steps)."""
+    from .graphs import Loop
+
+    loop = Loop(step, init)
+    dev = (init[0] if isinstance(init, tuple) else init).device
+
+    def once(n):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = loop.run(init, n)
+        sync(dev)
+        return time.perf_counter() - t0, out
+
+    once(1)
+    once(1 + iters)
+    lo = min(once(1)[0] for _ in range(reps))
+    hi, carry = min((once(1 + iters) for _ in range(reps)), key=lambda tc: tc[0])
+    return max(hi - lo, 0.0) / iters * 1e6, carry

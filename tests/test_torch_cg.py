@@ -7,6 +7,8 @@ the solutions agree within 1e-9 relative and are within 1e-8 of x_true at tol
 1e-10 (the matrices are well conditioned).  The generator's arrays and the
 CLI's verdict line and exit code are equal."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,3 +180,142 @@ def test_solve_cli_refuses_a_rectangular_matrix(tmp_path, capsys):
     write_csr_text(path, rp, ci, v, np.zeros(30))
     assert solve_main([path, "-f", "csr", "--device", "cpu"]) == 2
     assert "CG needs square" in capsys.readouterr().err
+
+
+# ---- the masked blocks (cg.CGBlocks): what a captured graph replays on a card,
+# run eagerly here.  Masked iterations do the plain loop's arithmetic where
+# active and keep the carry where not, so iterations and x equal _cg_loop's
+# bit for bit.
+
+def _aniso_system(n=20):
+    rp, ci, v, shape = aniso_laplacian_csr(n, n).to_numpy()
+    x_true = np.random.default_rng(5).standard_normal(n * n)
+    b = csr_to_dense(rp, ci, v, shape) @ x_true
+    return CSR.from_numpy(rp, ci, v, shape), torch.from_numpy(b)
+
+
+def _matvec(csr):
+    from spmv_acc_tpu_torch.ops import swell
+
+    layout = swell.get_swell_plan(csr)
+    return lambda v: swell.swell_ax(layout, v)
+
+
+@pytest.mark.parametrize("block", [1, 3, 16])
+@pytest.mark.parametrize("case", ["converges", "max_iters", "zero_rhs"])
+def test_masked_blocks_equal_the_plain_loop(block, case):
+    csr, b = _aniso_system()
+    if case == "zero_rhs":
+        b = torch.zeros_like(b)
+    tol, max_iters = (1e-14, 7) if case == "max_iters" else (1e-8, 2000)
+    M = cg.jacobi_preconditioner(csr)
+    mv = _matvec(csr)
+    want = cg._cg_loop(mv, M, b, torch.zeros_like(b), tol, max_iters)
+    got = cg.CGBlocks(mv, M, b, block=block, eager_iters=0).solve(b, torch.zeros_like(b), tol,
+                                                                 max_iters)
+    assert got.iters == want.iters
+    assert torch.equal(got.x, want.x) and torch.equal(got.residual_norm, want.residual_norm)
+    if case == "converges":
+        assert 1 < want.iters < 2000 and (block == 1 or want.iters % block)  # stops mid-block
+    if case == "zero_rhs":
+        assert got.iters == 0 and not got.x.any()
+    if case == "max_iters":
+        assert got.iters == 7
+
+
+@pytest.mark.parametrize("block", [3, 16])
+def test_a_block_past_max_iters_is_masked(block):
+    """A whole block from 0 with max_iters 2: the masked iterations past it
+    leave the carry as the plain loop's 2 iterations left it."""
+    from spmv_acc_tpu_torch.utils.graphs import Loop
+
+    csr, b = _aniso_system()
+    mv = _matvec(csr)
+    solver = cg.CGBlocks(mv, None, b, block=block)
+    carry, tol2 = cg._cg_start(mv, solver.M, b, torch.zeros_like(b), 1e-14, torch.dot)
+    solver.tol2.copy_(tol2)
+    solver.max_iters.fill_(2)
+    step = functools.partial(cg._masked_step, mv, solver.M, torch.dot, solver.tol2,
+                             solver.max_iters)
+    loop = Loop(step, carry, unroll=block)
+    loop.advance(block)
+    x, _, _, _, _, it = loop.carry
+    want = cg._cg_loop(mv, None, b, torch.zeros_like(b), 1e-14, 2)
+    assert int(it) == 2 and torch.equal(x, want.x)
+
+
+@pytest.mark.parametrize("block", [1, 3, 16])
+def test_masked_blocks_match_reference(block, monkeypatch):
+    """cg_solve through the masked blocks against JAX cg_solve, under the gates
+    of test_cg_solve_matches_reference."""
+    monkeypatch.setattr(cg, "CG_BLOCK", block)
+    m = 200
+    rp, ci, v, shape, d = _spd(m, 14)
+    x_true = np.random.default_rng(15).standard_normal(m)
+    b = d @ x_true
+    csr, ref_csr = CSR.from_numpy(rp, ci, v, shape), RefCSR.from_numpy(rp, ci, v, shape)
+    p, p_ref = _precond("ilu", csr, ref_csr)
+    res = cg.cg_solve(csr, torch.from_numpy(b), tol=1e-10, max_iters=400, strategy="swell",
+                      precond=p)
+    ref = ref_cg.cg_solve(ref_csr, jnp.asarray(b), tol=1e-10, max_iters=400, strategy="swell",
+                          precond=p_ref)
+    assert abs(res.iters - int(ref.iters)) <= 1 and res.iters < 400
+    assert np.linalg.norm(res.x.numpy() - np.asarray(ref.x)) <= 1e-9 * np.linalg.norm(ref.x)
+
+
+@pytest.mark.parametrize("eager_iters", [0, 1, 5, 8, 9, 63, 5000])
+@pytest.mark.parametrize("case", ["converges", "max_iters"])
+def test_plain_iterations_then_masked_blocks_equal_the_plain_loop(eager_iters, case):
+    """CGBlocks' plain start (eager_iters iterations, the stop test on the
+    host) hands its carry to the masked blocks: iterations and x are the
+    plain loop's bit for bit wherever the hand-over falls, and the blocks'
+    loop is built only when the solve goes past the plain start."""
+    csr, b = _aniso_system()
+    tol, max_iters = (1e-14, 40) if case == "max_iters" else (1e-8, 2000)
+    M = cg.jacobi_preconditioner(csr)
+    mv = _matvec(csr)
+    want = cg._cg_loop(mv, M, b, torch.zeros_like(b), tol, max_iters)
+    solver = cg.CGBlocks(mv, M, b, block=8, eager_iters=eager_iters)
+    got = solver.solve(b, torch.zeros_like(b), tol, max_iters)
+    assert got.iters == want.iters
+    assert torch.equal(got.x, want.x) and torch.equal(got.residual_norm, want.residual_norm)
+    assert (solver.loop is None) == (eager_iters >= want.iters)
+
+
+def test_cg_solve_captures_only_past_the_plain_start(monkeypatch):
+    """cg_solve builds a block loop (a capture on a card) only when the solve
+    runs past CG_EAGER_ITERS plain iterations."""
+    csr, b = _aniso_system()
+    built = []
+    real = cg.CGBlocks.solve
+
+    def solve(self, *a):
+        out = real(self, *a)
+        built.append(self.loop is not None)
+        return out
+
+    monkeypatch.setattr(cg.CGBlocks, "solve", solve)
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 8)
+    res = cg.cg_solve(csr, b, tol=1e-8, strategy="swell", precond=cg.jacobi_preconditioner(csr))
+    assert res.iters > 8 and built == [True]
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", res.iters + 1)
+    again = cg.cg_solve(csr, b, tol=1e-8, strategy="swell",
+                        precond=cg.jacobi_preconditioner(csr))
+    assert built == [True, False]
+    assert again.iters == res.iters and torch.equal(again.x, res.x)
+
+
+@pytest.mark.parametrize("strategy", ["flat", "line", "default"])
+def test_cg_solve_runs_every_strategy_through_the_blocks(strategy, monkeypatch):
+    """No strategy is held back from the blocks (flat's chunk spans come from
+    the plan, not from the device): cg_solve from the first iteration in
+    blocks equals the plain loop on the same matvec, bit for bit (the CPU's
+    index_add_ repeats itself)."""
+    from spmv_acc_tpu_torch.dispatch import spmv
+
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 0)
+    csr, b = _aniso_system(12)
+    want = cg._cg_loop(lambda v: spmv(csr, v, strategy=strategy), None, b, torch.zeros_like(b),
+                       1e-10, 1000)
+    got = cg.cg_solve(csr, b, tol=1e-10, max_iters=1000, strategy=strategy)
+    assert got.iters == want.iters and torch.equal(got.x, want.x)

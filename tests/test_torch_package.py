@@ -7,6 +7,8 @@ The ``cuda`` tests need an NVIDIA GPU and skip without one; run them there with
 shared conftest imports JAX, which the card's machine need not have)."""
 
 import ast
+import functools
+import gc
 import os
 
 import numpy as np
@@ -613,3 +615,242 @@ def test_entry_on_card(cuda_device):
     bound = _row_bound(random_csr(512, 512, 4096, seed=7, dtype=np.float32), np.abs(xs))
     assert np.isfinite(a).all()
     assert (np.abs(a - p) <= 2.0**-23 * (np.abs(ax) + np.abs(p)) + 1e-12 * bound).all()
+
+
+# ---- captured loops (utils/graphs.py) and the feedback kernel (F-1) on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["spmv", "rect", "spmm", "spmv big", "spmm big"])
+def test_feedback_kernel_matches_plain_on_card(cuda_device, dtype, case):
+    """F-1 against its plain version: x bit for bit where the multiplier rounds
+    to 1 (the bench's data).  Where it does not (|s| ~ 1e11 in float64, 1e15 in
+    float32) the float32 mean is summed in another order, 1e-5 relative at
+    most, which moves the multiplier 1 + mean * 1e-30 by 1e-5 of mean * 1e-30:
+    x within that plus 4 ulps."""
+    from spmv_acc_tpu_torch.ops import feedback
+
+    m, n, k = {"spmv": (100003, 100003, 1), "rect": (70001, 33, 1),
+               "spmm": (30011, 30011, 8)}[case.split()[0]]
+    scale = (1e11 if dtype == torch.float64 else 1e15) if case.endswith("big") else 1.0
+    rng = np.random.default_rng(len(case))
+    shape_ax, shape_x = ((m,), (n,)) if k == 1 else ((m, k), (n, k))
+    ax = torch.from_numpy(rng.uniform(-1, 1, shape_ax) * scale).to(cuda_device, dtype)
+    y = (torch.from_numpy(rng.uniform(-1, 1, shape_ax) * scale).to(cuda_device, dtype)
+         if k == 1 else None)
+    x = torch.from_numpy(rng.uniform(-1, 1, shape_x)).to(cuda_device, dtype)
+    plain = feedback.feedback_plain(x, ax, y, 2.0, -0.5)
+    feedback.LAUNCHES.clear()
+    out = feedback.feedback_(x.clone(), ax, y, 2.0, -0.5)
+    torch.cuda.synchronize()
+    assert sum(feedback.LAUNCHES.values()) == 1
+    if scale == 1.0:
+        assert torch.equal(out, plain) and torch.equal(plain, x)
+    else:
+        s = (ax if y is None else 2.0 * ax - 0.5 * y).float()
+        moved = float((s * s).mean()) * 1e-30
+        assert not torch.equal(plain, x) and moved > 1e-9
+        allowed = (1e-5 * moved + 4 * torch.finfo(dtype).eps) * plain.abs()
+        assert ((out - plain).abs() <= allowed).all()
+
+
+def _eager_chain(layout, x, y, n):
+    """The chain as eager PyTorch ops: swell_ax, then the feedback out of place."""
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops.feedback import feedback_plain
+
+    for _ in range(n):
+        x = feedback_plain(x, swell.swell_ax(layout, x), y)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 300, 1500), (40000, 300, 9000)])
+def test_captured_chain_equals_eager_on_card(cuda_device, shape):
+    """make_swell_run's graph replays against the eager chain, bit for bit, at
+    loop lengths below, at and past the graph length, with the launches of
+    every replay counted."""
+    from spmv_acc_tpu_torch.formats import random_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import feedback, swell
+    from spmv_acc_tpu_torch.utils.graphs import UNROLL
+
+    m, n, nnz = shape
+    csr = random_csr(m, n, nnz, seed=m + n).to(cuda_device)
+    x, y = (torch.from_numpy(a).to(cuda_device) for a in random_x_y(n, m, seed=2))
+    layout = swell.get_swell_plan(csr)
+    run = swell.make_swell_run(csr)
+    for steps in (3, UNROLL, 2 * UNROLL + 5):
+        run(x, y, steps)  # capture and warm-up launches
+        swell.LAUNCHES.clear()
+        feedback.LAUNCHES.clear()
+        out = run(x, y, steps)
+        torch.cuda.synchronize()
+        assert swell.LAUNCHES[("f64", layout.r, 1)] == steps
+        assert feedback.LAUNCHES["f64"] == steps
+        assert torch.equal(out, _eager_chain(layout, x, y, steps))
+    # the graphs point at the layout's tensors: run keeps them alive after the
+    # plan cache lets go and the freed memory is reused
+    want = _eager_chain(layout, x, y, 7)
+    del layout
+    swell.clear_swell_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 24,), float("nan"), dtype=torch.float64, device=cuda_device)
+    assert torch.equal(run(x, y, 7), want)
+    del junk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+def test_captured_chain_moves_x_on_card(cuda_device, k):
+    """On data that moves x (x and y scaled until the multiplier is 1 + 1e-9
+    a step), the replayed chain equals the same steps launched from the host
+    bit for bit, and the eager PyTorch chain within n·(1e-5·(multiplier - 1)
+    + 4 ulps) relative (F-1's float32 mean is summed in another order)."""
+    from spmv_acc_tpu_torch.formats import fem_like_csr, random_x_y
+    from spmv_acc_tpu_torch.ops import feedback, swell
+    from spmv_acc_tpu_torch.utils.graphs import UNROLL
+
+    csr = fem_like_csr(3001, 3001, 90000, block=6, seed=5).to(cuda_device)
+    layout = swell.get_swell_plan(csr)
+    if k == 1:
+        x, y = (torch.from_numpy(a).to(cuda_device) for a in random_x_y(3001, 3001, seed=2))
+        product = functools.partial(swell.swell_ax, layout)
+        run = swell.make_swell_run(csr)
+    else:
+        x = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (3001, k))).to(cuda_device)
+        y = None
+        product = functools.partial(swell.swell_amx, layout)
+        amx = swell.make_swell_amx_run(csr, k)
+        run = lambda v, _, n: amx(v, n)  # noqa: E731
+    s0 = product(x) if y is None else product(x) + y
+    sigma = (1e21 / float((s0.float() ** 2).mean())) ** 0.5
+    xm, ym = x * sigma, (None if y is None else y * sigma)
+    n = UNROLL + 3
+    got = run(xm, ym, n)
+    steps, plain = xm.clone(), xm
+    for _ in range(n):
+        feedback.feedback_(steps, product(steps), ym)
+        plain = feedback.feedback_plain(plain, product(plain), ym)
+    s1 = product(xm) if y is None else product(xm) + ym
+    mult = float((s1.float() ** 2).mean()) * 1e-30
+    assert float(((got - xm).abs() / xm.abs()).max()) > 0.5 * n * mult > 1e-8
+    assert torch.equal(got, steps)
+    allowed = n * (1e-5 * mult + 4 * torch.finfo(torch.float64).eps)
+    assert float(((got - plain).abs() / plain.abs()).max()) <= allowed
+
+
+@pytest.mark.cuda
+def test_cg_solve_plain_start_then_captured_on_card(cuda_device, monkeypatch):
+    """cg_solve as called, with its plain start at several lengths (the
+    hand-over to the captured blocks inside, at and past the solve's end):
+    iterations and x bit for bit the eager loop's."""
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import swell
+
+    csr, b = _cg_system(cuda_device)
+    layout = swell.get_swell_plan(csr)
+    M = cg.jacobi_preconditioner(csr)
+    want = cg._cg_loop(lambda v: swell.swell_ax(layout, v), M, b, torch.zeros_like(b), 1e-10,
+                       2000)
+    assert want.iters > 2 * cg.CG_BLOCK
+    for eager in (cg.CG_EAGER_ITERS, 1, want.iters - 3, want.iters, want.iters + 5):
+        monkeypatch.setattr(cg, "CG_EAGER_ITERS", eager)
+        got = cg.cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=M)
+        assert got.iters == want.iters and torch.equal(got.x, want.x), eager
+
+
+@pytest.mark.cuda
+def test_captured_amx_chain_equals_eager_on_card(cuda_device):
+    from spmv_acc_tpu_torch.formats import fem_like_csr
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops.feedback import feedback_plain
+
+    csr = fem_like_csr(3001, 3001, 90000, block=6, seed=5).to(cuda_device)
+    X = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (3001, 8))).to(cuda_device)
+    layout = swell.get_swell_plan(csr)
+    run = swell.make_swell_amx_run(csr, 8)
+    ref = X
+    for _ in range(37):
+        ref = feedback_plain(ref, swell.swell_amx(layout, ref))
+    assert torch.equal(run(X, 37), ref)
+
+
+@pytest.mark.cuda
+def test_time_device_loop_on_card(cuda_device):
+    from spmv_acc_tpu_torch.utils.timer import time_device_loop
+
+    x = torch.ones(1 << 16, dtype=torch.float64, device=cuda_device)
+    per_us, carry = time_device_loop(lambda v: v * 0.5 + 1.0, x, iters=64)
+    ref = x
+    for _ in range(65):
+        ref = ref * 0.5 + 1.0
+    assert per_us > 0 and torch.equal(carry, ref)
+
+
+def _cg_system(device, n=40):
+    from spmv_acc_tpu_torch.formats import aniso_laplacian_csr
+    from spmv_acc_tpu_torch.ops.golden import host_spmv
+
+    host = aniso_laplacian_csr(n, n, 0.01)
+    rp, ci, v, shape = host.to_numpy()
+    x_true = np.random.default_rng(5).standard_normal(shape[0])
+    b = host_spmv(1.0, 0.0, rp, ci, v, x_true, np.zeros(shape[0]))
+    return host.to(device), torch.from_numpy(b).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["none", "jacobi", "ilu sweeps", "ilu swell", "ilu exact"])
+def test_captured_cg_equals_eager_on_card(cuda_device, monkeypatch, precond):
+    """cg_solve's captured blocks, from the first iteration, against the eager
+    loop on the swell matvec: the same iterations and x bit for bit, except
+    where index_add_'s atomics (the exact trisolve) do not repeat even
+    eagerly: there within 1e-12."""
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve, jacobi_preconditioner
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 0)
+    if precond == "ilu swell":
+        monkeypatch.setattr(tri, "ILU_SWELL_MIN", 0)
+    csr, b = _cg_system(cuda_device)
+    if precond == "none":
+        pre = None
+    elif precond == "jacobi":
+        pre = jacobi_preconditioner(csr)
+    else:
+        pre = tri.ilu0(csr, sweeps=0 if precond == "ilu exact" else 3)
+        assert (pre.swell is not None) == (precond == "ilu swell")
+    layout = swell.get_swell_plan(csr)
+    M = pre.solve if isinstance(pre, tri.ILU0) else pre
+    eager = [_cg_loop(lambda v: swell.swell_ax(layout, v), M, b, torch.zeros_like(b), 1e-10,
+                      2000) for _ in range(2)]
+    got = cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=pre)
+    assert got.iters == eager[0].iters < 2000
+    if torch.equal(eager[0].x, eager[1].x):
+        assert torch.equal(got.x, eager[0].x)
+    else:
+        assert precond == "ilu exact"
+        assert float((got.x - eager[0].x).norm() / eager[0].x.norm()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_captured_cg_every_strategy_on_card(cuda_device, monkeypatch):
+    """Every strategy runs CG as captured blocks on the card, from the first
+    iteration (no host read inside the graph; flat's chunk spans come from
+    the plan).  Several strategies sum with index_add_'s atomics, which need
+    not repeat even eagerly, so iterations may differ by one and x by 1e-8
+    relative (tol 1e-10, cond ~1e2)."""
+    from spmv_acc_tpu_torch.dispatch import STRATEGIES, spmv
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve
+
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 0)
+    csr, b = _cg_system(cuda_device, 24)
+    for strategy in sorted(STRATEGIES - {"adaptive"}):
+        eager = _cg_loop(lambda v: spmv(csr, v, strategy=strategy), None, b,
+                         torch.zeros_like(b), 1e-10, 1000)
+        got = cg_solve(csr, b, tol=1e-10, max_iters=1000, strategy=strategy)
+        assert abs(got.iters - eager.iters) <= 1, strategy
+        assert float((got.x - eager.x).norm() / eager.x.norm()) <= 1e-8, strategy

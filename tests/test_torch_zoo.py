@@ -180,3 +180,38 @@ def test_pack_cache_sees_new_values():
         ya = dispatch.spmv(a, x, strategy=s)
         yb = dispatch.spmv(b, x, strategy=s)
         assert torch.allclose(yb, 2.0 * ya, rtol=1e-14, atol=0)
+
+
+def _ref_flat_choice(plan):
+    """The JAX package's spmv_flat choice from its plan
+    (spmv_acc_tpu/ops/flat.py::spmv_flat): (rows per chunk, two-level)."""
+    from spmv_acc_tpu.ops.flat import MAX_ROWS_PER_CHUNK
+
+    cfr = np.asarray(plan.chunk_first_row)
+    span = cfr[1:] - cfr[:-1]
+    rpc = min(-(-(int(span.max()) + 1) // 8) * 8, MAX_ROWS_PER_CHUNK)
+    return rpc, bool((span + 1 <= rpc).all()) and plan.num_chunks > 1
+
+
+@pytest.mark.parametrize("matrix_name", sorted(MATRICES) + ["several_chunks",
+                                                         "chunks_past_the_row_cap"])
+def test_flat_plan_choice_matches_reference(matrix_name):
+    """flat's rows per chunk and its two-level/direct choice, made once in the
+    port's plan (no SpMV reads them back from the device), equal the choice the
+    JAX package's spmv_flat makes on every call; a chunk spanning more rows
+    than the cap sends flat to the direct sum."""
+    from spmv_acc_tpu.plan import get_plan as ref_get_plan
+    from spmv_acc_tpu.formats.containers import CSR as RefCSR
+    from spmv_acc_tpu_torch.plan import get_plan
+
+    ref = {"several_chunks": lambda: banded_csr(4000, bandwidth=17, seed=9),
+           "chunks_past_the_row_cap": lambda: random_csr(20000, 50, 300, seed=8),
+           **MATRICES}[matrix_name]()
+    rp, ci, v, shape = ref.to_numpy()
+    plan = get_plan(CSR.from_numpy(rp, ci, v, shape))
+    want = _ref_flat_choice(ref_get_plan(RefCSR.from_numpy(rp, ci, v, shape)))
+    assert (plan.flat_rows_per_chunk, plan.flat_two_level) == want
+    if matrix_name == "chunks_past_the_row_cap":
+        assert want == (1024, False)
+    if matrix_name == "several_chunks":
+        assert plan.num_chunks > 1 and want[1]
