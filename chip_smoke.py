@@ -50,7 +50,11 @@ shard, each held against its plain version and equal to the whole-matrix
 ``swell_ax``), the all-gather and halo paths at D = 1 (the all-gather is a
 real NCCL call; the halo path has no neighbour at world size 1 and issues no
 collective, so NCCL's point-to-point exchange runs only on several cards),
-and the swell CG at D = 1 against ``cg_solve``'s iterations.  The ``bench``
+the swell CG at D = 1 against ``cg_solve``'s iterations, and the distributed
+loops as captured graphs with their collectives inside: both distributed CG
+solvers captured from the first iteration against the plain loop, the D = 1
+weak-scaling step and the D = 4 serial baseline against their eager chains.
+The ``bench``
 phase runs the port's benchmark (``python -m spmv_acc_tpu_torch.bench``) as a
 user does, on Hardesty3 (rectangular, 8.2 M rows), RM07R (the detector's r =
 3), largebasis (a layout at fill 0.59) and rajat03, and fails unless its last
@@ -68,6 +72,7 @@ the device JSON record.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -111,8 +116,20 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# Where the run's seconds go: the time up to each message, summed under its
+# phase's name, printed with the last one.
+_CLOCK = {"last": time.perf_counter(), "secs": {}}
+
+
 def phase(name: str, msg: str) -> None:
+    now = time.perf_counter()
+    _CLOCK["secs"][name] = _CLOCK["secs"].get(name, 0.0) + now - _CLOCK["last"]
+    _CLOCK["last"] = now
     print(f"[{name}] {msg}", flush=True)
+    if name == "done":
+        secs = sorted(_CLOCK["secs"].items(), key=lambda kv: -kv[1])
+        print("[clock] seconds up to each phase's messages: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in secs), flush=True)
 
 
 def smoke_matrices(gen):
@@ -191,7 +208,7 @@ def ptxas_summary(log: str) -> str:
     """One 'swell f64 r1 g1: 31 regs, 0 B spill' item per kernel instantiation."""
     out, cur, spill = [], None, "spill not reported"
     for ln in log.splitlines():
-        m = re.search(r"(swell|tile|ell|plane_split|fixup|feedback_partials|feedback_scale)"
+        m = re.search(r"(swell|tile|ell|plane_split|fixup|feedback)"
                       r"(?:_kernel)?I([df])((?:L[ib]\d+E)*)E", ln)
         if m and "Compiling entry function" in ln:
             params = " ".join(re.findall(r"L[ib](\d+)E", m.group(3)))
@@ -272,9 +289,12 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
     one swell-kernel launch each), the all-gather and halo paths at D = 1
     (the swell kernel as the shard's product; the all-gather is a real NCCL
     call, the halo path has no neighbour and issues no collective) and the
-    swell CG at D = 1, its dots all-reduced over NCCL.  Records
-    ``swell_dist_f64``."""
-    import contextlib
+    swell CG at D = 1, its dots all-reduced over NCCL; then the distributed
+    loops captured: both CG solvers from the first iteration against every
+    iteration plain, the D = 1 scaling step and the D = 4 serial baseline
+    against their eager chains (the gather CG's comparison with
+    ``index_add_``'s deterministic form: with its atomics the eager loop does
+    not repeat itself).  Records ``swell_dist_f64``."""
     import io
 
     import numpy as np
@@ -284,16 +304,22 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
     from spmv_acc_tpu_torch.dryrun import _spd_fem, dryrun_multichip
     from spmv_acc_tpu_torch.formats import generate as gen
     from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.models import cg as cg_mod
     from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve
     from spmv_acc_tpu_torch.ops import swell
     from spmv_acc_tpu_torch.ops.golden import host_spmv
-    from spmv_acc_tpu_torch.parallel import gather_padded, make_mesh
-    from spmv_acc_tpu_torch.parallel.dist_spmv import all_reduced_dot, gather_mesh
+    from spmv_acc_tpu_torch.parallel import gather_padded, make_mesh, pad_vector, partition_rows
+    from spmv_acc_tpu_torch.parallel.dist_spmv import (all_reduced_dot, dist_spmv_fn, gather_mesh,
+                                                       shard_partitioned)
     from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_cg_solve,
                                                         dist_swell_serial_fn, dist_swell_spmv_fn,
                                                         pad_global)
-    from spmv_acc_tpu_torch.parallel.multihost import init_distributed
+    from spmv_acc_tpu_torch.parallel.multihost import init_distributed, shutdown_distributed
+    from spmv_acc_tpu_torch.parallel.scaling_bench import _loop_us, _renormalised
     from spmv_acc_tpu_torch.utils import verify_y
+    from spmv_acc_tpu_torch.utils.graphs import Loop
+
+    dsm = sys.modules["spmv_acc_tpu_torch.parallel.dist_spmv"]
 
     def sync():
         if dev.type == "cuda":
@@ -463,6 +489,7 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
         dot = all_reduced_dot(mesh)  # the dots dist_swell_cg_solve runs
 
         def trips(n, matvec, b, d):
+            """Host seconds of ``n`` plain CG iterations (tol 0)."""
             t = time.perf_counter()
             _cg_loop(matvec, None, b, torch.zeros_like(b), 0.0, n, d)
             sync()
@@ -480,8 +507,161 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
               f"{it_one!r} us; card: {card}")
         if not met or not err < 1e-5 or abs(res.iters - ref.iters) > 1 or cg_launches < res.iters:
             fail("the distributed swell CG did not converge or left cg_solve's iteration count")
+
+        # the distributed loops as one device program: both CG solvers
+        # captured from the first iteration (their all-reduces, and the
+        # all-gather of the gather path, inside the graphs) against every
+        # iteration plain, on the same system
+        host_part = partition_rows(spd, 1, balance=False)
+        part = shard_partitioned(host_part, mesh)
+        b_pad = pad_vector(host_part, fb)
+        solvers = {
+            "dist_swell_cg_solve": lambda: dist_swell_cg_solve(spd_dev, fb_dev, mesh, tol=1e-8,
+                                                               max_iters=400)[0],
+            "dist_cg_solve (all-gather forced)": lambda: cg_mod.dist_cg_solve(
+                part, b_pad, mesh, tol=1e-8, max_iters=400)}
+        gather_run, _ = dist_spmv_fn(mesh, part, padded=True)
+        matvecs = {"dist_swell_cg_solve": runc,
+                   "dist_cg_solve (all-gather forced)": lambda v: gather_run(
+                       part.values, part.col_idx_padded, part.row_ids, v)}
+        saved = cg_mod.CG_EAGER_ITERS, dsm.halo_feasible
+        dsm.halo_feasible = lambda *args, **kw: False  # at world size 1 the halo path has no collective
+        b_norm = float(np.linalg.norm(fb))
+        try:
+            for label, call in solvers.items():
+                # the gather path's index_add_ adds with atomics, so its eager
+                # loop does not repeat itself (~1e-12..1e-10 apart): its
+                # captured and eager solves are compared with index_add_'s
+                # deterministic form, bit for bit; the solve as a user runs it
+                # (atomics) is timed and held to its tolerance
+                atomics = label != "dist_swell_cg_solve"
+                with deterministic(atomics):
+                    cg_mod.CG_EAGER_ITERS = 10 ** 9  # every iteration plain: the eager loop
+                    t0 = time.perf_counter()
+                    eager = [call() for _ in range(2)]
+                    sync()
+                    t_eager = (time.perf_counter() - t0) / 2
+                    cg_mod.CG_EAGER_ITERS = 0
+                    swell.LAUNCHES.clear()
+                    got = []
+                    secs, mem = first_call(lambda: got.append(call()))
+                    replayed = sum(n for k, n in swell.LAUNCHES.items() if len(k) == 3)
+                    got = got[0]
+                text = same_or_close(label, got.x, [e.x for e in eager])
+                if atomics:
+                    got_a = []
+                    secs, mem = first_call(lambda: got_a.append(call()))
+                    got_a = got_a[0]
+                    met = float(got_a.residual_norm) <= 1e-8 * b_norm
+                    text += (f" with index_add_ deterministic; as called (atomics): "
+                             f"{got_a.iters} iterations, residual met: {met}, x "
+                             f"{float((got_a.x - got.x).norm() / got.x.norm())!r} from the "
+                             f"deterministic solve")
+                    if not met or not bool(torch.isfinite(got_a.x).all()):
+                        fail(f"{label}: the captured solve as called did not converge")
+                mv = matvecs[label]
+                bb = bc if label == "dist_swell_cg_solve" else part_b(part, b_pad, dev)
+                blocks = cg_mod.CGBlocks(mv, None, bb, dot=dot, eager_iters=0)
+
+                def cap_trips(n, blocks=blocks, bb=bb):
+                    t = time.perf_counter()
+                    blocks.solve(bb, torch.zeros_like(bb), 0.0, n)
+                    sync()
+                    return time.perf_counter() - t
+
+                cap_trips(25)  # captures the graphs of 8 and 1 iterations
+                cap_trips(5)  # and of 4
+                it_cap = (cap_trips(25) - cap_trips(5)) / 20 * 1e6
+                it_eager = (trips(25, mv, bb, dot) - trips(5, mv, bb, dot)) / 20 * 1e6
+                phase("dist", f"{label} at world size 1, every block captured from the first "
+                      f"iteration: {got.iters} iterations (eager loop {eager[0].iters}); x "
+                      f"against the eager loop {text}; swell launches replayed {replayed}; "
+                      f"first captured solve {secs!r} s with its captures (eager solve "
+                      f"{t_eager!r} s), device memory above the start at its peak {mem} B; per "
+                      f"iteration (fixed-trip loops of 5 and 25, host clock): captured "
+                      f"{it_cap!r} us, eager {it_eager!r} us; "
+                      f"card: {card}")
+                if got.iters != eager[0].iters or eager[0].iters != eager[1].iters:
+                    fail(f"{label}: the captured solve left the eager loop's iteration count")
+                if label == "dist_swell_cg_solve" and replayed < got.iters:
+                    fail(f"{label}: the replays counted fewer swell launches than iterations")
+        finally:
+            cg_mod.CG_EAGER_ITERS, dsm.halo_feasible = saved
+
+        # the weak-scaling step at D = 1 (halo exchange without a neighbour,
+        # swell, an all-reduced max) and the D = 4 serial baseline as captured
+        # chains (scaling_bench._loop_us) against the eager chains
+        group = mesh.get_group()
+        s1 = gen.banded_csr(262_144, bandwidth=17, seed=11).to(dev)
+        ds1 = build_dist_swell(s1, 1, mesh=mesh)
+        x_s1 = pad_global(ds1, torch.ones(s1.cols, dtype=torch.float64, device=dev))
+        for label, step, xs in (
+                ("scaling step D = 1, 262144 rows", _renormalised(dist_swell_spmv_fn(ds1, mesh),
+                                                                  group), x_s1),
+                ("serial baseline D = 4, 1048576 rows", _renormalised(serial, None), xp4)):
+            coll = label.startswith("scaling")
+            want = xs
+            for _ in range(20):
+                want = step(want)
+            swell.LAUNCHES.clear()
+            loop = Loop(step, xs, unroll=20)
+            loop.run(xs, 20)  # the warm-up and the capture
+            swell.LAUNCHES.clear()
+            got = loop.run(xs, 20)
+            sync()
+            replayed = sum(n for k, n in swell.LAUNCHES.items() if len(k) == 3)
+            cap = [_loop_us(step, xs, 20, dev, group if coll else None) for _ in range(3)]
+            eag = [eager_chain_us(step, xs, 20) for _ in range(3)]
+            equal = same_bytes(got, want)
+            phase("dist", f"{label}: captured chain of 20 equal to the eager chain bit for bit: "
+                  f"{equal}; swell launches in one replay {replayed}; us a step, captured "
+                  f"(scaling_bench._loop_us) {cap!r} (spread {(max(cap) - min(cap)) / min(cap)!r}),"
+                  f" eager {eag!r}; card: {card}")
+            if not equal or replayed != 20 * (1 if coll else 4):
+                fail(f"{label}: the captured chain differs or did not replay its launches")
+        del blocks, cap_trips, loop  # graphs with NCCL inside go before the group
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
+
+
+@contextlib.contextmanager
+def deterministic(on):
+    """``torch.use_deterministic_algorithms(on)`` inside (warnings only where
+    an op has no deterministic form), the previous setting after."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def part_b(part, b_pad, dev):
+    """This rank's block of the padded right-hand side, on ``dev``."""
+    lr = part.local_rows
+    return b_pad[part.shard * lr: (part.shard + 1) * lr].to(dev).contiguous()
+
+
+def eager_chain_us(step, x, n):
+    """Device µs a step of ``n`` chained steps launched from the host (CUDA
+    events, after one untimed chain)."""
+    import torch
+
+    def chain(v):
+        for _ in range(n):
+            v = step(v)
+        return v
+
+    chain(x)
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    chain(x)
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) * 1e3 / n
 
 
 def first_call(fn):
@@ -505,14 +685,18 @@ def same_or_close(label, got, runs):
     atomics in a COO tail) within 1e-12 relative.  Returns the phase text."""
     import torch
 
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
     repeats = torch.equal(runs[0], runs[1])
-    rel = float((got - runs[0]).norm() / runs[0].norm().clamp(min=1e-300))
+    apart = rel(got, runs[0])
     if repeats and not torch.equal(got, runs[0]):
         fail(f"{label}: the captured loop differs from the eager loop, which repeats itself")
-    if not repeats and not rel <= 1e-12:
-        fail(f"{label}: the captured loop is {rel!r} from the eager loop")
+    if not repeats and not apart <= 1e-12:
+        fail(f"{label}: the captured loop is {apart!r} from the eager loop")
     return (f"equal bit for bit: {torch.equal(got, runs[0])} (eager repeats itself: "
-            f"{repeats}; relative difference {rel!r})")
+            f"{repeats}, its two runs {rel(runs[1], runs[0])!r} apart; relative difference "
+            f"{apart!r})")
 
 
 def graphs_phase(dev, card, records, mats, spmm_X, bound_of, flush_buf):
@@ -711,7 +895,7 @@ def graphs_phase(dev, card, records, mats, spmm_X, bound_of, flush_buf):
     phase("graphs", f"F-1 {name} f64: kernel {t_k1!r} / {t_k2!r} us, plain (the eager "
           f"sequence) {t_p1!r} / {t_p2!r} us per call (median of 3 after 10 warmups, CUDA "
           f"events, L2-warm); device time a call from HBM (median of 21, CUDA events after a "
-          f"256 MB read): kernel's two passes {d_k1!r} / {d_k2!r} us, eager sequence "
+          f"256 MB read): kernel (one cooperative launch) {d_k1!r} / {d_k2!r} us, eager sequence "
           f"{d_e1!r} / {d_e2!r} us; bound {b['bound_ms'] * 1e3!r} us by {b['bound_by']} "
           f"(16m + 16n = {16 * m + 16 * n} B); no single PyTorch call computes it; card: {card}")
     if f1["launches"] < 1:

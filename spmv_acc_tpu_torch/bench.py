@@ -65,7 +65,7 @@ from .ops.golden import host_spmv
 from .utils.graphs import UNROLL
 from .utils.host import host_array
 from .utils.stats import BenchTimes, bytes_moved, chip_peak_gbs, flops, print_statistics
-from .utils.timer import sync, time_device_loop
+from .utils.timer import least_times, sync, time_device_loop
 from .utils.verify import verify_y
 
 __all__ = ["SMALL", "LARGE", "main", "emit", "bench_matrix", "bench_spmm", "bench_spgemm",
@@ -180,11 +180,12 @@ def _wall(run, n: int, device) -> float:
 
 def _slope_us(run, n0: int, n1: int, device, reps: int = 3) -> float:
     """µs per iteration of ``run(n)`` (n chained iterations): the slope between
-    the least of ``reps`` runs at n0 and at n1, after one warm run of each."""
+    the least of ``reps`` runs at n0 and at n1 (``utils.timer.least_times``),
+    after one warm run of each."""
     _wall(run, n0, device)
     _wall(run, n1, device)
-    lo = min(_wall(run, n0, device) for _ in range(reps))
-    hi = min(_wall(run, n1, device) for _ in range(reps))
+    lo, (hi, _) = least_times(lambda: (_wall(run, n0, device), None),
+                              lambda: (_wall(run, n1, device), None), reps)
     return max(hi - lo, 0.0) / (n1 - n0) * 1e6
 
 

@@ -224,14 +224,14 @@ def main(argv=None) -> int:
         print("dryrun: no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
         return 2
     from .parallel.launch import spawn
-    from .parallel.multihost import init_distributed
+    from .parallel.multihost import init_distributed, shutdown_distributed
 
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # started by torchrun
         init_distributed(device=args.device)
         try:
             dryrun_multichip(args.devices or dist.get_world_size(), args.device)
         finally:
-            dist.destroy_process_group()
+            shutdown_distributed()
     else:
         n = args.devices or 1
         spawn(dryrun_multichip, n, args.device, n, args.device)

@@ -20,7 +20,12 @@ loop's, bit for bit.  Dot products are ``torch.dot``
 ``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
 group (``parallel/``): each rank holds a row block of A and the same block of
 every vector, dot products are a local ``torch.dot`` and an ``all_reduce``, and
-the matvec takes the 1-hop halo exchange or the all-gather of x.
+the matvec takes the 1-hop halo exchange or the all-gather of x.  It runs the
+same ``CGBlocks`` (the JAX package jits its ``while_loop`` with the
+collectives inside): on the card each block is a captured graph that holds
+its NCCL collectives, and the flag the host reads after a block is the
+all-reduced stop test, the same on every rank, so every rank replays the
+same graphs in the same order.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 from ..formats.containers import CSR
 
 __all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CGBlocks", "cg_solve", "dist_cg_solve",
-           "jacobi_preconditioner"]
+           "dist_cg_blocks", "jacobi_preconditioner"]
 
 # Masked CG iterations in one block: the host reads one flag a block.  A solve
 # runs whole blocks, so up to CG_BLOCK - 1 masked iterations after convergence
@@ -139,7 +144,9 @@ class CGBlocks:
     ones.  The last block before ``max_iters`` is cut to the iterations left,
     so a solve at tol 0 runs exactly ``max_iters``.  The graphs are captured
     at the first solve that reaches a block and kept for later solves with the
-    same shapes (``tol`` and ``max_iters`` live in device buffers)."""
+    same shapes (``tol`` and ``max_iters`` live in device buffers).  Where
+    ``matvec`` or ``dot`` issue ``torch.distributed`` collectives, every rank
+    of their group solves with the same arguments (``utils.graphs.Loop``)."""
 
     def __init__(self, matvec: Callable, precond: Optional[Callable], b: torch.Tensor,
                  block: int = CG_BLOCK, dot: Callable = torch.dot,
@@ -228,11 +235,14 @@ def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGR
     ``col_idx_padded`` when every shard's columns (in padded coordinates) fit
     its own block and its two neighbours', else ``dist_spmv_fn``.
 
-    Every rank takes the same number of iterations, or the next collective
-    would wait forever: the stop test reads the all-reduced ``dot(r, r)``,
-    which is the same value on every rank."""
-    from ..parallel.dist_spmv import (all_reduced_dot, dist_spmv_fn, dist_spmv_halo_fn,
-                                      halo_feasible, mesh_device, shard_partitioned)
+    Runs :class:`CGBlocks` as ``cg_solve`` does: ``CG_EAGER_ITERS`` plain
+    iterations, then blocks of ``CG_BLOCK`` masked ones, on the card captured
+    graphs with the collectives inside.  Every rank takes the same number of
+    iterations, or the next collective would wait forever: the stop test
+    reads the all-reduced ``dot(r, r)``, which is the same value on every
+    rank."""
+    from ..parallel.dist_spmv import (dist_spmv_fn, dist_spmv_halo_fn, halo_feasible,
+                                      mesh_device, shard_partitioned)
 
     part = shard_partitioned(part, mesh)
     d, lr, D = part.shard, part.local_rows, part.num_shards
@@ -246,5 +256,15 @@ def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGR
     if tuple(b.shape) != (D * lr,):
         raise ValueError(f"b must be the padded ({D * lr},) right-hand side, got {tuple(b.shape)}")
     b_local = b[d * lr: (d + 1) * lr].to(mesh_device(mesh)).contiguous()
-    return _cg_loop(matvec, None, b_local, torch.zeros_like(b_local), tol, max_iters,
-                    all_reduced_dot(mesh))
+    return dist_cg_blocks(matvec, b_local, mesh).solve(b_local, torch.zeros_like(b_local), tol,
+                                                       max_iters)
+
+
+def dist_cg_blocks(matvec: Callable, b_local: torch.Tensor, mesh) -> CGBlocks:
+    """The :class:`CGBlocks` of a distributed solve on this rank's block:
+    unpreconditioned, dots all-reduced over ``mesh``, ``CG_EAGER_ITERS``
+    plain iterations, collectives in the captured blocks."""
+    from ..parallel.dist_spmv import all_reduced_dot
+
+    return CGBlocks(matvec, None, b_local, block=CG_BLOCK, dot=all_reduced_dot(mesh),
+                    eager_iters=CG_EAGER_ITERS)

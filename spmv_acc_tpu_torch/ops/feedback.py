@@ -4,9 +4,10 @@ with ``s = alpha * ax + beta * y`` (SpMV) or ``s = AX`` (SpMM).
 The JAX package runs this body inside ``lax.fori_loop`` and XLA fuses it
 (``spmv_acc_tpu/ops/swell.py::_swell_power_run``, ``_swell_amx_power_run``);
 the port's counterpart of that fusion is the hand-written kernel in
-``csrc/feedback.cu``: a deterministic two-pass reduction (per-block float32
-sums in a fixed order, then every block folds them into the mean and scales
-its share of x in place).  :func:`feedback_` launches it for CUDA tensors and
+``csrc/feedback.cu``: one cooperative launch of a persistent grid, a
+deterministic reduction (per-block float32 sums in a fixed order, a
+grid-wide barrier, then every block folds them into the mean and scales its
+share of x in place).  :func:`feedback_` launches it for CUDA tensors and
 runs :func:`feedback_plain`, the eager expression, for CPU tensors; there is
 no fallback from one to the other.
 
@@ -27,8 +28,8 @@ from .xla import axpby_finish
 
 __all__ = ["LAUNCHES", "feedback_plain", "feedback_"]
 
-# Calls of the kernel in this process by dtype ("f64", "f32"); each call is the
-# two passes.  Only the launch site adds to it (and a captured graph's replays,
+# Calls of the kernel in this process by dtype ("f64", "f32"); each call is one
+# cooperative launch.  Only the launch site adds to it (and a captured graph's replays,
 # utils/graphs.py); set to 0 with ``.clear()`` to count a run.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -86,7 +87,7 @@ def _launch(x, ax, y, alpha, beta) -> None:
 def feedback_(x: torch.Tensor, ax: torch.Tensor, y=None, alpha=1.0, beta=1.0) -> torch.Tensor:
     """Scale ``x`` in place by ``1 + mean(f32(s)^2) * 1e-30`` (``s = alpha * ax
     + beta * y``, or ``s = ax`` without ``y``) and return it.  Launches the
-    two-pass kernel of ``csrc/feedback.cu`` for CUDA tensors and runs
+    kernel of ``csrc/feedback.cu`` for CUDA tensors and runs
     :func:`feedback_plain` for CPU tensors; any other device raises."""
     _check(x, ax, y)
     if x.device.type == "cuda":

@@ -44,7 +44,7 @@ import torch.distributed as dist
 from ..config import LANES
 from ..ops.swell import PLAN_TIMES, DeviceSwellLayout, _host_layout, _plan_cache_on, _torch_dtype, swell_ax
 from ..ops.swell_plan import ChunkSchedule, SwellLayout, build_swell_schedule
-from .dist_spmv import all_reduced_dot, gather_mesh, halo_exchanger, mesh_device, mesh_rank
+from .dist_spmv import gather_mesh, halo_exchanger, mesh_device, mesh_rank
 
 __all__ = ["DistSwellPlan", "build_dist_swell", "dist_swell_spmv_fn",
            "dist_swell_halo_spmv_fn", "dist_swell_serial_fn", "dist_swell_cg_solve",
@@ -275,8 +275,10 @@ def dist_swell_cg_solve(csr, b, mesh, tol: float = 1e-8, max_iters: int = 200):
     the result's ``x`` is this rank's ``(rows_local,)`` block of the padded
     solution (``launch.gather_padded(res.x, mesh)[:m]`` for the global one).
     Dots are a local ``torch.dot`` and an ``all_reduce``, so every rank reads
-    the same stop test and takes the same number of iterations."""
-    from ..models.cg import _cg_loop
+    the same stop test and takes the same number of iterations.  Runs
+    ``models.cg.dist_cg_blocks``: on the card captured blocks that hold the
+    halo exchange or all-gather and the all-reduces."""
+    from ..models.cg import dist_cg_blocks
 
     dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
     run = dist_swell_spmv_fn(dsp, mesh)
@@ -286,6 +288,6 @@ def dist_swell_cg_solve(csr, b, mesh, tol: float = 1e-8, max_iters: int = 200):
     def matvec(v):
         return run(v.to(dsp.dtype)).to(b_local.dtype)
 
-    res = _cg_loop(matvec, None, b_local, torch.zeros_like(b_local), tol, max_iters,
-                   all_reduced_dot(mesh))
+    res = dist_cg_blocks(matvec, b_local, mesh).solve(b_local, torch.zeros_like(b_local), tol,
+                                                      max_iters)
     return res, dsp

@@ -16,6 +16,8 @@ so the targets the tests start live here (:func:`rank_cases`).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import pickle
 import queue
@@ -37,7 +39,7 @@ _TIMEOUT_S = 900.0  # a rank that never reports (a deadlocked collective) fails 
 
 def _rank_main(payload: str, rank: int, world_size: int, device: str, init: str,
                results) -> None:
-    from .multihost import init_distributed
+    from .multihost import init_distributed, shutdown_distributed
 
     if device == "cpu":  # CPU ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
@@ -50,8 +52,7 @@ def _rank_main(payload: str, rank: int, world_size: int, device: str, init: str,
     except BaseException:
         results.put((rank, traceback.format_exc(), None))
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown_distributed()
 
 
 def spawn(fn, world_size: int, device: str, *args) -> list:
@@ -123,6 +124,78 @@ def _csr(arrays):
     return CSR.from_numpy(rp, ci, v, shape)
 
 
+@contextlib.contextmanager
+def _eager_iters(n):
+    """``models.cg.CG_EAGER_ITERS`` set to ``n`` inside (None: left alone)."""
+    from ..models import cg
+
+    saved = cg.CG_EAGER_ITERS
+    if n is not None:
+        cg.CG_EAGER_ITERS = n
+    try:
+        yield
+    finally:
+        cg.CG_EAGER_ITERS = saved
+
+
+def _scaling_loop(csr, steps: int):
+    from ..utils.graphs import Loop
+    from .dist_spmv import make_mesh
+    from .dist_swell import build_dist_swell, dist_swell_spmv_fn, pad_global
+    from .scaling_bench import _renormalised
+
+    mesh = make_mesh(dist.get_world_size())
+    dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
+    step = _renormalised(dist_swell_spmv_fn(dsp, mesh), mesh.get_group())
+    L, d = dsp.rows_local, dist.get_rank()
+    x = pad_global(dsp, torch.ones(csr.cols, dtype=csr.values.dtype))[d * L: (d + 1) * L]
+    looped = Loop(step, x.contiguous(), unroll=4).run(x, steps)
+    chained = x.contiguous()
+    for _ in range(steps):
+        chained = step(chained)
+    return tuple(gather_padded(v, mesh)[: csr.rows].cpu().numpy() for v in (looped, chained))
+
+
+def _masked_step_without_host_reads(csr, b) -> list:
+    from ..models.cg import _cg_start, _masked_step
+    from .dist_spmv import all_reduced_dot, dist_spmv_fn, dist_spmv_halo_fn, make_mesh
+    from .dist_spmv import shard_partitioned
+    from .dist_swell import build_dist_swell, dist_swell_spmv_fn, pad_global
+    from .partition import pad_vector, partition_rows
+
+    mesh = make_mesh(dist.get_world_size())
+    d, dot = dist.get_rank(), all_reduced_dot(mesh)
+    part = shard_partitioned(partition_rows(csr, mesh.size(), balance=False), mesh)
+    lr = part.local_rows
+    matvecs = {}
+    for name, build in (("gather", dist_spmv_fn), ("halo", dist_spmv_halo_fn)):
+        run, _ = build(mesh, part, padded=True)
+        matvecs[name] = (functools.partial(run, part.values, part.col_idx_padded, part.row_ids),
+                         pad_vector(part, b)[d * lr: (d + 1) * lr])
+    dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
+    L = dsp.rows_local
+    matvecs["swell"] = (dist_swell_spmv_fn(dsp, mesh), pad_global(dsp, torch.from_numpy(b))[
+        d * L: (d + 1) * L].contiguous())
+
+    def refuse(*_):
+        raise RuntimeError("a host read inside a masked CG step")
+
+    clean = []
+    for name, (matvec, b_local) in matvecs.items():
+        b_local = torch.as_tensor(b_local).contiguous()
+        carry, tol2 = _cg_start(matvec, lambda r: r, b_local, torch.zeros_like(b_local), 1e-12,
+                                dot)
+        max_iters = torch.tensor(10)
+        saved = torch.Tensor.item, torch.Tensor.__bool__
+        torch.Tensor.item = torch.Tensor.__bool__ = refuse
+        try:
+            _masked_step(matvec, lambda r: r, dot, tol2, max_iters, carry)
+        finally:
+            torch.Tensor.item, torch.Tensor.__bool__ = saved
+        clean.append(name)
+    return clean
+
+
 def rank_cases(cases: list) -> list:
     """Run ``cases`` on this rank of a joined group (the test target; every
     rank runs the same list).  Each case is a dict with a ``kind`` and numpy
@@ -133,11 +206,22 @@ def rank_cases(cases: list) -> list:
     - ``hier``: ``csr``, ``x``, ``shape`` (dcn, ici): ``unpad_y`` of
       ``dist_spmv_hier`` on ``hybrid_mesh(*shape)``;
     - ``cg``: ``csr``, ``b`` (global), ``tol``, ``max_iters``: (x in global
-      rows, iterations) of ``dist_cg_solve``;
+      rows, iterations) of ``dist_cg_solve``; with ``eager_iters``,
+      ``models.cg.CG_EAGER_ITERS`` is set to it around the call (``swell_cg``
+      too), so that the masked blocks run;
     - ``swell``: ``csr``, ``x``, ``halo``, ``env`` (variables set around the
       build): (y[:m], halo_ok, tail nnz) of ``dist_swell_spmv_fn``;
     - ``swell_cg``: ``csr``, ``b``, ``tol``, ``max_iters``: (x[:m], iterations)
       of ``dist_swell_cg_solve``;
+    - ``scaling_loop``: ``csr``, ``steps``: the weak-scaling step
+      (``scaling_bench._renormalised`` around ``dist_swell_spmv_fn``) run
+      ``steps`` times from ones by a ``utils.graphs.Loop`` and by a Python
+      loop: (both results in global rows);
+    - ``masked_step``: ``csr`` (square), ``b``: one masked CG iteration
+      (``models.cg._masked_step``) with the all-reduced dot, over the
+      all-gather and the halo ``dist_spmv`` matvec and ``dist_swell``'s,
+      with ``torch.Tensor.item`` and ``__bool__`` raising: the names of the
+      matvecs whose step ran without a host read;
     - ``context``: ``init_distributed()``'s fields, the halo_feasible of
       ``csr``, and whether JAX is imported in this process."""
     from .dist_spmv import dist_spmv, halo_feasible, make_mesh, shard_partitioned, unpad_y
@@ -164,8 +248,9 @@ def rank_cases(cases: list) -> list:
         elif kind == "cg":
             mesh = make_mesh(world)
             part = partition_rows(csr, world, balance=False)
-            res = dist_cg_solve(part, pad_vector(part, case["b"]), mesh, tol=case["tol"],
-                                max_iters=case["max_iters"])
+            with _eager_iters(case.get("eager_iters")):
+                res = dist_cg_solve(part, pad_vector(part, case["b"]), mesh, tol=case["tol"],
+                                    max_iters=case["max_iters"])
             x = unpad_vector(part, gather_padded(res.x, mesh)).cpu().numpy()
             out.append((x, res.iters))
         elif kind == "swell":
@@ -187,10 +272,15 @@ def rank_cases(cases: list) -> list:
             out.append((y[: csr.rows].cpu().numpy(), dsp.halo_ok, dsp.tail_nnz))
         elif kind == "swell_cg":
             mesh = make_mesh(world)
-            res, _ = dist_swell_cg_solve(csr, torch.from_numpy(case["b"]), mesh, tol=case["tol"],
-                                         max_iters=case["max_iters"])
+            with _eager_iters(case.get("eager_iters")):
+                res, _ = dist_swell_cg_solve(csr, torch.from_numpy(case["b"]), mesh,
+                                             tol=case["tol"], max_iters=case["max_iters"])
             x = gather_padded(res.x, mesh)[: csr.rows].cpu().numpy()
             out.append((x, res.iters))
+        elif kind == "scaling_loop":
+            out.append(_scaling_loop(csr, case["steps"]))
+        elif kind == "masked_step":
+            out.append(_masked_step_without_host_reads(csr, case["b"]))
         elif kind == "context":
             ctx = init_distributed(device="cpu")
             mesh = make_mesh(world)

@@ -10,6 +10,8 @@ Counterpart of ``spmv_acc_tpu/parallel/multihost.py`` on ``torch.distributed``:
   one process.  The backend follows the device asked for: ``nccl`` and
   ``cuda:{LOCAL_RANK}`` for the card (the default), ``gloo`` for the CPU;
   it never switches quietly, and a rank that finds no card raises.
+* **Teardown**: :func:`shutdown_distributed` frees what is unreachable
+  (captured CUDA graphs among it) before it leaves the group.
 * **Hybrid mesh**: :func:`hybrid_mesh` is a 2-D ``DeviceMesh`` named
   ``("dcn", "ici")`` whose outer axis spans hosts and inner axis each host's
   devices, ranks in process-major order, so the inner axis never crosses a
@@ -23,6 +25,7 @@ Counterpart of ``spmv_acc_tpu/parallel/multihost.py`` on ``torch.distributed``:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 from typing import Optional, Sequence
 
@@ -34,7 +37,7 @@ from .dist_spmv import (_device_type, _x_block, dist_spmv_fn, mesh_device, mesh_
                         shard_partitioned)
 from .partition import PartitionedCSR
 
-__all__ = ["DistContext", "init_distributed", "hybrid_mesh",
+__all__ = ["DistContext", "init_distributed", "shutdown_distributed", "hybrid_mesh",
            "shard_partitioned_hier", "dist_spmv_hier_fn", "dist_spmv_hier"]
 
 
@@ -120,6 +123,18 @@ def init_distributed(
         global_device_count=dist.get_world_size() if up else 1,
         initialized=did_init,
     )
+
+
+def shutdown_distributed() -> None:
+    """Leave the joined process group, if any: first free what only reference
+    cycles keep (a captured CUDA graph that holds NCCL collectives among it,
+    ``utils/graphs.py``) and wait for the card, then destroy the group."""
+    if not dist.is_initialized():
+        return
+    gc.collect()
+    if dist.get_backend() == "nccl":
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 def hybrid_mesh(dcn: Optional[int] = None, ici: Optional[int] = None,

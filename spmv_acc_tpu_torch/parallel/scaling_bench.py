@@ -5,11 +5,13 @@ device are fixed and the matrix grows with the device count
 (``banded_csr(m, bandwidth=min(avg_nnz | 1, m), seed=11)``); each count
 reports nnz/s and the parallel efficiency against one device, and the
 structural efficiency against the same shard layouts run one after another
-on one device (``dist_swell_serial_fn``).  It runs on every rank of a joined
-group: D > 1 ranks on CPUs (gloo) validate the structure, not a speed; on
-several cards (NCCL) ``efficiency`` is the real weak-scaling figure.  The
-JAX package's ICI model (``model_ici_efficiency``, TPU link and HBM rates)
-is not ported.
+on one device (``dist_swell_serial_fn``).  On the card each timed chain is
+one device program, as the JAX bench's ``time_device_loop`` makes it:
+replays of a captured ``utils.graphs.Loop``, the collectives inside.  It
+runs on every rank of a joined group: D > 1 ranks on CPUs (gloo) validate
+the structure, not a speed; on several cards (NCCL) ``efficiency`` is the
+real weak-scaling figure.  The JAX package's ICI model
+(``model_ici_efficiency``, TPU link and HBM rates) is not ported.
 
     python -m spmv_acc_tpu_torch.parallel.scaling_bench --devices 1,2,4 [--device cpu]
     torchrun --standalone --nproc_per_node 4 -m spmv_acc_tpu_torch.parallel.scaling_bench \\
@@ -32,28 +34,35 @@ import torch.distributed as dist
 
 
 def _loop_us(step, x, iters: int, device, group=None, reps: int = 3) -> float:
-    """µs per call of ``step`` chained ``iters`` times.  On the card: CUDA
-    events around a chain that follows one untimed chain and, with ``group``,
-    a barrier over it, so that no rank's one-off start (its first calls of
-    the step) falls into another rank's timed window as a wait at the first
-    collective.  On the CPU ``utils.timer.time_fn``, the least of ``reps``
+    """µs per call of ``step`` chained ``iters`` times.  On the card the chain
+    is one device program, as the JAX package's ``time_device_loop`` runs it:
+    a ``utils.graphs.Loop`` of ``iters`` steps, whose untimed first run
+    captures it; then a barrier over ``group``, so that no rank's one-off
+    start falls into another rank's timed window as a wait at the first
+    collective, and CUDA events around one replay.  On the CPU
+    ``utils.timer.time_fn`` over the eager chain, the least of ``reps``
     chains (CPU ranks share the host with whatever else runs)."""
+    if device.type == "cuda":
+        from ..utils.graphs import Loop
+
+        loop = Loop(step, x, unroll=iters)
+        loop.advance(iters)  # the warm-up and the capture
+        loop.load(x)
+        if group is not None:
+            dist.barrier(group=group)
+        torch.cuda.synchronize(device)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        loop.advance(iters)
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1) * 1e3 / iters
+
     def chain(v):
         for _ in range(iters):
             v = step(v)
         return v
 
-    if device.type == "cuda":
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        chain(x)
-        if group is not None:
-            dist.barrier(group=group)
-        torch.cuda.synchronize(device)
-        t0.record()
-        chain(x)
-        t1.record()
-        t1.synchronize()
-        return t0.elapsed_time(t1) * 1e3 / iters
     from ..utils.timer import time_fn
 
     return min(time_fn(chain, x)[1] for _ in range(reps)) / iters
@@ -235,14 +244,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from .launch import spawn
-    from .multihost import init_distributed
+    from .multihost import init_distributed, shutdown_distributed
 
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # started by torchrun
         init_distributed(device=args.device)
         try:
             doc = _bench_rank(counts, args)
         finally:
-            dist.destroy_process_group()
+            shutdown_distributed()
         if int(os.environ["RANK"]) != 0:
             return 0  # rank 0 prints the document and applies the gate
     else:

@@ -19,6 +19,18 @@ once on the capture's side stream before capture, as PyTorch's documentation
 asks).  A step that breaks them makes capture raise; nothing falls back to the
 eager loop.
 
+Steps with collectives (the distributed CG's blocks, the weak-scaling step):
+NCCL's kernels are recorded in the graph like any other launch, and a replay
+meets the peers' replays inside them, so every rank of the group builds its
+loop and advances it by the same counts in the same order; the warm-up, run
+for real on every rank before capture, makes the communicators a step uses
+(a point-to-point pair's at its first send and receive).  Such a loop (or a
+``models.cg.CGBlocks``) is freed before its process group is destroyed
+(``parallel.multihost.shutdown_distributed`` frees what only reference
+cycles keep): on four H100s, three runs whose graphs with NCCL collectives
+were still alive did not return from their last collective or from
+``destroy_process_group`` (PERF.md).
+
 Launch counters: capture records the launches of a step without running
 them, so the counters' growth during capture is taken back and added again at
 every replay (``_Graph.replay``): a counter counts what ran, warm-ups
@@ -37,7 +49,7 @@ import gc
 
 import torch
 
-__all__ = ["UNROLL", "Loop", "launch_counters"]
+__all__ = ["UNROLL", "CAPTURE_MODE", "Loop", "launch_counters"]
 
 # Steps in one captured graph of a chain.  Replaying a graph costs the host
 # one launch however many steps it holds, and the card runs its kernels back
@@ -47,6 +59,17 @@ __all__ = ["UNROLL", "Loop", "launch_counters"]
 # rajat03, TSOPF_RS_b2383 and boneS10; 64 keeps a 65,536-step bench loop at
 # 1,024 replays for 0.02-0.05 s of capture.
 UNROLL = 64
+
+# The capture mode.  In torch's default ("global") a capture forbids every
+# other thread of the process the CUDA calls that could disturb it, and such a
+# call from another thread invalidates the capture.  ProcessGroupNCCL's
+# watchdog thread polls the CUDA events of the collectives issued before (a
+# distributed loop's warm-up among them) while a capture runs.  On an H100
+# with torch 2.11 and NCCL 2.28 none of 40 global captures after eager
+# collectives failed (scripts/torch_probe_dist.py --capture-modes, PERF.md),
+# but a collision is a race: "thread_local" restricts only the capturing
+# thread, which makes every call of a step, and rules it out.
+CAPTURE_MODE = "thread_local"
 
 
 def launch_counters() -> list:
@@ -75,7 +98,7 @@ class _Graph:
             # may need a CUDA call that invalidates it
             gc.disable()
             try:
-                self.graph.capture_begin(pool=pool)
+                self.graph.capture_begin(pool=pool, capture_error_mode=CAPTURE_MODE)
                 try:
                     body()
                 finally:
@@ -113,7 +136,9 @@ class Loop:
     whatever the step closes over (layouts, plans) stays alive with it.  On
     the CPU ``step`` runs eagerly.  Where a graph size is first needed its
     steps run eagerly (the capture's warm-up) and the graph is captured for
-    the later ones."""
+    the later ones.  A step that issues ``torch.distributed`` collectives
+    needs every rank of their group to build its loop and advance it by the
+    same counts in the same order (the module docstring)."""
 
     def __init__(self, step, init, unroll: int = UNROLL):
         if unroll < 1:

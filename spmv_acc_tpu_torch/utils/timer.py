@@ -20,7 +20,12 @@ import torch
 
 from ..config import BENCHMARK_ARRAY_SIZE, WARMUP_ITERS
 
-__all__ = ["WallTimer", "sync", "cuda_time_us", "time_fn", "time_device_loop"]
+__all__ = ["WallTimer", "sync", "cuda_time_us", "time_fn", "time_device_loop", "least_times"]
+
+# Rounds of runs a host-clock slope takes at most: a round whose longer loop
+# reads no slower than its shorter one (host noise above the difference, as on
+# a loaded CPU) is followed by another, the least of every round kept.
+SLOPE_ROUNDS = 4
 
 
 def sync(device) -> None:
@@ -100,14 +105,29 @@ def time_fn(fn, *args, iters: int = 1, block=True):
     return out, dt * 1e6
 
 
+def least_times(short, long, reps: int = 3):
+    """The least seconds of ``reps`` calls of ``short()`` and of ``long()``
+    (each returns (seconds, result)): ``(least short, (least long, its
+    result))``.  While the least long is no longer than the least short,
+    ``reps`` more calls of each, up to ``SLOPE_ROUNDS`` rounds in all."""
+    lo = hi = (float("inf"), None)
+    for _ in range(SLOPE_ROUNDS):
+        lo = min([lo] + [short() for _ in range(reps)], key=lambda tc: tc[0])
+        hi = min([hi] + [long() for _ in range(reps)], key=lambda tc: tc[0])
+        if hi[0] > lo[0]:
+            break
+    return lo[0], hi
+
+
 def time_device_loop(step, init, iters: int = 64, reps: int = 3):
     """Per-iteration time of ``carry = step(carry)`` with the loop on the
     device (the JAX package's ``utils/timer.py::time_device_loop``): the loop
     runs as replays of captured CUDA graphs (:class:`~.graphs.Loop`; eagerly on
     the CPU), 1 and ``1 + iters`` steps from ``init`` are timed on the host
     clock with the device synchronised at both ends, after one warm run of
-    each, and the slope between the least of ``reps`` runs of each is the
-    result.  Returns (per-iteration µs, the carry after ``1 + iters`` steps)."""
+    each, and the slope between the least of ``reps`` runs of each
+    (:func:`least_times`) is the result.  Returns (per-iteration µs, the carry
+    after ``1 + iters`` steps)."""
     from .graphs import Loop
 
     loop = Loop(step, init)
@@ -122,6 +142,5 @@ def time_device_loop(step, init, iters: int = 64, reps: int = 3):
 
     once(1)
     once(1 + iters)
-    lo = min(once(1)[0] for _ in range(reps))
-    hi, carry = min((once(1 + iters) for _ in range(reps)), key=lambda tc: tc[0])
+    lo, (hi, carry) = least_times(lambda: once(1), lambda: once(1 + iters), reps)
     return max(hi - lo, 0.0) / iters * 1e6, carry

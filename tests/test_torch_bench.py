@@ -164,7 +164,7 @@ def test_solver_sections_on_cpu(monkeypatch):
     every key of both reference sections, CG converging in both."""
     monkeypatch.setenv("SPMV_TPU_BENCH_SOLVER_MATRIX", "dw4096")
     monkeypatch.setattr(bench, "ANISO_NX", 24)
-    monkeypatch.setattr(bench, "ANISO_TRIPS", (3, 9))
+    monkeypatch.setattr(bench, "ANISO_TRIPS", (3, 33))
     log = io.StringIO()
     out = bench.bench_solver(log, "cpu")
     ref = json_keys(REF_BENCH)

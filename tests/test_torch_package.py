@@ -10,6 +10,7 @@ import ast
 import functools
 import gc
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -652,6 +653,152 @@ def test_feedback_kernel_matches_plain_on_card(cuda_device, dtype, case):
         assert not torch.equal(plain, x) and moved > 1e-9
         allowed = (1e-5 * moved + 4 * torch.finfo(dtype).eps) * plain.abs()
         assert ((out - plain).abs() <= allowed).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["below one block", "odd length", "boneS10", "rect", "spmm"])
+@pytest.mark.parametrize("moves", [False, True])
+def test_one_pass_feedback_on_card(cuda_device, dtype, case, moves):
+    """The one-pass F-1 (one cooperative launch a call) against its plain
+    version at sizes below one block (and below one vector), at lengths that
+    are no multiple of the 16-B vector width, at boneS10's m and as SpMM:
+    bit for bit where the multiplier rounds to 1, within 1e-5 of the
+    multiplier's move plus 4 ulps where x moves (the float32 mean summed in
+    another order); two calls give the same bits."""
+    from spmv_acc_tpu_torch.ops import feedback
+
+    m, n, k = {"below one block": (3, 5, 1), "odd length": (100003, 99999, 1),
+               "boneS10": (914898, 914898, 1), "rect": (70001, 33, 1),
+               "spmm": (30011, 30011, 8)}[case]
+    scale = (1e11 if dtype == torch.float64 else 1e15) if moves else 1.0
+    rng = np.random.default_rng(m + k)
+    shape_ax, shape_x = ((m,), (n,)) if k == 1 else ((m, k), (n, k))
+    ax = torch.from_numpy(rng.uniform(-1, 1, shape_ax) * scale).to(cuda_device, dtype)
+    y = (torch.from_numpy(rng.uniform(-1, 1, shape_ax) * scale).to(cuda_device, dtype)
+         if k == 1 else None)
+    x = torch.from_numpy(rng.uniform(-1, 1, shape_x)).to(cuda_device, dtype)
+    plain = feedback.feedback_plain(x, ax, y, 2.0, -0.5)
+    feedback.LAUNCHES.clear()
+    out = [feedback.feedback_(x.clone(), ax, y, 2.0, -0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sum(feedback.LAUNCHES.values()) == 2
+    assert torch.equal(out[0].view(torch.uint8), out[1].view(torch.uint8))
+    if not moves:
+        assert torch.equal(out[0], plain) and torch.equal(plain, x)
+    else:
+        s = (ax if y is None else 2.0 * ax - 0.5 * y).float()
+        moved = float((s * s).mean()) * 1e-30
+        assert not torch.equal(plain, x) and moved > 1e-9
+        allowed = (1e-5 * moved + 4 * torch.finfo(dtype).eps) * plain.abs()
+        assert ((out[0] - plain).abs() <= allowed).all()
+
+
+@pytest.mark.cuda
+def test_one_pass_feedback_captured_on_card(cuda_device):
+    """F-1's cooperative launch inside a captured graph (``Loop``): the
+    replays equal the same launches from the host bit for bit, on data that
+    moves x, and count one launch a step."""
+    from spmv_acc_tpu_torch.ops import feedback
+    from spmv_acc_tpu_torch.utils.graphs import Loop
+
+    rng = np.random.default_rng(9)
+    ax = torch.from_numpy(rng.uniform(-1, 1, 200003) * 1e11).to(cuda_device)
+    y = torch.from_numpy(rng.uniform(-1, 1, 200003) * 1e11).to(cuda_device)
+    x = torch.from_numpy(rng.uniform(-1, 1, 200003)).to(cuda_device)
+    loop = Loop(lambda v: feedback.feedback_(v, ax, y, 2.0, -0.5), x, unroll=4)
+    loop.run(x, 11)  # the warm-ups and captures
+    feedback.LAUNCHES.clear()
+    got = loop.run(x, 11)
+    torch.cuda.synchronize()
+    assert feedback.LAUNCHES["f64"] == 11
+    want = x.clone()
+    for _ in range(11):
+        feedback.feedback_(want, ax, y, 2.0, -0.5)
+    assert not torch.equal(want, x) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_captured_dist_swell_cg_block_on_card(nccl_group, monkeypatch):
+    """dist_swell_cg_solve over NCCL at world size 1 with its blocks captured
+    from the first iteration (the all-reduced dots inside the graphs): the
+    iterations and x bit for bit the plain loop's (the same solve with every
+    iteration plain; within 1e-12 if a COO tail's atomics keep the plain loop
+    from repeating itself), the swell launches of every replay counted."""
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import fem_like_csr
+    from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops.golden import host_spmv_plain
+    from spmv_acc_tpu_torch.parallel import make_mesh
+    from spmv_acc_tpu_torch.parallel.dist_swell import dist_swell_cg_solve
+
+    m = 8192
+    rp, ci, v, _ = fem_like_csr(m, m, 6 * m, block=3, seed=31).to_numpy()
+    spd = spdize(rp.astype(np.int64), ci.astype(np.int64), v, m)
+    csr = CSR.from_numpy(*spd, (m, m), device=nccl_group)
+    b = torch.from_numpy(host_spmv_plain(*spd, np.random.default_rng(32).uniform(-1, 1, m)))
+    mesh = make_mesh(1)
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 10 ** 9)
+    plain = [dist_swell_cg_solve(csr, b, mesh, tol=1e-10, max_iters=300)[0] for _ in range(2)]
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 0)
+    swell.LAUNCHES.clear()
+    got, _ = dist_swell_cg_solve(csr, b, mesh, tol=1e-10, max_iters=300)
+    torch.cuda.synchronize()
+    assert got.iters == plain[0].iters and 0 < got.iters < 300
+    if torch.equal(plain[0].x, plain[1].x):
+        assert torch.equal(got.x, plain[0].x)
+    else:
+        assert float((got.x - plain[0].x).norm() / plain[0].x.norm()) <= 1e-12
+    blocks = -(-got.iters // cg.CG_BLOCK)
+    chunk_launches = sum(n for key, n in swell.LAUNCHES.items() if len(key) == 3)
+    assert chunk_launches == 1 + blocks * cg.CG_BLOCK
+
+
+@pytest.mark.cuda
+def test_captured_dist_cg_and_scaling_step_on_card(nccl_group, monkeypatch):
+    """dist_cg_solve over NCCL at world size 1, its all-gather path (forced:
+    at world size 1 the halo path issues no collective) captured from the
+    first iteration against the plain loop: the same iterations, x within
+    1e-12 (index_add_'s atomics need not repeat); the weak-scaling step
+    through Loop (an all-reduced max inside the graph) equal to its eager
+    chain bit for bit, and timed by scaling_bench._loop_us."""
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import banded_csr
+    from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops.golden import host_spmv_plain
+    from spmv_acc_tpu_torch.parallel import make_mesh, pad_vector, partition_rows
+    from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_spmv_fn,
+                                                        pad_global)
+    from spmv_acc_tpu_torch.parallel.scaling_bench import _loop_us, _renormalised
+    from spmv_acc_tpu_torch.utils.graphs import Loop
+
+    rp, ci, v, _ = banded_csr(4000, bandwidth=9, seed=13).to_numpy()
+    spd = spdize(rp.astype(np.int64), ci.astype(np.int64), v, 4000)
+    a = CSR.from_numpy(*spd, (4000, 4000))
+    b = host_spmv_plain(*spd, np.random.default_rng(3).standard_normal(4000))
+    mesh = make_mesh(1)
+    pa = partition_rows(a, 1, balance=False)
+    monkeypatch.setattr(sys.modules["spmv_acc_tpu_torch.parallel.dist_spmv"], "halo_feasible",
+                        lambda *args, **kw: False)
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 10 ** 9)
+    plain = cg.dist_cg_solve(pa, pad_vector(pa, b), mesh, tol=1e-10, max_iters=500)
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 0)
+    got = cg.dist_cg_solve(pa, pad_vector(pa, b), mesh, tol=1e-10, max_iters=500)
+    assert got.iters == plain.iters and 0 < got.iters < 500
+    assert float((got.x - plain.x).norm() / plain.x.norm()) <= 1e-12
+
+    band = banded_csr(65536, bandwidth=17, seed=11).to(nccl_group)
+    dsp = build_dist_swell(band, 1, mesh=mesh)
+    step = _renormalised(dist_swell_spmv_fn(dsp, mesh), mesh.get_group())
+    x = pad_global(dsp, torch.ones(band.cols, dtype=torch.float64, device=nccl_group))
+    want = x
+    for _ in range(21):
+        want = step(want)
+    assert torch.equal(Loop(step, x, unroll=8).run(x, 21), want)
+    assert _loop_us(step, x, 20, nccl_group, mesh.get_group()) > 0
 
 
 def _eager_chain(layout, x, y, n):
