@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Run from the repo root on a machine with a Hopper card, ``nvcc`` and a C++
-compiler.  It builds the five kernel sources of ``spmv_acc_tpu_torch/csrc``
+compiler.  It builds the six kernel sources of ``spmv_acc_tpu_torch/csrc``
 (swell with its plane form, tile, ELL row sum, plane split, the chain's
-feedback F-1; one nvcc each, all at once), holds every variant the port
-launches against its plain PyTorch version (swell at float64 and float32,
-BSR r = 1..4, k = 1, 3, 8 columns; the
+feedback F-1, the CG update F-2; one nvcc each, all at once), holds every
+variant the port launches against its plain PyTorch version (swell at
+float64 and float32, BSR r = 1..4, k = 1, 3, 8 columns; the
 tile and ELL kernels, the plane split (bit for bit) and the plane-form swell at
 both dtypes on every smoke matrix, the ELL kernel at every lane count, also on
 a slab without padding and with x[0] = inf; the swell and tile kernels again with their
@@ -32,8 +32,13 @@ seconds and graph memory, the launches of every replay counted) and F-1
 (``csrc/feedback.cu``) against its plain version, beside its bound; the
 ``solver`` phase holds ``cg_solve``'s captured blocks against the eager loop
 (the recorded iterations 10 / 4 on Ga41As41H72-SPD and 1347 / 417 on aniso,
-Jacobi / ILU; x bit for bit; µs an iteration) and captures a CG block over
-the exact chunk-scheduled ILU apply.  Every swell layout the
+Jacobi / ILU; x bit for bit; µs an iteration), captures a CG block over
+the exact chunk-scheduled ILU apply, holds F-2 (``csrc/cg_update.cu``, the
+CG update around the matvec) against its plain version phase by phase at
+every shape a CG of the smoke runs at (Ga41As41H72-SPD, aniso, af23560 and
+the distributed shard of 1 M rows), times it at the aniso shape beside its
+bound, and counts F-2's launches in every CG it runs (``cg_solve``, the bench's ``bench_solver_aniso``, ``spmv-solve``, and
+in the ``dist`` phase ``dist_swell_cg_solve``, 39 iterations at m = 1 M).  Every swell layout the
 run builds goes to the disk plan cache in a fresh directory under ``build/``
 that the run deletes at its end: the ``plan-cache`` phase drops the process's
 caches and runs boneS10 and TSOPF_RS_b2383 again from the saved layouts (the
@@ -109,6 +114,10 @@ BENCH_SMALL = ("rajat03",)
 # eager loop took them on the H100 (scripts/torch_probe_graphs.py tune)
 CG_ITERS = {("Ga41As41H72-SPD", "jacobi"): 10, ("Ga41As41H72-SPD", "ilu"): 4,
             ("aniso 512^2", "jacobi"): 1347, ("aniso 512^2", "ilu"): 417}
+# dist_swell_cg_solve's iterations at tol 1e-8 on gate 3's SPD recipe at
+# 1,048,576 rows, world size 1, as the plain and captured loops took them on
+# the H100 (the dist phase, before F-2)
+DIST_CG_ITERS = 39
 
 
 def fail(msg: str) -> None:
@@ -306,10 +315,10 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
     from spmv_acc_tpu_torch.formats.containers import CSR
     from spmv_acc_tpu_torch.models import cg as cg_mod
     from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve
-    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops import cg_update, swell
     from spmv_acc_tpu_torch.ops.golden import host_spmv
     from spmv_acc_tpu_torch.parallel import gather_padded, make_mesh, pad_vector, partition_rows
-    from spmv_acc_tpu_torch.parallel.dist_spmv import (all_reduced_dot, dist_spmv_fn, gather_mesh,
+    from spmv_acc_tpu_torch.parallel.dist_spmv import (all_reduced_sum, dist_spmv_fn, gather_mesh,
                                                        shard_partitioned)
     from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_cg_solve,
                                                         dist_swell_serial_fn, dist_swell_spmv_fn,
@@ -469,11 +478,14 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
         fb = host_spmv(1.0, 0.0, frp, fci, fv, x_true, np.zeros(fm))
         fb_dev = torch.from_numpy(fb).to(dev)
         swell.LAUNCHES.clear()
+        cg_update.LAUNCHES.clear()
         t0 = time.perf_counter()
         res, dspc = dist_swell_cg_solve(spd_dev, fb_dev, mesh, tol=1e-8, max_iters=400)
         sync()
         t_cg = time.perf_counter() - t0
         cg_launches = sum(swell.LAUNCHES.values())
+        f2 = f2_launches(cg_update, "dist_swell_cg_solve", res.iters)
+        f2_check(dev, records, "dist", "dist_swell_cg_solve's shard", dspc.rows_local)
         xs = gather_padded(res.x, mesh)[:fm].cpu().numpy()
         err = float(np.linalg.norm(xs - x_true) / np.linalg.norm(x_true))
         met = float(res.residual_norm) <= 1e-8 * float(np.linalg.norm(fb))
@@ -486,7 +498,7 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
         bc = pad_global(dspc, fb_dev)[:Lc].contiguous()
         whole_c = swell.get_swell_plan(spd_dev)
 
-        dot = all_reduced_dot(mesh)  # the dots dist_swell_cg_solve runs
+        reduce = all_reduced_sum(mesh)  # what completes dist_swell_cg_solve's sums
 
         def trips(n, matvec, b, d):
             """Host seconds of ``n`` plain CG iterations (tol 0)."""
@@ -495,18 +507,21 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
             sync()
             return time.perf_counter() - t
 
-        it_dist = (trips(25, runc, bc, dot) - trips(5, runc, bc, dot)) / 20 * 1e6
+        it_dist = (trips(25, runc, bc, reduce) - trips(5, runc, bc, reduce)) / 20 * 1e6
         one = lambda v: swell.swell_ax(whole_c, v)  # noqa: E731
-        it_one = (trips(25, one, fb_dev, torch.dot) - trips(5, one, fb_dev, torch.dot)) / 20 * 1e6
+        it_one = (trips(25, one, fb_dev, None) - trips(5, one, fb_dev, None)) / 20 * 1e6
         phase("dist", f"gate 3's SPD recipe at m={fm}: nnz={spd.nnz} (made in {t_spd:.1f}s), "
               f"r={dspc.r}, halo_ok={dspc.halo_ok}; dist_swell_cg_solve at world size 1: "
               f"{res.iters} iterations, residual {float(res.residual_norm)!r} (met: {met}), rel "
               f"err against x_true {err!r}, {t_cg!r} s with the build, swell launches "
-              f"{cg_launches}; cg_solve(strategy='swell'): {ref.iters} iterations; per iteration "
+              f"{cg_launches}, F-2 launches {f2}; cg_solve(strategy='swell'): {ref.iters} "
+              f"iterations (recorded {DIST_CG_ITERS}); per iteration "
               f"(fixed-trip loops of 5 and 25, host clock): dist {it_dist!r} us, single-device "
               f"{it_one!r} us; card: {card}")
         if not met or not err < 1e-5 or abs(res.iters - ref.iters) > 1 or cg_launches < res.iters:
             fail("the distributed swell CG did not converge or left cg_solve's iteration count")
+        if dev.type == "cuda" and res.iters != DIST_CG_ITERS:  # (a CPU rehearsal shrinks it)
+            fail(f"the distributed swell CG took {res.iters} iterations, recorded {DIST_CG_ITERS}")
 
         # the distributed loops as one device program: both CG solvers
         # captured from the first iteration (their all-reduces, and the
@@ -561,7 +576,7 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
                         fail(f"{label}: the captured solve as called did not converge")
                 mv = matvecs[label]
                 bb = bc if label == "dist_swell_cg_solve" else part_b(part, b_pad, dev)
-                blocks = cg_mod.CGBlocks(mv, None, bb, dot=dot, eager_iters=0)
+                blocks = cg_mod.CGBlocks(mv, None, bb, reduce=reduce, eager_iters=0)
 
                 def cap_trips(n, blocks=blocks, bb=bb):
                     t = time.perf_counter()
@@ -572,7 +587,7 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
                 cap_trips(25)  # captures the graphs of 8 and 1 iterations
                 cap_trips(5)  # and of 4
                 it_cap = (cap_trips(25) - cap_trips(5)) / 20 * 1e6
-                it_eager = (trips(25, mv, bb, dot) - trips(5, mv, bb, dot)) / 20 * 1e6
+                it_eager = (trips(25, mv, bb, reduce) - trips(5, mv, bb, reduce)) / 20 * 1e6
                 phase("dist", f"{label} at world size 1, every block captured from the first "
                       f"iteration: {got.iters} iterations (eager loop {eager[0].iters}); x "
                       f"against the eager loop {text}; swell launches replayed {replayed}; "
@@ -900,6 +915,191 @@ def graphs_phase(dev, card, records, mats, spmm_X, bound_of, flush_buf):
           f"(16m + 16n = {16 * m + 16 * n} B); no single PyTorch call computes it; card: {card}")
     if f1["launches"] < 1:
         fail("the boneS10 chain launched F-1 no time")
+
+
+def f2_launches(cg_update, label, iters, general=False):
+    """F-2's launches by phase since its counter was last cleared: each phase
+    at least once an iteration (``cg_dot`` twice in the general form), or
+    fail.  Returns them as a dict."""
+    got = {k[1]: n for k, n in cg_update.LAUNCHES.items()}
+    need = {"dot": iters * (2 if general else 1), "xr": iters, "p": iters}
+    if any(got.get(k, 0) < n for k, n in need.items()) or iters < 1:
+        fail(f"{label}: F-2 launches {got} for {iters} iterations")
+    return got
+
+
+def f2_check(dev, records, ph, label, n, inv=None):
+    """F-2 (``csrc/cg_update.cu``) at one shape the smoke solves at (``n``
+    rows; ``inv``: the system's Jacobi vector, else a random one): each phase
+    against its plain version from one random carry, in float64 and
+    float32, in the Jacobi, identity and read (general M) forms, unmasked,
+    masked and active, masked off (by tol2, by max_iters): x, r and p within
+    1e-12 (|alpha||p| + |x|) elementwise plus one float32 ulp, the dots
+    within 1e-12 (float64) or 1e-5 (float32) of sum|a_i c_i|, rz, rr and it
+    equal, nothing written where masked off, two launches the same bits.
+    Fails on any miss; keeps the worst float64 gap as the ``max_abs_err`` of
+    the record ``cg_update_f64``; reports under the smoke's phase ``ph``."""
+    import numpy as np
+    import torch
+
+    from spmv_acc_tpu_torch.ops import cg_update as cu
+
+    rng0 = np.random.default_rng(n)
+    inv = torch.from_numpy(rng0.uniform(0.5, 2.0, n)).to(dev) if inv is None else inv
+    rec = records.setdefault("cg_update_f64", {"max_abs_err": 0.0})
+    for dtype in (torch.float64, torch.float32):
+        f32 = dtype == torch.float32
+        ulp = torch.finfo(torch.float32).eps if f32 else 0.0
+        dot_tol = 1e-5 if f32 else 1e-12
+        worst, cases = 0.0, 0
+        for form in ("jacobi", "identity", "read"):
+            for mask in ("unmasked", "active", "converged", "at max_iters"):
+                rng = np.random.default_rng(len(form) + len(mask) + 2 * f32)
+
+                def vec(lo=-1.0, hi=1.0):
+                    return torch.from_numpy(rng.uniform(lo, hi, n)).to(dev, dtype)
+
+                def scalar(v, dt=dtype):
+                    return torch.tensor(v, dtype=dt, device=dev)
+
+                carry = (vec(), vec(), vec(), scalar(rng.uniform(0.5, 2.0)),
+                         scalar(rng.uniform(0.5, 2.0)), scalar(5, torch.int64))
+                ap, z = vec(), (vec() if form == "read" else None)
+                iv = inv.to(dtype) if form == "jacobi" else None
+                rr = float(carry[4])
+                tol2 = mx = None
+                if mask != "unmasked":
+                    tol2 = scalar(rr * (2.0 if mask == "converged" else 0.5))
+                    mx = scalar(5 if mask == "at max_iters" else 100, torch.int64)
+                sums = torch.from_numpy(rng.uniform(0.5, 2.0, 3)).to(dev, dtype)
+                active = mask in ("unmasked", "active")
+
+                def work():
+                    w = cu.Work(carry[0])
+                    w.sums.copy_(sums)
+                    return w
+
+                def copy(c):
+                    return tuple(t.clone() for t in c)
+
+                errs, ok = [], True
+
+                def close(got, want, scale):
+                    gap = (got - want).abs()
+                    errs.append(float(gap.max()))
+                    return bool((gap <= 1e-12 * scale + ulp * want.abs()).all())
+
+                wk, wk2, wp = work(), work(), work()
+                cu.cg_dot(carry[2], ap, wk, cu.PAP)
+                cu.cg_dot(carry[2], ap, wk2, cu.PAP)
+                cu.cg_dot_plain(carry[2], ap, wp, cu.PAP)
+                torch.cuda.synchronize()
+                ok &= torch.equal(wk.sums, wk2.sums)
+                ok &= abs(float(wk.sums[0] - wp.sums[0])) <= dot_tol * float(
+                    (carry[2] * ap).abs().sum())
+                with_rz = form != "read"
+                ck, ck2, cp = copy(carry), copy(carry), copy(carry)
+                wk, wk2, wp = work(), work(), work()
+                cu.cg_xr(ck, ap, wk, iv, with_rz, tol2, mx)
+                cu.cg_xr(ck2, ap, wk2, iv, with_rz, tol2, mx)
+                cu.cg_xr_plain(cp, ap, wp, iv, with_rz, tol2, mx)
+                torch.cuda.synchronize()
+                ok &= all(torch.equal(a, b) for a, b in zip(ck + (wk.sums,), ck2 + (wk2.sums,)))
+                if not active:
+                    ok &= all(torch.equal(a, b) for a, b in zip(ck + (wk.sums,), carry + (sums,)))
+                alpha = (carry[3] / sums[0]).abs()
+                ok &= close(ck[0], cp[0], alpha * carry[2].abs() + carry[0].abs())
+                ok &= close(ck[1], cp[1], alpha * ap.abs() + carry[1].abs())
+                rn = cp[1]
+                zn = rn if iv is None else iv * rn
+                for slot, scale in ((cu.RZ, (rn * zn).abs().sum()), (cu.RR, (rn * rn).sum())):
+                    if slot == cu.RZ and not with_rz:
+                        ok &= torch.equal(wk.sums[slot], sums[slot])
+                    else:
+                        ok &= abs(float(wk.sums[slot] - wp.sums[slot])) <= (
+                            dot_tol * float(scale) + ulp * float(wp.sums[slot].abs()))
+                ck, ck2 = copy(cp), copy(cp)
+                wk, wk2 = cu.Work(carry[0]), cu.Work(carry[0])
+                wk.sums.copy_(wp.sums)
+                wk2.sums.copy_(wp.sums)
+                cu.cg_p(ck, wk, iv, z, tol2, mx)
+                cu.cg_p(ck2, wk2, iv, z, tol2, mx)
+                cu.cg_p_plain(cp, wp, iv, z, tol2, mx)
+                torch.cuda.synchronize()
+                ok &= all(torch.equal(a, b) for a, b in zip(ck, ck2))
+                ok &= all(torch.equal(a, b) for a, b in zip(ck[3:], cp[3:]))
+                zp = z if z is not None else (ck[1] if iv is None else iv * ck[1])
+                beta = (wp.sums[1] / carry[3]).abs()
+                ok &= close(ck[2], cp[2], beta * carry[2].abs() + zp.abs())
+                ok &= int(ck[5]) == 5 + active
+                if not active:
+                    ok &= torch.equal(ck[2], carry[2])
+                worst, cases = max(worst, *errs), cases + 1
+                if not ok:
+                    fail(f"F-2 disagrees with its plain version at {label} n={n} ({_dk(dtype)} "
+                         f"{form} {mask}): max|kernel - plain| of x, r, p {max(errs)!r}")
+        if not f32:
+            rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+        phase(ph, f"F-2 {_dk(dtype)} at {label} n={n}: {cases} cases (Jacobi, identity, read "
+              f"forms; unmasked, active, masked off by tol2 and by max_iters), max|kernel - "
+              f"plain| of x, r, p {worst!r}; each within the tolerance, two launches the same "
+              f"bits, nothing written where masked off")
+
+
+def f2_phase(dev, card, records, inv, bound_of, loop_us, main_launches):
+    """F-2 at the aniso Jacobi system (``inv``: its Jacobi vector): the
+    per-phase check of :func:`f2_check`, then device µs a call of each phase,
+    of its plain version and of the eager PyTorch sequence F-2 replaces
+    (``cg_update.eager_step``), in a replayed graph of 20
+    (``utils.timer.graph_us``) and from the host (``loop_us``, CUDA events),
+    beside the bound.  Records ``cg_update_f64`` with
+    ``main_launches``, the launches of the aniso Jacobi solve."""
+    import numpy as np
+    import torch
+
+    from spmv_acc_tpu_torch.ops import cg_update as cu
+    from spmv_acc_tpu_torch.utils.timer import graph_us
+
+    n = inv.numel()
+    f2_check(dev, records, "solver", "aniso", n, inv)
+    # device µs a launch at the aniso Jacobi shape, L2-warm as in the CG loop
+    rng = np.random.default_rng(1)
+    carry = tuple(torch.from_numpy(rng.uniform(-1, 1, n)).to(dev) for _ in range(3)) + (
+        torch.tensor(1.0, dtype=torch.float64, device=dev),
+        torch.tensor(1.0, dtype=torch.float64, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev))
+    ap = torch.from_numpy(rng.uniform(-1, 1, n)).to(dev)
+    tol2 = torch.tensor(0.0, dtype=torch.float64, device=dev)
+    mx = torch.tensor(1 << 60, dtype=torch.int64, device=dev)
+    work = cu.Work(carry[0])
+    phases = {"cg_dot": (lambda: cu.cg_dot(carry[2], ap, work, cu.PAP),
+                         lambda: cu.cg_dot_plain(carry[2], ap, work, cu.PAP)),
+              "cg_xr": (lambda: cu.cg_xr(carry, ap, work, inv, True, tol2, mx),
+                        lambda: cu.cg_xr_plain(carry, ap, work, inv, True, tol2, mx)),
+              "cg_p": (lambda: cu.cg_p(carry, work, inv, None, tol2, mx),
+                       lambda: cu.cg_p_plain(carry, work, inv, None, tol2, mx))}
+    times = {}
+    for name, (kern, plain) in phases.items():
+        work.sums.fill_(1e30)  # alpha ~ 0: x and r stay put over the repeats
+        times[name] = (graph_us(kern), graph_us(plain), graph_us(kern), loop_us(kern))
+
+    def eager_seq():
+        return cu.eager_step(carry, ap, lambda r: inv * r, tol2, mx)
+
+    t_eager, t_eager_host = graph_us(eager_seq), loop_us(eager_seq)
+    k_us = sum((t[0] + t[2]) / 2 for t in times.values())
+    p_us = sum(t[1] for t in times.values())
+    nbytes = 8 * 8 * n  # p, Ap, x, r, inv read once; x, r, p written once
+    b = bound_of(nbytes, 14 * n, FP64_TFLOPS)
+    records["cg_update_f64"].update({"launches": main_launches, "ms": k_us / 1e3,
+                                     "plain_ms": p_us / 1e3, "library_ms": None, **b})
+    phase("solver", f"F-2 f64 n={n} Jacobi, device us a call in a replayed graph of 20: " + "; ".join(
+        f"{k} kernel {t[0]!r} / {t[2]!r} (host-launched loop of 20: {t[3]!r}), plain {t[1]!r}"
+        for k, t in times.items())
+        + f"; an iteration's three kernels {k_us!r} us against the plain phases {p_us!r} us and "
+        f"the eager PyTorch sequence F-2 replaces {t_eager!r} us ({t_eager_host!r} us "
+        f"host-launched); bound {b['bound_ms'] * 1e3!r} us by {b['bound_by']} ({nbytes} B: 8 "
+        f"vectors); no single PyTorch call computes it; card: {card}")
 
 
 def main() -> int:
@@ -1650,6 +1850,7 @@ def smoke(plan_dir: str) -> int:
     # (bench.py bench_solver, bench_solver_aniso)
     from spmv_acc_tpu_torch.cli.solve import spdize
     from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve, jacobi_preconditioner
+    from spmv_acc_tpu_torch.ops import cg_update
     from spmv_acc_tpu_torch.ops import trisolve as tri
 
     def solved(label, res, x_true, b_norm, tol, max_iters, gate=None):
@@ -1828,8 +2029,11 @@ def smoke(plan_dir: str) -> int:
     gb = host_spmv(1.0, 0.0, grp2, gci2, gv2, x_true, np.zeros(gm))
     dgb, gb_norm = torch.from_numpy(gb).to(dev), float(np.linalg.norm(gb))
     g_launches = {}
-    for label, pre in (("jacobi", jacobi_preconditioner(gcsr)), ("ilu", gfact)):
+    gjac = jacobi_preconditioner(gcsr)
+    f2_check(dev, records, "solver", "Ga41As41H72-SPD", gm, gjac.inv)
+    for label, pre in (("jacobi", gjac), ("ilu", gfact)):
         swell.LAUNCHES.clear()
+        cg_update.LAUNCHES.clear()
         box = []
         secs, mem = first_call(lambda: box.append(cg_solve(
             gcsr, dgb, tol=1e-8, max_iters=300, strategy="swell", precond=pre)))
@@ -1841,6 +2045,8 @@ def smoke(plan_dir: str) -> int:
         if launches < res.iters:
             fail(f"Ga41As41H72-SPD cg[{label}] launched the swell kernel {launches} times "
                  f"in {res.iters} iterations")
+        phase("solver", f"Ga41As41H72-SPD cg[{label}]: F-2 launches " + repr(f2_launches(
+            cg_update, f"Ga41As41H72-SPD cg[{label}]", res.iters, general=label == "ilu")))
         captured_vs_eager("Ga41As41H72-SPD", label, glay, pre, dgb, 300, res)
     # the ILU-preconditioned solve is the solver path's record
     records["swell_solver_f64"]["launches"] = g_launches["ilu"]
@@ -1866,8 +2072,10 @@ def smoke(plan_dir: str) -> int:
     compare(f"aniso {nx}^2 r={alay.r} slots={alay.slots}", acsr, axs.cpu().numpy(), a, p,
             "solver")
     aiters, aper = {}, {}
+    f2_main = 0
     for label, pre in (("jacobi", ajac), ("ilu", afact)):
         swell.LAUNCHES.clear()
+        cg_update.LAUNCHES.clear()
         box = []
         secs, mem = first_call(lambda: box.append(cg_solve(
             acsr, ab, tol=1e-8, max_iters=4000, strategy="swell", precond=pre)))
@@ -1877,9 +2085,26 @@ def smoke(plan_dir: str) -> int:
                f"{dict(swell.LAUNCHES)})", res, ax_true, ab_norm, 1e-8, 4000)
         if launches_of(swell, "f64") < res.iters:
             fail(f"aniso cg[{label}] launched the swell kernel fewer times than it iterated")
+        f2 = f2_launches(cg_update, f"aniso cg[{label}]", res.iters, general=label == "ilu")
+        phase("solver", f"aniso cg[{label}]: F-2 launches {f2} in {res.iters} iterations")
+        if label == "jacobi":  # F-2's main path: the record's launches
+            f2_main = sum(f2.values())
         aiters[label] = res.iters
         aper[label] = captured_vs_eager(f"aniso {nx}^2", label, alay, pre, ab, 4000, res)
 
+    f2_phase(dev, card, records, ajac.inv, bound_of, loop_us, f2_main)
+    # the bench's solver section as the bench runs it (its timed_cg on F-2)
+    from spmv_acc_tpu_torch import bench as port_bench
+
+    cg_update.LAUNCHES.clear()
+    blog = io.StringIO()
+    bsol = port_bench.bench_solver_aniso(blog, dev)
+    for ln in blog.getvalue().splitlines():
+        phase("solver", f"bench_solver_aniso: {ln.strip()}")
+    bit = (bsol["solver_aniso_cg_iters_jacobi"], bsol["solver_aniso_cg_iters_ilu"])
+    phase("solver", f"bench_solver_aniso: {bsol}; F-2 launches {dict(cg_update.LAUNCHES)}")
+    if bit != (aiters["jacobi"], aiters["ilu"]) or cg_update.LAUNCHES[("f64", "xr")] < sum(bit):
+        fail("the bench's solver section left cg_solve's iterations or did not run F-2")
     per_j, per_i = aper["jacobi"], aper["ilu"]
     win = (aiters["jacobi"] * per_j) / (aiters["ilu"] * per_i)
     exact = tri.ILU0(afact.l_plan, afact.u_plan, sweeps=0)
@@ -1930,17 +2155,22 @@ def smoke(plan_dir: str) -> int:
     # 7g. spmv-solve on af23560, Jacobi and ILU(0)
     from spmv_acc_tpu_torch.cli.solve import main as solve_main
 
+    f2_check(dev, records, "solve-cli", "af23560", af.rows)
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "af23560.bin2")
         write_bin2(path, *af.to_numpy())
         for pre in ("jacobi", "ilu0"):
             buf = io.StringIO()
+            cg_update.LAUNCHES.clear()
             with contextlib.redirect_stdout(buf):
                 rc = solve_main([path, "-f", "bin2", "--precond", pre])
             for ln in buf.getvalue().splitlines():
                 phase("solve-cli", ln)
             if rc != 0 or "Congratulation, solution verified!" not in buf.getvalue():
                 fail(f"spmv-solve --precond {pre} returned {rc}")
+            its = int(re.search(r"iters=(\d+)", buf.getvalue()).group(1))
+            phase("solve-cli", f"--precond {pre}: F-2 launches " + repr(f2_launches(
+                cg_update, f"spmv-solve --precond {pre}", its, general=pre == "ilu0")))
 
     # 7h. SpGEMM: A @ A on the JAX bench's three matrices (bench.py:300-341), the
     # symbolic phase on the host and the numeric phase (plain PyTorch: a gather
@@ -2334,7 +2564,9 @@ def smoke(plan_dir: str) -> int:
             ("plane_split_f64", "plane_split.cu", "spmv_acc_tpu/ops/swell.py:2197"),
             ("swell_planes_f64", "swell_spmv.cu", "spmv_acc_tpu/ops/swell.py:455"),
             # F-1 replaces no pallas_call: XLA's fusion of _swell_power_run's body
-            ("feedback_f64", "feedback.cu", "spmv_acc_tpu/ops/swell.py:2681")):
+            ("feedback_f64", "feedback.cu", "spmv_acc_tpu/ops/swell.py:2681"),
+            # F-2 neither: XLA's fusions of _cg_loop's body
+            ("cg_update_f64", "cg_update.cu", "spmv_acc_tpu/models/cg.py:74")):
         rec = records[name]
         if set(rec) != keys or rec["launches"] < 1:
             fail(f"{name} was not launched on the main path or not timed")

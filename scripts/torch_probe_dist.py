@@ -33,7 +33,7 @@ Alone it joins a one-rank NCCL group through a rendezvous file under
   ``torch.use_deterministic_algorithms`` (``index_add_`` without atomics),
   so that the captured loop can be held to the eager one bit for bit.  At
   world size 1 also **cg single**, ``cg_solve``'s loop on the whole matrix
-  (``swell_ax``, ``torch.dot``).
+  (``swell_ax``, one device's sums).
 * **solve swell** and **solve gather** (section `solves`): ``dist_swell_cg_solve`` and
   ``dist_cg_solve`` as called at tol 1e-8, twice with every iteration plain
   and twice captured (``CG_EAGER_ITERS`` = 0; the second call reuses
@@ -95,7 +95,7 @@ def main(argv=None) -> int:
     from spmv_acc_tpu_torch.models import cg
     from spmv_acc_tpu_torch.ops import _build, swell
     from spmv_acc_tpu_torch.parallel import pad_vector, partition_rows
-    from spmv_acc_tpu_torch.parallel.dist_spmv import (all_reduced_dot, dist_spmv_fn,
+    from spmv_acc_tpu_torch.parallel.dist_spmv import (all_reduced_sum, dist_spmv_fn,
                                                        dist_spmv_halo_fn, halo_feasible,
                                                        make_mesh, shard_partitioned)
     from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_cg_solve,
@@ -200,7 +200,7 @@ def main(argv=None) -> int:
         b = torch.from_numpy(np.random.default_rng(7).uniform(-1, 1, spd.rows)).to(dev)
         mesh = make_mesh(world)
         group = mesh.get_group()
-        dot = all_reduced_dot(mesh)
+        reduce = all_reduced_sum(mesh)
         dsp = build_dist_swell(spd, world, mesh=mesh)
         L = dsp.rows_local
         part = shard_partitioned(partition_rows(host, world, balance=False), mesh)
@@ -213,13 +213,13 @@ def main(argv=None) -> int:
         def gather(v):
             return sp(part.values, part.col_idx_padded, part.row_ids, v)
 
-        loops = [("cg swell", dist_swell_spmv_fn(dsp, mesh), dot,
+        loops = [("cg swell", dist_swell_spmv_fn(dsp, mesh), reduce,
                   pad_global(dsp, b)[rank * L: (rank + 1) * L].contiguous()),
-                 ("cg gather", gather, dot, b_pad)]
+                 ("cg gather", gather, reduce, b_pad)]
         if world == 1:
             whole = swell.get_swell_plan(spd)
-            loops.append(("cg single", lambda v: swell.swell_ax(whole, v), torch.dot, b))
-        loops.append(("cg gather, deterministic", gather, dot, b_pad))
+            loops.append(("cg single", lambda v: swell.swell_ax(whole, v), None, b))
+        loops.append(("cg gather, deterministic", gather, reduce, b_pad))
 
         saved = cg.CG_EAGER_ITERS
         for label in ("solve swell", "solve gather") if "solves" in sections else ():
@@ -247,7 +247,7 @@ def main(argv=None) -> int:
         for label, matvec, dt, bb in loops if "cg" in sections else ():
             note(label)
             torch.use_deterministic_algorithms(label.endswith("deterministic"), warn_only=True)
-            blocks = cg.CGBlocks(matvec, None, bb, dot=dt, eager_iters=0)
+            blocks = cg.CGBlocks(matvec, None, bb, reduce=dt, eager_iters=0)
 
             def trips(k, captured, matvec=matvec, dt=dt, bb=bb, blocks=blocks, aligned=True):
                 if aligned:

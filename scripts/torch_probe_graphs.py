@@ -6,6 +6,7 @@ they replace, on one card.
     python3 scripts/torch_probe_graphs.py corpus [NAME ...] [--out FILE]
     python3 scripts/torch_probe_graphs.py check [NAME ...] [--out FILE]
     python3 scripts/torch_probe_graphs.py solve [--out FILE]
+    python3 scripts/torch_probe_graphs.py iteration [--root DIR] [--label L] [--out FILE]
 
 ``tune`` holds F-1 (``ops/feedback.py``, the chain's feedback kernel)
 against its plain version (float64 and float32; SpMV square and
@@ -47,6 +48,33 @@ af23560 and dw4096 (Jacobi, ``ilu0``): wall seconds and iterations.  Where ``mod
 ``CGBlocks`` captured from the first iteration, its first solve against its
 second, beside the eager loop's seconds an iteration.
 
+``iteration`` times a CG iteration of the tree at ``--root`` (default: this
+one; an unpacked ``git archive`` of another commit to compare two: run it
+once a tree, in turns, in one call, each line tagged ``--label``).  Only
+entry points both trees have are called:
+
+* **aniso jacobi** and **aniso ilu** (``--nx``^2 anisotropic diffusion,
+  512^2 by default, ILU with 3 sweeps on the swell kernel): ``cg_solve`` as called at tol 1e-8
+  (iterations, wall seconds, the first call with its capture), and
+  ``CGBlocks`` captured from the first iteration at tol 0: µs an iteration
+  as the bench's ``timed_cg`` takes it (``bench._slope_us`` over fixed trips
+  of 65 and 513), the eager loop (``_cg_loop``) the same way, and in a
+  profiled captured solve of 64 iterations the device µs an iteration by
+  kernel (``torch.profiler``) and the kernels launched an iteration;
+* **f2** (a tree with ``ops/cg_update.py`` only): each F-2 phase alone at
+  the aniso system's n (Jacobi form) and at ``--dist-rows`` (identity): device
+  µs a call in a loop of 20 (L2-warm, as in the CG loop), in a replayed
+  graph of 20 (``utils.timer.graph_us``) and after a 256 MB write (from
+  HBM, the median of 21), its plain version's, and the eager PyTorch
+  sequence F-2 replaces (``cg_update.eager_step``) host-launched and in a
+  graph, beside the bound (the vectors the iteration must read and write
+  once, over 3352.32 GB/s);
+* **dist swell**: ``dist_swell_cg_solve`` at world size 1 (an NCCL group
+  joined through a file under ``build/``) on the dry run's SPD recipe at
+  ``--dist-rows`` rows as called at tol 1e-8, and its ``dist_cg_blocks``
+  captured from the first iteration at tol 0: µs an iteration over fixed
+  trips of 9 and 73, and the profiled split.
+
 Every line is one JSON object (also appended to ``--out``); the last line is
 the card's name and power limit.
 """
@@ -61,13 +89,12 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 PEAK_GBS = 3352.32  # H100 SXM HBM3 (utils.stats.chip_peak_gbs)
 OUT = None
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # the tree imported
 
 
 def emit(rec: dict) -> None:
@@ -210,7 +237,7 @@ def solver_systems(dev):
     solver workloads."""
     from spmv_acc_tpu_torch.cli.solve import spdize
     from spmv_acc_tpu_torch.formats.containers import CSR
-    from spmv_acc_tpu_torch.formats.generate import aniso_laplacian_csr, example_like
+    from spmv_acc_tpu_torch.formats.generate import example_like
     from spmv_acc_tpu_torch.models.cg import jacobi_preconditioner
     from spmv_acc_tpu_torch.ops.golden import host_spmv
     from spmv_acc_tpu_torch.ops.trisolve import ilu0
@@ -222,13 +249,24 @@ def solver_systems(dev):
     gb = torch.from_numpy(host_spmv(1.0, 0.0, rp2, ci2, v2, x_true, np.zeros(m))).to(dev)
     yield ("Ga41As41H72-SPD", ga, gb, 300,
            {"jacobi": jacobi_preconditioner(ga), "ilu": ilu0(ga, sweeps=3)})
-    host = aniso_laplacian_csr(512, 512, 1e-4)
+    yield aniso_system(dev)
+
+
+def aniso_system(dev, nx=512):
+    """The bench's aniso solver workload (nx^2 anisotropic diffusion, eps
+    1e-4, b from x_true of seed 5), as ``solver_systems`` yields it."""
+    from spmv_acc_tpu_torch.formats.generate import aniso_laplacian_csr
+    from spmv_acc_tpu_torch.models.cg import jacobi_preconditioner
+    from spmv_acc_tpu_torch.ops.golden import host_spmv
+    from spmv_acc_tpu_torch.ops.trisolve import ilu0
+
+    host = aniso_laplacian_csr(nx, nx, 1e-4)
     an = host.to(dev)
     arp, aci, av, (am, _) = host.to_numpy()
     ax_true = np.random.default_rng(5).standard_normal(am)
     ab = torch.from_numpy(host_spmv(1.0, 0.0, arp, aci, av, ax_true, np.zeros(am))).to(dev)
-    yield ("aniso 512^2", an, ab, 4000,
-           {"jacobi": jacobi_preconditioner(an), "ilu": ilu0(an, sweeps=3)})
+    return (f"aniso {nx}^2", an, ab, 4000,
+            {"jacobi": jacobi_preconditioner(an), "ilu": ilu0(an, sweeps=3)})
 
 
 def solve_wall(fn):
@@ -506,7 +544,6 @@ def solve(dev, card):
             emit({**rec, "card": card})
             torch.cuda.empty_cache()
         swell.clear_swell_cache()
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with tempfile.TemporaryDirectory() as td:
         for name in ("Ga41As41H72", "af23560", "dw4096"):
             path = os.path.join(td, f"{name}.bin2")
@@ -514,7 +551,7 @@ def solve(dev, card):
             for pre in ("jacobi", "ilu0"):
                 t0 = time.perf_counter()
                 out = subprocess.run([sys.executable, "-m", "spmv_acc_tpu_torch.cli.solve", path,
-                                      "-f", "bin2", "--precond", pre], cwd=root,
+                                      "-f", "bin2", "--precond", pre], cwd=ROOT,
                                      capture_output=True, text=True)
                 wall = time.perf_counter() - t0
                 lines = out.stdout.strip().splitlines()
@@ -523,18 +560,221 @@ def solve(dev, card):
                       "card": card})
 
 
+def split_us(run, iters):
+    """Device µs an iteration by kernel in one profiled ``run()`` of ``iters``
+    iterations (after one unprofiled run), the kernels launched an
+    iteration, and the busy µs an iteration outside NCCL's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(on_dev, key=lambda e: e.self_device_time_total, reverse=True)
+    nccl = sum(e.self_device_time_total for e in on_dev if "nccl" in e.key.lower())
+    return {"busy us": (sum(e.self_device_time_total for e in on_dev) - nccl) / iters,
+            "nccl kernels us": nccl / iters,
+            "launches": sum(e.count for e in on_dev) / iters,
+            "by kernel (us, launches an iteration)": {
+                e.key[:90]: [e.self_device_time_total / iters, e.count / iters]
+                for e in top[:12]}}
+
+
+def events_us(fn, n=20):
+    """Device µs a call of ``fn`` in a host-launched loop of ``n`` (CUDA
+    events; the middle of three loops)."""
+    fn()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(n):
+            fn()
+        t1.record()
+        t1.synchronize()
+        got.append(t0.elapsed_time(t1) * 1e3 / n)
+    return sorted(got)[1]
+
+
+def guarded(label, fn, tag):
+    """Run one section; a failure is recorded and the next section runs."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001  (recorded in the output)
+        import traceback
+
+        emit({"probe": "iteration", "label": tag, "loop": label,
+              "error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()[-3000:]})
+
+
+def iteration(dev, card, tag, dist_rows, nx):
+    import shutil
+    import tempfile
+
+    from spmv_acc_tpu_torch import bench
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import _build, swell
+
+    def out(rec):
+        emit({"probe": "iteration", "label": tag, **rec, "card": card})
+
+    _build.build_all()
+    system, csr, b, _, pres = aniso_system(dev, nx)
+    x0 = torch.zeros_like(b)
+    layout = swell.get_swell_plan(csr)
+
+    def mv(v):
+        return swell.swell_ax(layout, v)
+
+    def aniso(name, pre):
+        first, res = solve_wall(lambda: cg.cg_solve(csr, b, tol=1e-8, max_iters=4000,
+                                                    strategy="swell", precond=pre))
+        again, res2 = solve_wall(lambda: cg.cg_solve(csr, b, tol=1e-8, max_iters=4000,
+                                                     strategy="swell", precond=pre))
+        M = pre.solve if name == "ilu" else pre
+        solver = cg.CGBlocks(mv, M, b, eager_iters=0)
+        captured = [bench._slope_us(lambda n: solver.solve(b, x0, 0.0, n).residual_norm, 65, 513,
+                                    dev) for _ in range(3)]
+        eager = [bench._slope_us(lambda n: cg._cg_loop(mv, M, b, x0, 0.0, n).residual_norm,
+                                 65, 513, dev) for _ in range(2)]
+        out({"loop": f"{system} {name}", "iters": [res.iters, res2.iters],
+             "solve s (first call, capture included)": first, "solve s again": again,
+             "captured us an iteration": captured, "eager us an iteration": eager,
+             "captured split": split_us(lambda: solver.solve(b, x0, 0.0, 64), 64)})
+
+    guarded("aniso jacobi", lambda: aniso("jacobi", pres["jacobi"]), tag)
+    guarded("aniso ilu", lambda: aniso("ilu", pres["ilu"]), tag)
+
+    try:  # F-2 alone: this tree only
+        from spmv_acc_tpu_torch.ops import cg_update as cu
+        from spmv_acc_tpu_torch.utils.timer import graph_us
+    except ImportError:
+        cu = None
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def cold_us(fn, n=21):
+        fn()
+        got = []
+        for _ in range(n):
+            flush.zero_()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            got.append(t0.elapsed_time(t1) * 1e3)
+        return sorted(got)[n // 2]
+
+    def f2(nn, form):
+        rng = np.random.default_rng(nn)
+
+        def vec(lo=-1.0, hi=1.0):
+            return torch.from_numpy(rng.uniform(lo, hi, nn)).to(dev)
+
+        carry = (vec(), vec(), vec(), torch.tensor(1.0, device=dev, dtype=torch.float64),
+                 torch.tensor(1.0, device=dev, dtype=torch.float64),
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        apv, inv = vec(), (vec(0.5, 2.0) if form == "jacobi" else None)
+        work = cu.Work(carry[0])
+        tol2 = torch.tensor(0.0, dtype=torch.float64, device=dev)
+        mx = torch.tensor(1 << 60, dtype=torch.int64, device=dev)
+        phases = {
+            "cg_dot": (lambda: cu.cg_dot(carry[2], apv, work, cu.PAP),
+                       lambda: cu.cg_dot_plain(carry[2], apv, work, cu.PAP)),
+            "cg_xr": (lambda: cu.cg_xr(carry, apv, work, inv, True, tol2, mx),
+                      lambda: cu.cg_xr_plain(carry, apv, work, inv, True, tol2, mx)),
+            "cg_p": (lambda: cu.cg_p(carry, work, inv, None, tol2, mx),
+                     lambda: cu.cg_p_plain(carry, work, inv, None, tol2, mx))}
+        rec = {}
+        for ph, (kern, plain) in phases.items():
+            work.sums.fill_(1e30)  # alpha ~ 0 in cg_xr: x and r stay put over the repeats
+            rec[ph] = {"kernel us (loop of 20, L2-warm)": events_us(kern),
+                       "kernel us in a graph of 20": graph_us(kern),
+                       "kernel us from HBM": cold_us(kern),
+                       "plain us (loop of 20)": events_us(plain)}
+        M = (lambda r: r) if inv is None else (lambda r: inv * r)
+
+        def eager_seq():
+            return cu.eager_step(carry, apv, M, tol2, mx)
+
+        vecs = 8 if form == "jacobi" else 7
+        out({"loop": f"f2 {form} n={nn}", **rec,
+             "sum of the phases us (L2-warm)": sum(v["kernel us (loop of 20, L2-warm)"]
+                                                   for v in rec.values()),
+             "sum of the phases us in a graph": sum(v["kernel us in a graph of 20"]
+                                                    for v in rec.values()),
+             "eager sequence us (loop of 20, host-launched)": events_us(eager_seq),
+             "eager sequence us in a graph of 20": graph_us(eager_seq),
+             "bound us": vecs * 8 * nn / (PEAK_GBS * 1e9) * 1e6, "bound vectors": vecs})
+
+    if cu is not None:
+        guarded("f2 jacobi", lambda: f2(csr.rows, "jacobi"), tag)
+        guarded("f2 identity", lambda: f2(dist_rows, "identity"), tag)
+    del flush
+
+    from spmv_acc_tpu_torch.dryrun import _spd_fem
+    from spmv_acc_tpu_torch.parallel.dist_spmv import make_mesh
+    from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_cg_solve,
+                                                        dist_swell_spmv_fn, pad_global)
+    from spmv_acc_tpu_torch.parallel.multihost import init_distributed, shutdown_distributed
+
+    def dist_swell():
+        spd = _spd_fem(dist_rows, np.float64)[3].to(dev)
+        bd = torch.from_numpy(np.random.default_rng(7).uniform(-1, 1, spd.rows)).to(dev)
+        mesh = make_mesh(1)
+        first, res = solve_wall(lambda: dist_swell_cg_solve(spd, bd, mesh, tol=1e-8,
+                                                            max_iters=400)[0])
+        dsp = build_dist_swell(spd, 1, mesh=mesh)
+        bl = pad_global(dsp, bd)[: dsp.rows_local].contiguous()
+        solver = cg.dist_cg_blocks(dist_swell_spmv_fn(dsp, mesh), bl, mesh)
+        solver.eager_iters = 0
+        xz = torch.zeros_like(bl)
+        captured = [bench._slope_us(lambda n: solver.solve(bl, xz, 0.0, n).residual_norm, 9, 73,
+                                    dev) for _ in range(3)]
+        out({"loop": f"dist swell m={dist_rows} world size 1", "iters": res.iters,
+             "residual / |b|": float(res.residual_norm) / float(bd.norm()),
+             "solve s (first call, capture included)": first,
+             "captured us an iteration": captured,
+             "captured split": split_us(lambda: solver.solve(bl, xz, 0.0, 64), 64)})
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    td = tempfile.mkdtemp(prefix="probe_iteration_", dir=_build.BUILD_DIR)
+    init_distributed(coordinator_address="file://" + os.path.join(td, "rendezvous"),
+                     num_processes=1, process_id=0, device="cuda")
+    try:
+        guarded("dist swell", dist_swell, tag)
+    finally:
+        gc.collect()  # the solver's graphs hold NCCL collectives: free them first
+        shutdown_distributed()
+        shutil.rmtree(td, ignore_errors=True)
+
+
 def main(argv=None) -> int:
-    global OUT
+    global OUT, ROOT
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("mode", choices=["tune", "corpus", "check", "solve"])
+    p.add_argument("mode", choices=["tune", "corpus", "check", "solve", "iteration"])
     p.add_argument("names", nargs="*")
     p.add_argument("--out", default=None)
+    p.add_argument("--root", default=ROOT, help="the tree whose spmv_acc_tpu_torch is imported")
+    p.add_argument("--label", default="", help="tags the lines of `iteration`")
+    p.add_argument("--dist-rows", type=int, default=1_048_576)
+    p.add_argument("--nx", type=int, default=512, help="the aniso grid of `iteration`")
     args = p.parse_args(argv)
-    OUT = args.out
+    OUT, ROOT = args.out, os.path.abspath(args.root)
+    sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    import spmv_acc_tpu_torch
     from spmv_acc_tpu_torch import bench
+
+    if not spmv_acc_tpu_torch.__file__.startswith(ROOT + os.sep):
+        print(f"imported {spmv_acc_tpu_torch.__file__}, not from {ROOT}", file=sys.stderr)
+        return 2
 
     dev = torch.device("cuda")
     card = card_text()
@@ -546,6 +786,8 @@ def main(argv=None) -> int:
         check(args.names or bench.LARGE + bench.SMALL, dev, card)
     elif args.mode == "solve":
         solve(dev, card)
+    elif args.mode == "iteration":
+        iteration(dev, card, args.label, args.dist_rows, args.nx)
     else:
         corpus(args.names or bench.LARGE + bench.SMALL, dev, card)
         if not args.names:

@@ -26,7 +26,8 @@ weak scaling; ``dryrun``) runs on ``torch.distributed`` with one process per
 device: NCCL on the cards, gloo on the CPU.  The hot loops (the bench's
 chains, ``utils.time_device_loop``, ``cg_solve``) run on a card as captured
 CUDA graphs (``utils.graphs``), the chain's feedback in one kernel
-(``csrc/feedback.cu``), as the JAX package runs each as one device program.
+(``csrc/feedback.cu``) and each CG iteration's vector work in three
+(``csrc/cg_update.cu``), as the JAX package runs each as one device program.
 The entry points are
 ``entry`` (the flagship swell step with example arguments) and
 ``dryrun_multichip``; ``python -m spmv_acc_tpu_torch.bench`` is the benchmark.

@@ -458,7 +458,7 @@ def bench_solver_aniso(log, device="cuda") -> dict:
     ``solver_total_wall_win`` =
     (iters_j * per_j) / (iters_i * per_i)."""
     from .formats.generate import aniso_laplacian_csr
-    from .models.cg import CGBlocks, cg_solve, jacobi_preconditioner
+    from .models.cg import CGBlocks, Jacobi, cg_solve, jacobi_preconditioner
     from .ops.trisolve import ilu0
 
     dev = torch.device(device)
@@ -491,7 +491,7 @@ def bench_solver_aniso(log, device="cuda") -> dict:
 
         return _slope_us(run, *ANISO_TRIPS, dev)
 
-    per_j = timed_cg(lambda r: diag_inv * r)
+    per_j = timed_cg(Jacobi(diag_inv))
     per_i = timed_cg(fact.solve)  # the sweeps on the swell kernel where ilu0 backed them
     win = (it_j * per_j) / (it_i * per_i) if it_i * per_i > 0 else 0.0
     print(f"  solver aniso-{nx}^2 eps={eps}: cg iters jacobi={it_j} "

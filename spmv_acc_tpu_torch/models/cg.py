@@ -4,22 +4,34 @@ Counterpart of ``spmv_acc_tpu/models/cg.py``'s single-device ``cg_solve``:
 textbook preconditioned CG with the same stopping test, the residual
 ``dot(r, r) > tol^2 * max(dot(b, b), 1e-300)`` checked before every
 iteration, and the same iteration count.  The JAX package runs the loop as a
-``lax.while_loop`` on the device.  Here ``cg_solve`` runs its first
-``CG_EAGER_ITERS`` iterations as the plain loop (``_cg_loop``'s, the stop test
-read on the host before each), and what is left in blocks of ``CG_BLOCK``
-masked iterations: each computes ``active = dot(r, r) > tol2 and it <
-max_iters`` on the device, takes the new x, r, z, p and rz where active and
-keeps the old ones where not, and adds ``active`` to a device iteration
-count, so a block's launches do not depend on any value.  On the card a block
-is a captured CUDA graph (``utils.graphs.Loop``) and the host reads one flag
-after each block; on the CPU the same block runs eagerly.  A short solve thus
-pays no capture, and a long one pays it once.  Once the solve has converged a
-masked iteration changes nothing, so the iterations and x are the plain
-loop's, bit for bit.  Dot products are ``torch.dot``
-(the JAX package's ``_vdot`` works around a TPU cost of f64 dots).
+``lax.while_loop`` on the device, and XLA fuses the body's vector work
+around the matvec into a few kernels.  Here every iteration is the matvec
+and F-2's three phases (``ops/cg_update.py``, the kernel of
+``csrc/cg_update.cu`` on a card): ``cg_dot`` (p·Ap), ``cg_xr`` (x and r in
+place, and the sums r·z and r·r of the new r) and ``cg_p`` (p in place, then
+rz, rr and the count); where M is the identity or Jacobi (:class:`Jacobi`)
+the kernels form z = inv * r themselves, any other preconditioner is applied
+between ``cg_xr`` and ``cg_p`` with ``cg_dot(r, z)`` after it.  The carry is
+``(x, r, p, rz, rr, it)``: the stop test reads the ``rr`` that ``cg_xr``
+summed (the JAX ``cond`` sums ``dot(r, r)`` of the same r again), and z, a
+function of r, is not carried.
+
+``cg_solve`` runs its first ``CG_EAGER_ITERS`` iterations as the plain loop
+(``_cg_loop``'s, the stop test read on the host before each), and what is
+left in blocks of ``CG_BLOCK`` masked iterations: each phase reads ``active
+= rr > tol2 and it < max_iters`` on the device and writes nothing where it
+is false, and ``cg_p`` adds the iteration to the device count, so a block's
+launches do not depend on any value.  On the card a block is a captured CUDA
+graph (``utils.graphs.Loop``) and the host reads one flag after each block;
+on the CPU the same block runs eagerly.  A short solve thus pays no capture,
+and a long one pays it once.  Once the solve has converged a masked
+iteration changes nothing, so the iterations and x are the plain loop's, bit
+for bit.
 ``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
 group (``parallel/``): each rank holds a row block of A and the same block of
-every vector, dot products are a local ``torch.dot`` and an ``all_reduce``, and
+every vector, F-2's sums are each rank's block and one ``all_reduce`` each
+time they are needed (``p·Ap`` after ``cg_dot``; ``[r·z, r·r]`` together before
+``cg_p``, as XLA's all-reduce combiner merges the JAX loop's psums), and
 the matvec takes the 1-hop halo exchange or the all-gather of x.  It runs the
 same ``CGBlocks`` (the JAX package jits its ``while_loop`` with the
 collectives inside): on the card each block is a captured graph that holds
@@ -37,9 +49,11 @@ import numpy as np
 import torch
 
 from ..formats.containers import CSR
+from ..ops import cg_update
+from ..ops.cg_update import Work
 
-__all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CGBlocks", "cg_solve", "dist_cg_solve",
-           "dist_cg_blocks", "jacobi_preconditioner"]
+__all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CGBlocks", "Jacobi", "cg_solve",
+           "dist_cg_solve", "dist_cg_blocks", "jacobi_preconditioner"]
 
 # Masked CG iterations in one block: the host reads one flag a block.  A solve
 # runs whole blocks, so up to CG_BLOCK - 1 masked iterations after convergence
@@ -65,7 +79,20 @@ class CGResult(NamedTuple):
     residual_norm: torch.Tensor  # 0-d, sqrt(dot(r, r)) of the last residual
 
 
-def jacobi_preconditioner(csr: CSR) -> Callable:
+class Jacobi:
+    """The preconditioner ``M^{-1} r = inv * r`` (``inv`` a vector; None: the
+    identity), called as ``M(r)``.  The CG step recognises it and hands
+    ``inv`` to F-2's kernels, which form z in registers; any other callable
+    is applied as it is."""
+
+    def __init__(self, inv: Optional[torch.Tensor]):
+        self.inv = inv
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return r if self.inv is None else self.inv * r
+
+
+def jacobi_preconditioner(csr: CSR) -> Jacobi:
     """M^{-1} r = r / diag(A), on ``csr``'s device (rows without a stored
     diagonal count 1)."""
     rp, ci, v, (m, _) = csr.to_numpy()
@@ -73,68 +100,82 @@ def jacobi_preconditioner(csr: CSR) -> Callable:
     rows = np.repeat(np.arange(m), np.diff(rp))
     on_diag = rows == ci
     diag[rows[on_diag]] = v[on_diag]
-    inv = torch.from_numpy(1.0 / diag).to(csr.device)
-    return lambda r: inv * r
+    return Jacobi(torch.from_numpy(1.0 / diag).to(csr.device))
 
 
-def _cg_start(matvec: Callable, M: Callable, b, x0, tol, dot: Callable):
-    """The initial carry (x, r, z, p, rz, it) and tol2, as ``_cg_loop`` forms them."""
+def _cg_start(matvec: Callable, M: Callable, b, x0, tol, reduce=None):
+    """The initial carry (x, r, p, rz, rr, it) and tol2, as ``_cg_loop`` forms
+    them (p a copy of z, so that the phases may update it in place); each dot
+    is this rank's ``torch.dot`` completed by ``reduce`` (None: one device)."""
+    def dot(a, c):
+        s = torch.dot(a, c)
+        return s if reduce is None else reduce(s)
+
     r = b - matvec(x0)
     z = M(r)
     tol_t = torch.as_tensor(tol, dtype=b.dtype, device=b.device)
     tol2 = tol_t * tol_t * torch.clamp(dot(b, b), min=1e-300)
     it = torch.zeros((), dtype=torch.int64, device=b.device)
-    return (x0.clone(), r, z, z, dot(r, z), it), tol2
+    return (x0.clone(), r, z.clone(), dot(r, z), dot(r, r), it), tol2
 
 
-def _plain_steps(matvec: Callable, M: Callable, dot: Callable, tol2, carry, limit: int):
-    """Up to ``limit`` CG iterations from ``carry``, each after the stop test
-    ``dot(r, r) > tol2`` read on the host: (the carry, the iterations run)."""
-    x, r, z, p, rz, it = carry
-    done = 0
-    while done < limit and bool(dot(r, r) > tol2):
-        ap = matvec(p)
-        alpha = rz / dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
+def _step(matvec: Callable, M: Callable, reduce, tol2, max_iters, work: Work, carry):
+    """One CG iteration on ``carry`` in place: the matvec and F-2's phases,
+    masked by ``tol2`` and ``max_iters`` (None: unmasked); ``reduce`` (None:
+    one device) completes F-2's sums in place over the ranks."""
+    x, r, p, rz, rr, it = carry
+    ap = matvec(p)
+    cg_update.cg_dot(p, ap, work, cg_update.PAP)
+    if reduce is not None:
+        reduce(work.sums[:1])
+    if isinstance(M, Jacobi):
+        cg_update.cg_xr(carry, ap, work, inv=M.inv, tol2=tol2, max_iters=max_iters)
+        z = None
+    else:
+        cg_update.cg_xr(carry, ap, work, with_rz=False, tol2=tol2, max_iters=max_iters)
         z = M(r)
-        rz_new = dot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
+        cg_update.cg_dot(r, z, work, cg_update.RZ)
+    if reduce is not None:
+        reduce(work.sums[1:])
+    cg_update.cg_p(carry, work, inv=M.inv if z is None else None, z=z, tol2=tol2,
+                   max_iters=max_iters)
+    return carry
+
+
+def _plain_steps(matvec: Callable, M: Callable, reduce, tol2, carry, limit: int):
+    """Up to ``limit`` CG iterations on ``carry`` (in place), each after the
+    stop test ``rr > tol2`` read on the host: (the carry, the iterations run)."""
+    work, rr = Work(carry[0]), carry[4]
+    done = 0
+    while done < limit and bool(rr > tol2):
+        _step(matvec, M, reduce, None, None, work, carry)
         done += 1
-    return (x, r, z, p, rz, it + done), done
+    return carry, done
 
 
 def _cg_loop(matvec: Callable, precond: Optional[Callable], b, x0, tol, max_iters: int,
-             dot: Callable = torch.dot) -> CGResult:
-    """Preconditioned CG on any ``matvec`` and ``dot``: stops when
-    ``dot(r, r) <= tol^2 * max(dot(b, b), 1e-300)`` or after ``max_iters``."""
-    M = precond if precond is not None else (lambda r: r)
-    carry, tol2 = _cg_start(matvec, M, b, x0, tol, dot)
-    (x, r, _, _, _, _), it = _plain_steps(matvec, M, dot, tol2, carry, max_iters)
-    return CGResult(x=x, iters=it, residual_norm=torch.sqrt(dot(r, r)))
+             reduce: Optional[Callable] = None) -> CGResult:
+    """Preconditioned CG on any ``matvec``, its sums completed by ``reduce``
+    (None: one device; ``parallel.dist_spmv.all_reduced_sum``: over a mesh):
+    stops when ``dot(r, r) <= tol^2 * max(dot(b, b), 1e-300)`` or after
+    ``max_iters``."""
+    M = precond if precond is not None else Jacobi(None)
+    carry, tol2 = _cg_start(matvec, M, b, x0, tol, reduce)
+    (x, _, _, _, rr, _), done = _plain_steps(matvec, M, reduce, tol2, carry, max_iters)
+    return CGResult(x=x, iters=done, residual_norm=torch.sqrt(rr))
 
 
-def _more(carry, dot, tol2, max_iters):
-    """The stop test, on the device: dot(r, r) > tol2 and it < max_iters."""
-    r, it = carry[1], carry[5]
-    return (dot(r, r) > tol2) & (it < max_iters)
+def _more(carry, tol2, max_iters):
+    """The stop test, on the device: rr > tol2 and it < max_iters."""
+    return (carry[4] > tol2) & (carry[5] < max_iters)
 
 
-def _masked_step(matvec, M, dot, tol2, max_iters, carry):
-    """One CG iteration where the stop test holds; the carry unchanged where not."""
-    x, r, z, p, rz, it = carry
-    active = _more(carry, dot, tol2, max_iters)
-    ap = matvec(p)
-    alpha = rz / dot(p, ap)
-    x_new = x + alpha * p
-    r_new = r - alpha * ap
-    z_new = M(r_new)
-    rz_new = dot(r_new, z_new)
-    p_new = z_new + (rz_new / rz) * p
-    return (torch.where(active, x_new, x), torch.where(active, r_new, r),
-            torch.where(active, z_new, z), torch.where(active, p_new, p),
-            torch.where(active, rz_new, rz), it + active)
+def _masked_step(matvec, M, reduce, tol2, max_iters, carry, work: Optional[Work] = None):
+    """One CG iteration where the stop test holds; the carry unchanged where
+    not.  Updates ``carry`` in place and returns it; ``work`` is the scratch
+    of F-2's phases (a new one when None)."""
+    return _step(matvec, M, reduce, tol2, max_iters,
+                 Work(carry[0]) if work is None else work, carry)
 
 
 class CGBlocks:
@@ -145,15 +186,15 @@ class CGBlocks:
     so a solve at tol 0 runs exactly ``max_iters``.  The graphs are captured
     at the first solve that reaches a block and kept for later solves with the
     same shapes (``tol`` and ``max_iters`` live in device buffers).  Where
-    ``matvec`` or ``dot`` issue ``torch.distributed`` collectives, every rank
-    of their group solves with the same arguments (``utils.graphs.Loop``)."""
+    ``reduce`` sums over a mesh (``dist_cg_blocks``), every rank of its group
+    solves with the same arguments (``utils.graphs.Loop``)."""
 
     def __init__(self, matvec: Callable, precond: Optional[Callable], b: torch.Tensor,
-                 block: int = CG_BLOCK, dot: Callable = torch.dot,
+                 block: int = CG_BLOCK, reduce: Optional[Callable] = None,
                  eager_iters: int = CG_EAGER_ITERS):
         self.matvec = matvec
-        self.M = precond if precond is not None else (lambda r: r)
-        self.dot = dot
+        self.M = precond if precond is not None else Jacobi(None)
+        self.reduce = reduce
         self.block = block
         self.eager_iters = eager_iters
         self.tol2 = torch.zeros((), dtype=b.dtype, device=b.device)
@@ -163,29 +204,29 @@ class CGBlocks:
     def solve(self, b: torch.Tensor, x0: torch.Tensor, tol, max_iters: int) -> CGResult:
         from ..utils.graphs import Loop
 
-        carry, tol2 = _cg_start(self.matvec, self.M, b, x0, tol, self.dot)
+        carry, tol2 = _cg_start(self.matvec, self.M, b, x0, tol, self.reduce)
         limit = min(self.eager_iters, max_iters)
-        carry, done = _plain_steps(self.matvec, self.M, self.dot, tol2, carry, limit)
+        carry, done = _plain_steps(self.matvec, self.M, self.reduce, tol2, carry, limit)
         if done < limit:  # converged
-            x, r, _, _, _, it = carry
-            return CGResult(x=x, iters=int(it), residual_norm=torch.sqrt(self.dot(r, r)))
+            x, _, _, _, rr, it = carry
+            return CGResult(x=x, iters=int(it), residual_norm=torch.sqrt(rr))
         self.tol2.copy_(tol2)
         self.max_iters.fill_(max_iters)
         if self.loop is not None:
             self.loop.load(carry)
         # done: iterations run, masked ones included: never past max_iters
-        while done < max_iters and bool(_more(carry, self.dot, self.tol2, self.max_iters)):
+        while done < max_iters and bool(_more(carry, self.tol2, self.max_iters)):
             if self.loop is None:
                 # the step holds no reference to self: the loop's graphs go with it
-                step = functools.partial(_masked_step, self.matvec, self.M, self.dot, self.tol2,
-                                         self.max_iters)
+                step = functools.partial(_masked_step, self.matvec, self.M, self.reduce, self.tol2,
+                                         self.max_iters, work=Work(b))
                 self.loop = Loop(step, carry, unroll=self.block)
             k = min(self.block, max_iters - done)
             self.loop.advance(k)
             done += k
             carry = self.loop.carry
-        x, r, _, _, _, it = carry
-        return CGResult(x=x.clone(), iters=int(it), residual_norm=torch.sqrt(self.dot(r, r)))
+        x, _, _, _, rr, it = carry
+        return CGResult(x=x.clone(), iters=int(it), residual_norm=torch.sqrt(rr))
 
 
 def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: float = 1e-8,
@@ -230,8 +271,8 @@ def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGR
     ``(D*local_rows,)`` right-hand side (``pad_vector``); each rank takes its
     block, and the result's ``x`` is this rank's ``(local_rows,)`` block of
     the padded solution, on its device (all blocks: ``launch.gather_padded``;
-    global rows: ``unpad_vector``).  Dot products are a local ``torch.dot``
-    and an ``all_reduce``; the matvec is ``dist_spmv_halo_fn`` on
+    global rows: ``unpad_vector``).  Dot products are this rank's sums and an
+    ``all_reduce``; the matvec is ``dist_spmv_halo_fn`` on
     ``col_idx_padded`` when every shard's columns (in padded coordinates) fit
     its own block and its two neighbours', else ``dist_spmv_fn``.
 
@@ -239,7 +280,7 @@ def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGR
     iterations, then blocks of ``CG_BLOCK`` masked ones, on the card captured
     graphs with the collectives inside.  Every rank takes the same number of
     iterations, or the next collective would wait forever: the stop test
-    reads the all-reduced ``dot(r, r)``, which is the same value on every
+    reads the all-reduced ``r·r``, which is the same value on every
     rank."""
     from ..parallel.dist_spmv import (dist_spmv_fn, dist_spmv_halo_fn, halo_feasible,
                                       mesh_device, shard_partitioned)
@@ -262,9 +303,9 @@ def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGR
 
 def dist_cg_blocks(matvec: Callable, b_local: torch.Tensor, mesh) -> CGBlocks:
     """The :class:`CGBlocks` of a distributed solve on this rank's block:
-    unpreconditioned, dots all-reduced over ``mesh``, ``CG_EAGER_ITERS``
+    unpreconditioned, F-2's sums all-reduced over ``mesh``, ``CG_EAGER_ITERS``
     plain iterations, collectives in the captured blocks."""
-    from ..parallel.dist_spmv import all_reduced_dot
+    from ..parallel.dist_spmv import all_reduced_sum
 
-    return CGBlocks(matvec, None, b_local, block=CG_BLOCK, dot=all_reduced_dot(mesh),
+    return CGBlocks(matvec, None, b_local, block=CG_BLOCK, reduce=all_reduced_sum(mesh),
                     eager_iters=CG_EAGER_ITERS)

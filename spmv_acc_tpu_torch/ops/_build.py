@@ -20,7 +20,7 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "SWELL_SRC", "TILE_SRC", "ELL_SRC", "PLANE_SRC",
-           "FEEDBACK_SRC", "SOURCES",
+           "FEEDBACK_SRC", "CG_UPDATE_SRC", "SOURCES",
            "nvcc_path", "nvcc_command", "build", "build_all", "load_lib"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,6 +31,7 @@ TILE_SRC = os.path.join(CSRC_DIR, "tile_spmv.cu")
 ELL_SRC = os.path.join(CSRC_DIR, "ell_rowsum.cu")
 PLANE_SRC = os.path.join(CSRC_DIR, "plane_split.cu")
 FEEDBACK_SRC = os.path.join(CSRC_DIR, "feedback.cu")
+CG_UPDATE_SRC = os.path.join(CSRC_DIR, "cg_update.cu")
 
 _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # source -> {C entry: its argument types}; every entry returns a CUDA error code
@@ -46,6 +47,11 @@ SOURCES = {
     ELL_SRC: {"ell_rowsum": [_I32, _I32, _P, _P, _P, _P, _P, _I64, _I64, _P]},
     PLANE_SRC: {"plane_split": [_I32, _P, _P, _I64, _I64, _I64, _P]},
     FEEDBACK_SRC: {"feedback": [_I32, _I32, _P, _P, _F64, _F64, _I64, _P, _I64, _P, _P]},
+    CG_UPDATE_SRC: {
+        "cg_dot": [_I32, _P, _P, _I64, _P, _P, _P, _P],
+        "cg_xr": [_I32, _I32, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "cg_p": [_I32, _I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -31,7 +31,7 @@ from .partition import PartitionedCSR, unpad_vector
 
 __all__ = ["dist_spmv", "make_mesh", "shard_partitioned", "dist_spmv_fn",
            "dist_spmv_halo_fn", "halo_feasible", "unpad_y", "mesh_rank", "mesh_device",
-           "gather_mesh", "halo_exchanger", "all_reduced_dot"]
+           "gather_mesh", "halo_exchanger", "all_reduced_sum"]
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "x") -> DeviceMesh:
@@ -219,17 +219,17 @@ def dist_spmv_halo_fn(mesh: DeviceMesh, part: PartitionedCSR, padded: bool = Fal
     return run, x_pad
 
 
-def all_reduced_dot(mesh: DeviceMesh):
-    """``dot(a, c)``: the local ``torch.dot`` of two rank blocks summed over
-    the 1-D ``mesh`` (``all_reduce``), the same 0-d tensor on every rank."""
+def all_reduced_sum(mesh: DeviceMesh):
+    """``reduce(t)``: ``t`` (this rank's sums: a dot product, or a slice of
+    F-2's sums) summed over the 1-D ``mesh`` in place (one ``all_reduce``)
+    and returned, the same values on every rank."""
     group = mesh.get_group()
 
-    def dot(a, c):
-        s = torch.dot(a, c)
-        dist.all_reduce(s, group=group)
-        return s
+    def reduce(t):
+        dist.all_reduce(t, group=group)
+        return t
 
-    return dot
+    return reduce
 
 
 def _x_block(x, d: int, block: int, D: int, n: int, device) -> torch.Tensor:

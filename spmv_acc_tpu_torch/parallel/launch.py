@@ -138,6 +138,28 @@ def _eager_iters(n):
         cg.CG_EAGER_ITERS = saved
 
 
+@contextlib.contextmanager
+def _counted_all_reduces(on):
+    """With ``on``, ``torch.distributed.all_reduce`` counted inside, by the
+    number of elements of the floating-point tensors it sums: yields the
+    counts (a dict), else None and nothing is replaced."""
+    if not on:
+        yield None
+        return
+    real, counts = dist.all_reduce, {}
+
+    def counted(t, *args, **kwargs):
+        if t.is_floating_point():
+            counts[t.numel()] = counts.get(t.numel(), 0) + 1
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield counts
+    finally:
+        dist.all_reduce = real
+
+
 def _scaling_loop(csr, steps: int):
     from ..utils.graphs import Loop
     from .dist_spmv import make_mesh
@@ -157,14 +179,14 @@ def _scaling_loop(csr, steps: int):
 
 
 def _masked_step_without_host_reads(csr, b) -> list:
-    from ..models.cg import _cg_start, _masked_step
-    from .dist_spmv import all_reduced_dot, dist_spmv_fn, dist_spmv_halo_fn, make_mesh
+    from ..models.cg import Jacobi, _cg_start, _masked_step
+    from .dist_spmv import all_reduced_sum, dist_spmv_fn, dist_spmv_halo_fn, make_mesh
     from .dist_spmv import shard_partitioned
     from .dist_swell import build_dist_swell, dist_swell_spmv_fn, pad_global
     from .partition import pad_vector, partition_rows
 
     mesh = make_mesh(dist.get_world_size())
-    d, dot = dist.get_rank(), all_reduced_dot(mesh)
+    d, reduce = dist.get_rank(), all_reduced_sum(mesh)
     part = shard_partitioned(partition_rows(csr, mesh.size(), balance=False), mesh)
     lr = part.local_rows
     matvecs = {}
@@ -183,15 +205,17 @@ def _masked_step_without_host_reads(csr, b) -> list:
     clean = []
     for name, (matvec, b_local) in matvecs.items():
         b_local = torch.as_tensor(b_local).contiguous()
-        carry, tol2 = _cg_start(matvec, lambda r: r, b_local, torch.zeros_like(b_local), 1e-12,
-                                dot)
-        max_iters = torch.tensor(10)
-        saved = torch.Tensor.item, torch.Tensor.__bool__
-        torch.Tensor.item = torch.Tensor.__bool__ = refuse
-        try:
-            _masked_step(matvec, lambda r: r, dot, tol2, max_iters, carry)
-        finally:
-            torch.Tensor.item, torch.Tensor.__bool__ = saved
+        # the distributed solvers' M = I (z formed by F-2), then a general M
+        for M in (Jacobi(None), lambda r: r):
+            carry, tol2 = _cg_start(matvec, M, b_local, torch.zeros_like(b_local), 1e-12,
+                                    reduce)
+            max_iters = torch.tensor(10)
+            saved = torch.Tensor.item, torch.Tensor.__bool__
+            torch.Tensor.item = torch.Tensor.__bool__ = refuse
+            try:
+                _masked_step(matvec, M, reduce, tol2, max_iters, carry)
+            finally:
+                torch.Tensor.item, torch.Tensor.__bool__ = saved
         clean.append(name)
     return clean
 
@@ -208,7 +232,9 @@ def rank_cases(cases: list) -> list:
     - ``cg``: ``csr``, ``b`` (global), ``tol``, ``max_iters``: (x in global
       rows, iterations) of ``dist_cg_solve``; with ``eager_iters``,
       ``models.cg.CG_EAGER_ITERS`` is set to it around the call (``swell_cg``
-      too), so that the masked blocks run;
+      too), so that the masked blocks run; with ``count_reduces`` (both
+      kinds) a third item, the solve's ``all_reduce`` calls on float
+      tensors by their number of elements;
     - ``swell``: ``csr``, ``x``, ``halo``, ``env`` (variables set around the
       build): (y[:m], halo_ok, tail nnz) of ``dist_swell_spmv_fn``;
     - ``swell_cg``: ``csr``, ``b``, ``tol``, ``max_iters``: (x[:m], iterations)
@@ -218,8 +244,9 @@ def rank_cases(cases: list) -> list:
       ``steps`` times from ones by a ``utils.graphs.Loop`` and by a Python
       loop: (both results in global rows);
     - ``masked_step``: ``csr`` (square), ``b``: one masked CG iteration
-      (``models.cg._masked_step``) with the all-reduced dot, over the
-      all-gather and the halo ``dist_spmv`` matvec and ``dist_swell``'s,
+      (``models.cg._masked_step``, M = I and a general M) with the
+      all-reduced sums, over the all-gather and the halo ``dist_spmv``
+      matvec and ``dist_swell``'s,
       with ``torch.Tensor.item`` and ``__bool__`` raising: the names of the
       matvecs whose step ran without a host read;
     - ``context``: ``init_distributed()``'s fields, the halo_feasible of
@@ -248,11 +275,12 @@ def rank_cases(cases: list) -> list:
         elif kind == "cg":
             mesh = make_mesh(world)
             part = partition_rows(csr, world, balance=False)
-            with _eager_iters(case.get("eager_iters")):
+            with _eager_iters(case.get("eager_iters")), \
+                    _counted_all_reduces(case.get("count_reduces")) as counts:
                 res = dist_cg_solve(part, pad_vector(part, case["b"]), mesh, tol=case["tol"],
                                     max_iters=case["max_iters"])
             x = unpad_vector(part, gather_padded(res.x, mesh)).cpu().numpy()
-            out.append((x, res.iters))
+            out.append((x, res.iters) + (() if counts is None else (counts,)))
         elif kind == "swell":
             mesh = make_mesh(world)
             saved = {k: os.environ.get(k) for k in case.get("env", {})}
@@ -272,11 +300,12 @@ def rank_cases(cases: list) -> list:
             out.append((y[: csr.rows].cpu().numpy(), dsp.halo_ok, dsp.tail_nnz))
         elif kind == "swell_cg":
             mesh = make_mesh(world)
-            with _eager_iters(case.get("eager_iters")):
+            with _eager_iters(case.get("eager_iters")), \
+                    _counted_all_reduces(case.get("count_reduces")) as counts:
                 res, _ = dist_swell_cg_solve(csr, torch.from_numpy(case["b"]), mesh,
                                              tol=case["tol"], max_iters=case["max_iters"])
             x = gather_padded(res.x, mesh)[: csr.rows].cpu().numpy()
-            out.append((x, res.iters))
+            out.append((x, res.iters) + (() if counts is None else (counts,)))
         elif kind == "scaling_loop":
             out.append(_scaling_loop(csr, case["steps"]))
         elif kind == "masked_step":

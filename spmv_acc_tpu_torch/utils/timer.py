@@ -8,7 +8,8 @@ each bracketed by CUDA events.  ``time_fn`` is the JAX package's wall-clock
 ``time_fn``, synchronising the device of the result instead of
 ``jax.block_until_ready``.  ``time_device_loop`` is the JAX package's: the
 per-iteration time of a chained loop run as one device program, here the
-replays of a captured CUDA graph (``utils.graphs.Loop``).
+replays of a captured CUDA graph (``utils.graphs.Loop``).  ``graph_us`` is
+the device time of one call inside a captured graph.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 from ..config import BENCHMARK_ARRAY_SIZE, WARMUP_ITERS
 
-__all__ = ["WallTimer", "sync", "cuda_time_us", "time_fn", "time_device_loop", "least_times"]
+__all__ = ["WallTimer", "sync", "cuda_time_us", "graph_us", "time_fn", "time_device_loop",
+           "least_times"]
 
 # Rounds of runs a host-clock slope takes at most: a round whose longer loop
 # reads no slower than its shorter one (host noise above the difference, as on
@@ -71,6 +73,32 @@ def cuda_time_us(fn, warmups: int = WARMUP_ITERS, reps: int = BENCHMARK_ARRAY_SI
         t1.synchronize()
         times.append(t0.elapsed_time(t1) * 1e3)
     return statistics.median(times)
+
+
+def graph_us(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device µs a call of ``fn`` in a captured CUDA graph of ``calls`` calls,
+    over ``replays`` replays between two CUDA events after one untimed: what
+    a call costs inside a captured loop, launch gaps included, without the
+    host.  Raises when there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_us needs a CUDA device")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) * 1e3 / (replays * calls)
 
 
 def _result_devices(out) -> set:

@@ -232,10 +232,10 @@ def test_a_block_past_max_iters_is_masked(block):
     csr, b = _aniso_system()
     mv = _matvec(csr)
     solver = cg.CGBlocks(mv, None, b, block=block)
-    carry, tol2 = cg._cg_start(mv, solver.M, b, torch.zeros_like(b), 1e-14, torch.dot)
+    carry, tol2 = cg._cg_start(mv, solver.M, b, torch.zeros_like(b), 1e-14)
     solver.tol2.copy_(tol2)
     solver.max_iters.fill_(2)
-    step = functools.partial(cg._masked_step, mv, solver.M, torch.dot, solver.tol2,
+    step = functools.partial(cg._masked_step, mv, solver.M, None, solver.tol2,
                              solver.max_iters)
     loop = Loop(step, carry, unroll=block)
     loop.advance(block)

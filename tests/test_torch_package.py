@@ -935,6 +935,18 @@ def test_time_device_loop_on_card(cuda_device):
     assert per_us > 0 and torch.equal(carry, ref)
 
 
+@pytest.mark.cuda
+def test_graph_us_replays_its_calls_on_card(cuda_device):
+    """graph_us runs the function once to warm up, then replays its graph of
+    ``calls`` calls once untimed and ``replays`` times timed."""
+    from spmv_acc_tpu_torch.utils.timer import graph_us
+
+    x = torch.zeros(1 << 16, dtype=torch.float64, device=cuda_device)
+    us = graph_us(lambda: x.add_(1.0), calls=4, replays=3)
+    torch.cuda.synchronize()
+    assert us > 0 and bool((x == 1 + 4 * (1 + 3)).all())
+
+
 def _cg_system(device, n=40):
     from spmv_acc_tpu_torch.formats import aniso_laplacian_csr
     from spmv_acc_tpu_torch.ops.golden import host_spmv
@@ -1001,3 +1013,178 @@ def test_captured_cg_every_strategy_on_card(cuda_device, monkeypatch):
         got = cg_solve(csr, b, tol=1e-10, max_iters=1000, strategy=strategy)
         assert abs(got.iters - eager.iters) <= 1, strategy
         assert float((got.x - eager.x).norm() / eager.x.norm()) <= 1e-8, strategy
+
+
+# ---- F-2, the CG update (csrc/cg_update.cu) against its plain version
+
+def _cg_case(device, dtype, n, form, mask, seed):
+    """A random CG carry of n rows with M = I, Jacobi or a read z, the mask
+    none / active / inactive (rr below tol2), and the sums a phase reads."""
+    rng = np.random.default_rng(seed)
+
+    def vec(lo=-1.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, n)).to(device, dtype)
+
+    def scalar(v, dt=dtype):
+        return torch.tensor(v, dtype=dt, device=device)
+
+    carry = (vec(), vec(), vec(), scalar(rng.uniform(0.5, 2.0)), scalar(rng.uniform(0.5, 2.0)),
+             scalar(5, torch.int64))
+    ap = vec()
+    inv = vec(0.5, 2.0) if form == "jacobi" else None
+    z = vec() if form == "read" else None
+    rr = float(carry[4])
+    tol2 = {"none": None, "active": scalar(0.5 * rr), "inactive": scalar(2.0 * rr)}[mask]
+    max_iters = None if mask == "none" else scalar(100, torch.int64)
+    sums = torch.from_numpy(rng.uniform(0.5, 2.0, 3)).to(device, dtype)
+    return carry, ap, inv, z, tol2, max_iters, sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [77, 100003, 1000003])
+@pytest.mark.parametrize("form", ["identity", "jacobi", "read"])
+@pytest.mark.parametrize("mask", ["none", "active", "inactive"])
+def test_cg_update_phases_match_plain_on_card(cuda_device, dtype, n, form, mask):
+    """Each F-2 phase against its plain version from the same carry and sums,
+    at n below one block, not a multiple of it, and past the grid's cap
+    (every thread walks several elements).  Dots within 1e-12 (float64) or
+    1e-5 (float32) of sum|a_i c_i| (another summation order); x, r and p
+    within 1e-12 (|alpha||p| + |x|) elementwise, plus one ulp in float32 (the
+    same IEEE operations, given the same sums); rz, rr and it equal.
+    Inactive: nothing written.  Two launches give the same bits."""
+    from spmv_acc_tpu_torch.ops import cg_update as cu
+
+    carry, ap, inv, z, tol2, max_iters, sums = _cg_case(cuda_device, dtype, n, form, mask,
+                                                         n + len(form) + len(mask))
+    f32 = dtype == torch.float32
+    dot_tol = 1e-5 if f32 else 1e-12
+    ulp = torch.finfo(torch.float32).eps if f32 else 0.0
+    active = mask != "inactive"
+
+    def work():
+        w = cu.Work(carry[0])
+        w.sums.copy_(sums)
+        return w
+
+    def copy(c):
+        return tuple(t.clone() for t in c)
+
+    def close(got, want, scale):
+        return bool(((got - want).abs() <= 1e-12 * scale + ulp * want.abs()).all())
+
+    # cg_dot, twice
+    wk, wk2, wp = work(), work(), work()
+    cu.LAUNCHES.clear()
+    cu.cg_dot(carry[2], ap, wk, cu.PAP)
+    cu.cg_dot(carry[2], ap, wk2, cu.PAP)
+    cu.cg_dot_plain(carry[2], ap, wp, cu.PAP)
+    torch.cuda.synchronize()
+    assert cu.LAUNCHES == {(("f32" if f32 else "f64"), "dot"): 2}
+    assert torch.equal(wk.sums, wk2.sums)
+    assert abs(float(wk.sums[0] - wp.sums[0])) <= dot_tol * float((carry[2] * ap).abs().sum())
+
+    # cg_xr from the same sums, twice
+    with_rz = form != "read"
+    ck, ck2, cp = copy(carry), copy(carry), copy(carry)
+    wk, wk2, wp = work(), work(), work()
+    cu.cg_xr(ck, ap, wk, inv, with_rz, tol2, max_iters)
+    cu.cg_xr(ck2, ap, wk2, inv, with_rz, tol2, max_iters)
+    cu.cg_xr_plain(cp, ap, wp, inv, with_rz, tol2, max_iters)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ck + (wk.sums,), ck2 + (wk2.sums,)))
+    if not active:
+        assert all(torch.equal(a, b) for a, b in zip(ck + (wk.sums,), carry + (sums,)))
+    alpha = (carry[3] / sums[0]).abs()
+    assert close(ck[0], cp[0], alpha * carry[2].abs() + carry[0].abs())
+    assert close(ck[1], cp[1], alpha * ap.abs() + carry[1].abs())
+    rn = cp[1]
+    zn = rn if inv is None else inv * rn
+    for slot, scale in ((cu.RZ, (rn * zn).abs().sum()), (cu.RR, (rn * rn).sum())):
+        if slot == cu.RZ and not with_rz:
+            assert torch.equal(wk.sums[slot], sums[slot])
+            continue
+        assert abs(float(wk.sums[slot] - wp.sums[slot])) <= dot_tol * float(scale) + ulp * float(
+            wp.sums[slot].abs())
+
+    # cg_p from the plain cg_xr's carry and sums, twice
+    ck, ck2 = copy(cp), copy(cp)
+    wk, wk2 = cu.Work(carry[0]), cu.Work(carry[0])
+    for w in (wk, wk2):
+        w.sums.copy_(wp.sums)
+    cu.cg_p(ck, wk, inv, z, tol2, max_iters)
+    cu.cg_p(ck2, wk2, inv, z, tol2, max_iters)
+    cu.cg_p_plain(cp, wp, inv, z, tol2, max_iters)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ck, ck2))
+    assert all(torch.equal(a, b) for a, b in zip(ck[3:], cp[3:]))
+    zp = z if z is not None else (ck[1] if inv is None else inv * ck[1])
+    beta = (wp.sums[1] / carry[3]).abs()
+    assert close(ck[2], cp[2], beta * carry[2].abs() + zp.abs())
+    assert int(ck[5]) == 5 + active
+    if not active:
+        assert torch.equal(ck[2], carry[2]) and torch.equal(ck[3], carry[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond,dtype", [("none", torch.float64), ("jacobi", torch.float64),
+                                          ("ilu sweeps", torch.float64),
+                                          ("none", torch.float32), ("jacobi", torch.float32)])
+def test_cg_solve_launches_f2_on_card(cuda_device, monkeypatch, precond, dtype):
+    """cg_solve on the card runs F-2 at every iteration, plain and masked
+    (counted per phase; the general form launches cg_dot twice an iteration),
+    and the captured blocks give the eager loop's iterations and x bit for
+    bit, in both dtypes."""
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import cg_update, swell
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    monkeypatch.setattr(tri, "ILU_SWELL_MIN", 0)
+    csr, b = _cg_system(cuda_device)
+    csr, b = csr.astype(dtype), b.to(dtype)
+    pre = (None if precond == "none" else cg.jacobi_preconditioner(csr) if precond == "jacobi"
+           else tri.ilu0(csr, sweeps=3))
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    layout = swell.get_swell_plan(csr)
+    M = pre.solve if isinstance(pre, tri.ILU0) else pre
+    eager = cg._cg_loop(lambda v: swell.swell_ax(layout, v), M, b, torch.zeros_like(b), tol,
+                        2000)
+    for eager_iters in (10 ** 9, 0):
+        monkeypatch.setattr(cg, "CG_EAGER_ITERS", eager_iters)
+        cg_update.LAUNCHES.clear()
+        got = cg.cg_solve(csr, b, tol=tol, max_iters=2000, strategy="swell", precond=pre)
+        torch.cuda.synchronize()
+        dk = "f64" if dtype == torch.float64 else "f32"
+        steps = cg_update.LAUNCHES[(dk, "xr")]
+        assert got.iters == eager.iters and torch.equal(got.x, eager.x)
+        assert steps >= got.iters > 0 and cg_update.LAUNCHES[(dk, "p")] == steps
+        assert cg_update.LAUNCHES[(dk, "dot")] == steps * (2 if precond == "ilu sweeps" else 1)
+        assert set(cg_update.LAUNCHES) == {(dk, "dot"), (dk, "xr"), (dk, "p")}
+
+
+@pytest.mark.cuda
+def test_dist_cg_launches_f2_on_card(nccl_group, monkeypatch):
+    """dist_cg_solve over NCCL at world size 1, plain and captured: F-2 at
+    every iteration, the same iterations and x."""
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import banded_csr
+    from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import cg_update
+    from spmv_acc_tpu_torch.ops.golden import host_spmv_plain
+    from spmv_acc_tpu_torch.parallel import make_mesh, pad_vector, partition_rows
+
+    rp, ci, v, _ = banded_csr(4000, bandwidth=9, seed=13).to_numpy()
+    spd = spdize(rp.astype(np.int64), ci.astype(np.int64), v, 4000)
+    pa = partition_rows(CSR.from_numpy(*spd, (4000, 4000)), 1, balance=False)
+    b = host_spmv_plain(*spd, np.random.default_rng(3).standard_normal(4000))
+    mesh = make_mesh(1)
+    runs = []
+    for eager_iters in (10 ** 9, 0):
+        monkeypatch.setattr(cg, "CG_EAGER_ITERS", eager_iters)
+        cg_update.LAUNCHES.clear()
+        runs.append(cg.dist_cg_solve(pa, pad_vector(pa, b), mesh, tol=1e-10, max_iters=500))
+        torch.cuda.synchronize()
+        assert cg_update.LAUNCHES[("f64", "xr")] >= runs[-1].iters > 0
+    assert runs[0].iters == runs[1].iters
+    assert float((runs[1].x - runs[0].x).norm() / runs[0].x.norm()) <= 1e-12
