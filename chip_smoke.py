@@ -34,11 +34,14 @@ seconds and graph memory, the launches of every replay counted) and F-1
 (the recorded iterations 10 / 4 on Ga41As41H72-SPD and 1347 / 417 on aniso,
 Jacobi / ILU; x bit for bit; µs an iteration), captures a CG block over
 the exact chunk-scheduled ILU apply, holds F-2 (``csrc/cg_update.cu``, the
-CG update around the matvec) against its plain version phase by phase at
-every shape a CG of the smoke runs at (Ga41As41H72-SPD, aniso, af23560 and
-the distributed shard of 1 M rows), times it at the aniso shape beside its
-bound, and counts F-2's launches in every CG it runs (``cg_solve``, the bench's ``bench_solver_aniso``, ``spmv-solve``, and
-in the ``dist`` phase ``dist_swell_cg_solve``, 39 iterations at m = 1 M).  Every swell layout the
+CG update around the matvec: the fused single-device form and the three
+phases) against its plain versions at every shape a CG of the smoke runs at
+(Ga41As41H72-SPD, aniso, af23560 and the distributed shard of 1 M rows),
+times both at the aniso shape beside the bound, and counts F-2's launches
+by route in every CG it runs (``cg_solve``, the bench's
+``bench_solver_aniso`` and ``spmv-solve``: ``cg_step`` once an iteration,
+or ``cg_dot_xr`` and ``cg_dot_p`` around ILU; in the ``dist`` phase
+``dist_swell_cg_solve``, 39 iterations at m = 1 M: the three phases).  Every swell layout the
 run builds goes to the disk plan cache in a fresh directory under ``build/``
 that the run deletes at its end: the ``plan-cache`` phase drops the process's
 caches and runs boneS10 and TSOPF_RS_b2383 again from the saved layouts (the
@@ -484,7 +487,9 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
         sync()
         t_cg = time.perf_counter() - t0
         cg_launches = sum(swell.LAUNCHES.values())
-        f2 = f2_launches(cg_update, "dist_swell_cg_solve", res.iters)
+        f2 = f2_launches(cg_update, "dist_swell_cg_solve", res.iters, "dist")
+        # the phases' path: their record's launches
+        records.setdefault("cg_phases_f64", {})["launches"] = sum(f2.values())
         f2_check(dev, records, "dist", "dist_swell_cg_solve's shard", dspc.rows_local)
         xs = gather_padded(res.x, mesh)[:fm].cpu().numpy()
         err = float(np.linalg.norm(xs - x_true) / np.linalg.norm(x_true))
@@ -917,28 +922,93 @@ def graphs_phase(dev, card, records, mats, spmm_X, bound_of, flush_buf):
         fail("the boneS10 chain launched F-1 no time")
 
 
-def f2_launches(cg_update, label, iters, general=False):
-    """F-2's launches by phase since its counter was last cleared: each phase
-    at least once an iteration (``cg_dot`` twice in the general form), or
-    fail.  Returns them as a dict."""
+# F-2's entries a route launches, each once an iteration: the fused form on
+# one device (M = I or Jacobi; any other M), its three phases where a
+# distributed solve all-reduces the sums between them
+F2_ROUTES = {"step": ("step",), "general": ("dot_xr", "dot_p"), "dist": ("dot", "xr", "p")}
+
+
+def f2_launches(cg_update, label, iters, route="step"):
+    """F-2's launches by entry since its counter was last cleared: exactly
+    the route's entries, each the same number of times and at least once an
+    iteration, or fail.  Returns them as a dict."""
     got = {k[1]: n for k, n in cg_update.LAUNCHES.items()}
-    need = {"dot": iters * (2 if general else 1), "xr": iters, "p": iters}
-    if any(got.get(k, 0) < n for k, n in need.items()) or iters < 1:
-        fail(f"{label}: F-2 launches {got} for {iters} iterations")
+    want = F2_ROUTES[route]
+    if (iters < 1 or set(got) != set(want) or len(set(got.values())) != 1
+            or got[want[0]] < iters):
+        fail(f"{label}: F-2 launches {got} for {iters} iterations, not the {route} route's "
+             f"{want} once an iteration")
     return got
+
+
+def f2_fused_case(cu, carry, ap, inv, z, tol2, mx, sums):
+    """The fused form (``cg_step``, or ``cg_dot_xr`` and ``cg_dot_p`` where
+    ``z`` is given) against its plain version from one carry: (ok, max|kernel -
+    plain| of x, r, p).  The sums within 1e-12 (float64) or 1e-5 (float32) of
+    sum|a_i c_i| of the plain version's (p·Ap from the same p and Ap; r·z and
+    r·r of the same new r); x, r and p within 1e-12 (|alpha||p| + |x|)
+    elementwise plus one float32 ulp of the plain version's given the
+    kernel's sums; rz, rr and it the kernel's sums and the count; masked off,
+    nothing written; two launches the same bits."""
+    import torch
+
+    f32 = carry[0].dtype == torch.float32
+    dot_tol = 1e-5 if f32 else 1e-12
+    ulp = torch.finfo(torch.float32).eps if f32 else 0.0
+
+    def run():
+        c, w = tuple(t.clone() for t in carry), cu.Work(carry[0])
+        w.sums.copy_(sums)
+        if z is None:
+            cu.cg_step(c, ap, w, inv, tol2, mx)
+        else:
+            cu.cg_dot_xr(c, ap, w, tol2, mx)
+            cu.cg_dot_p(c, z, w, tol2, mx)
+        return c, w.sums
+
+    (got, ks), (got2, ks2) = run(), run()
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in zip(got + (ks,), got2 + (ks2,)))
+    if tol2 is not None and not bool((carry[4] > tol2) & (carry[5] < mx)):
+        return ok and all(torch.equal(a, b) for a, b in zip(got + (ks,), carry + (sums,))), 0.0
+    want, w = tuple(t.clone() for t in carry), cu.Work(carry[0])
+    w.sums.copy_(ks)
+    cu.cg_xr_plain(want, ap, w, inv, z is None, tol2, mx)
+    rr_plain = w.sums[2].clone()
+    w.sums[1:] = ks[1:]
+    cu.cg_p_plain(want, w, inv, z, tol2, mx)
+    rn = want[1]
+    zn = z if z is not None else (rn if inv is None else inv * rn)
+    for got_s, want_s, scale in ((ks[0], torch.dot(carry[2], ap), (carry[2] * ap).abs().sum()),
+                                 (ks[1], torch.dot(rn, zn), (rn * zn).abs().sum()),
+                                 (ks[2], rr_plain, (rn * rn).sum())):
+        ok &= abs(float(got_s - want_s)) <= dot_tol * float(scale)
+    alpha, beta = (carry[3] / ks[0]).abs(), (ks[1] / carry[3]).abs()
+    gaps = []
+    for g, wv, scale in ((got[0], want[0], alpha * carry[2].abs() + carry[0].abs()),
+                         (got[1], want[1], alpha * ap.abs() + carry[1].abs()),
+                         (got[2], want[2], beta * carry[2].abs() + zn.abs())):
+        gap = (g - wv).abs()
+        gaps.append(float(gap.max()))
+        ok &= bool((gap <= 1e-12 * scale + ulp * wv.abs()).all())
+    ok &= torch.equal(got[3], ks[1]) and torch.equal(got[4], ks[2]) and int(got[5]) == 6
+    return ok, max(gaps)
 
 
 def f2_check(dev, records, ph, label, n, inv=None):
     """F-2 (``csrc/cg_update.cu``) at one shape the smoke solves at (``n``
-    rows; ``inv``: the system's Jacobi vector, else a random one): each phase
-    against its plain version from one random carry, in float64 and
-    float32, in the Jacobi, identity and read (general M) forms, unmasked,
-    masked and active, masked off (by tol2, by max_iters): x, r and p within
-    1e-12 (|alpha||p| + |x|) elementwise plus one float32 ulp, the dots
-    within 1e-12 (float64) or 1e-5 (float32) of sum|a_i c_i|, rz, rr and it
-    equal, nothing written where masked off, two launches the same bits.
-    Fails on any miss; keeps the worst float64 gap as the ``max_abs_err`` of
-    the record ``cg_update_f64``; reports under the smoke's phase ``ph``."""
+    rows; ``inv``: the system's Jacobi vector, else a random one) against
+    its plain versions from one random carry, in float64 and float32, in the
+    Jacobi, identity and general (z read) forms, unmasked, masked and
+    active, masked off (by tol2, by max_iters): the fused form
+    (:func:`f2_fused_case`; unmasked also from views that are not 16-B
+    aligned), and each of the three phases (x, r and p within 1e-12
+    (|alpha||p| + |x|) elementwise plus one float32 ulp from the same sums,
+    the dots within 1e-12 (float64) or 1e-5 (float32) of sum|a_i c_i|, rz,
+    rr and it equal, nothing written where masked off, two launches the same
+    bits).  Fails on any miss; keeps the worst float64 gaps as the
+    ``max_abs_err`` of the records ``cg_update_f64`` (the fused form) and
+    ``cg_phases_f64``; reports under the smoke's phase ``ph``."""
     import numpy as np
     import torch
 
@@ -946,18 +1016,21 @@ def f2_check(dev, records, ph, label, n, inv=None):
 
     rng0 = np.random.default_rng(n)
     inv = torch.from_numpy(rng0.uniform(0.5, 2.0, n)).to(dev) if inv is None else inv
-    rec = records.setdefault("cg_update_f64", {"max_abs_err": 0.0})
+    recs = {k: records.setdefault(k, {}) for k in ("cg_update_f64", "cg_phases_f64")}
+    for rec in recs.values():
+        rec.setdefault("max_abs_err", 0.0)
     for dtype in (torch.float64, torch.float32):
         f32 = dtype == torch.float32
         ulp = torch.finfo(torch.float32).eps if f32 else 0.0
         dot_tol = 1e-5 if f32 else 1e-12
-        worst, cases = 0.0, 0
+        worst, worst_fused, cases = 0.0, 0.0, 0
         for form in ("jacobi", "identity", "read"):
-            for mask in ("unmasked", "active", "converged", "at max_iters"):
+            for mask in ("unmasked", "active", "converged", "at max_iters", "misaligned"):
                 rng = np.random.default_rng(len(form) + len(mask) + 2 * f32)
+                k = int(mask == "misaligned")
 
                 def vec(lo=-1.0, hi=1.0):
-                    return torch.from_numpy(rng.uniform(lo, hi, n)).to(dev, dtype)
+                    return torch.from_numpy(rng.uniform(lo, hi, n + k)).to(dev, dtype)[k:]
 
                 def scalar(v, dt=dtype):
                     return torch.tensor(v, dtype=dt, device=dev)
@@ -965,13 +1038,25 @@ def f2_check(dev, records, ph, label, n, inv=None):
                 carry = (vec(), vec(), vec(), scalar(rng.uniform(0.5, 2.0)),
                          scalar(rng.uniform(0.5, 2.0)), scalar(5, torch.int64))
                 ap, z = vec(), (vec() if form == "read" else None)
-                iv = inv.to(dtype) if form == "jacobi" else None
+                iv = None
+                if form == "jacobi":
+                    iv = inv.to(dtype)
+                    if k:  # the same values in a view one element into its storage
+                        iv = torch.cat([iv[:1], iv])[1:]
                 rr = float(carry[4])
                 tol2 = mx = None
-                if mask != "unmasked":
+                if mask in ("active", "converged", "at max_iters"):
                     tol2 = scalar(rr * (2.0 if mask == "converged" else 0.5))
                     mx = scalar(5 if mask == "at max_iters" else 100, torch.int64)
                 sums = torch.from_numpy(rng.uniform(0.5, 2.0, 3)).to(dev, dtype)
+                ok, gap = f2_fused_case(cu, carry, ap, iv, z, tol2, mx, sums)
+                worst_fused = max(worst_fused, gap)
+                if not ok:
+                    fail(f"F-2's fused form disagrees with its plain version at {label} n={n} "
+                         f"({_dk(dtype)} {form} {mask}): max|kernel - plain| of x, r, p {gap!r}")
+                cases += 1
+                if k:
+                    continue
                 active = mask in ("unmasked", "active")
 
                 def work():
@@ -1034,26 +1119,35 @@ def f2_check(dev, records, ph, label, n, inv=None):
                 ok &= int(ck[5]) == 5 + active
                 if not active:
                     ok &= torch.equal(ck[2], carry[2])
-                worst, cases = max(worst, *errs), cases + 1
+                worst = max(worst, *errs)
                 if not ok:
-                    fail(f"F-2 disagrees with its plain version at {label} n={n} ({_dk(dtype)} "
-                         f"{form} {mask}): max|kernel - plain| of x, r, p {max(errs)!r}")
+                    fail(f"F-2's phases disagree with their plain versions at {label} n={n} "
+                         f"({_dk(dtype)} {form} {mask}): max|kernel - plain| of x, r, p "
+                         f"{max(errs)!r}")
         if not f32:
-            rec["max_abs_err"] = max(rec["max_abs_err"], worst)
-        phase(ph, f"F-2 {_dk(dtype)} at {label} n={n}: {cases} cases (Jacobi, identity, read "
-              f"forms; unmasked, active, masked off by tol2 and by max_iters), max|kernel - "
-              f"plain| of x, r, p {worst!r}; each within the tolerance, two launches the same "
-              f"bits, nothing written where masked off")
+            recs["cg_update_f64"]["max_abs_err"] = max(recs["cg_update_f64"]["max_abs_err"],
+                                                       worst_fused)
+            recs["cg_phases_f64"]["max_abs_err"] = max(recs["cg_phases_f64"]["max_abs_err"],
+                                                       worst)
+        phase(ph, f"F-2 {_dk(dtype)} at {label} n={n}: {cases} cases (Jacobi, identity, general "
+              f"forms; unmasked, active, masked off by tol2 and by max_iters; the fused form "
+              f"also from views not 16-B aligned): max|kernel - plain| of x, r, p, the fused "
+              f"form {worst_fused!r} (given its own sums), the phases {worst!r}; each within "
+              f"the tolerance, two launches the same bits, nothing written where masked off")
 
 
-def f2_phase(dev, card, records, inv, bound_of, loop_us, main_launches):
+def f2_phase(dev, card, records, inv, bound_of, loop_us, main_launches, flush_buf):
     """F-2 at the aniso Jacobi system (``inv``: its Jacobi vector): the
-    per-phase check of :func:`f2_check`, then device µs a call of each phase,
-    of its plain version and of the eager PyTorch sequence F-2 replaces
+    check of :func:`f2_check`, then device µs a call of the fused
+    ``cg_step``, of its plain version, of each of the three phases and their
+    plain versions, and of the eager PyTorch sequence F-2 replaced
     (``cg_update.eager_step``), in a replayed graph of 20
-    (``utils.timer.graph_us``) and from the host (``loop_us``, CUDA events),
-    beside the bound.  Records ``cg_update_f64`` with
-    ``main_launches``, the launches of the aniso Jacobi solve."""
+    (``utils.timer.graph_us``: L2-warm, what the CG loop sees) and, for the
+    fused step and the phases' sequence, from HBM (one iteration's launches
+    captured in a graph, each replay after a 256 MB read, the median of 21),
+    beside the bound.  Records ``cg_update_f64``
+    (the fused step; ``main_launches``, the launches of the aniso Jacobi
+    solve) and the times of ``cg_phases_f64``."""
     import numpy as np
     import torch
 
@@ -1062,12 +1156,15 @@ def f2_phase(dev, card, records, inv, bound_of, loop_us, main_launches):
 
     n = inv.numel()
     f2_check(dev, records, "solver", "aniso", n, inv)
-    # device µs a launch at the aniso Jacobi shape, L2-warm as in the CG loop
     rng = np.random.default_rng(1)
-    carry = tuple(torch.from_numpy(rng.uniform(-1, 1, n)).to(dev) for _ in range(3)) + (
-        torch.tensor(1.0, dtype=torch.float64, device=dev),
-        torch.tensor(1.0, dtype=torch.float64, device=dev),
-        torch.zeros((), dtype=torch.int64, device=dev))
+
+    def carry_of():
+        return tuple(torch.from_numpy(rng.uniform(-1, 1, n)).to(dev) for _ in range(3)) + (
+            torch.tensor(1.0, dtype=torch.float64, device=dev),
+            torch.tensor(1.0, dtype=torch.float64, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+    carry = carry_of()
     ap = torch.from_numpy(rng.uniform(-1, 1, n)).to(dev)
     tol2 = torch.tensor(0.0, dtype=torch.float64, device=dev)
     mx = torch.tensor(1 << 60, dtype=torch.int64, device=dev)
@@ -1082,24 +1179,73 @@ def f2_phase(dev, card, records, inv, bound_of, loop_us, main_launches):
     for name, (kern, plain) in phases.items():
         work.sums.fill_(1e30)  # alpha ~ 0: x and r stay put over the repeats
         times[name] = (graph_us(kern), graph_us(plain), graph_us(kern), loop_us(kern))
+    # the fused step, and the phases in sequence from HBM: Ap = 1e30 p keeps x,
+    # r and the sums bounded over the repeats (p grows by z a call)
+    fc = carry_of()
+    fap, fwork = 1e30 * fc[2], cu.Work(fc[0])
+
+    def step():
+        cu.cg_step(fc, fap, fwork, inv, tol2, mx)
+
+    def step_plain():
+        cu.cg_step_plain(fc, fap, fwork, inv, tol2, mx)
+
+    def three():
+        cu.cg_dot(fc[2], fap, fwork, cu.PAP)
+        cu.cg_xr(fc, fap, fwork, inv, True, tol2, mx)
+        cu.cg_p(fc, fwork, inv, None, tol2, mx)
+
+    def cold_us(fn, k=21):
+        fn()
+        got = []
+        for _ in range(k):
+            flush_buf.sum()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            got.append(t0.elapsed_time(t1) * 1e3)
+        return sorted(got)[k // 2]
+
+    def replay_of(fn):
+        """``fn``'s launches captured once in a CUDA graph: its replay (one
+        host call, so that the launches follow each other on the card)."""
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        graphs.append(g)
+        return g.replay
+
+    graphs = []
+    t_s1, t_sp, t_s2, t_s_host = graph_us(step), graph_us(step_plain), graph_us(step), loop_us(step)
+    c_step, c_three = cold_us(replay_of(step)), cold_us(replay_of(three))
 
     def eager_seq():
         return cu.eager_step(carry, ap, lambda r: inv * r, tol2, mx)
 
     t_eager, t_eager_host = graph_us(eager_seq), loop_us(eager_seq)
-    k_us = sum((t[0] + t[2]) / 2 for t in times.values())
+    k_us = (t_s1 + t_s2) / 2
+    ph_us = sum((t[0] + t[2]) / 2 for t in times.values())
     p_us = sum(t[1] for t in times.values())
     nbytes = 8 * 8 * n  # p, Ap, x, r, inv read once; x, r, p written once
     b = bound_of(nbytes, 14 * n, FP64_TFLOPS)
     records["cg_update_f64"].update({"launches": main_launches, "ms": k_us / 1e3,
-                                     "plain_ms": p_us / 1e3, "library_ms": None, **b})
-    phase("solver", f"F-2 f64 n={n} Jacobi, device us a call in a replayed graph of 20: " + "; ".join(
-        f"{k} kernel {t[0]!r} / {t[2]!r} (host-launched loop of 20: {t[3]!r}), plain {t[1]!r}"
-        for k, t in times.items())
-        + f"; an iteration's three kernels {k_us!r} us against the plain phases {p_us!r} us and "
-        f"the eager PyTorch sequence F-2 replaces {t_eager!r} us ({t_eager_host!r} us "
-        f"host-launched); bound {b['bound_ms'] * 1e3!r} us by {b['bound_by']} ({nbytes} B: 8 "
-        f"vectors); no single PyTorch call computes it; card: {card}")
+                                     "plain_ms": t_sp / 1e3, "library_ms": None, **b})
+    records["cg_phases_f64"].update({"ms": ph_us / 1e3, "plain_ms": p_us / 1e3,
+                                     "library_ms": None, **b})
+    phase("solver", f"F-2 f64 n={n} Jacobi, device us a call in a replayed graph of 20: the "
+          f"fused cg_step (one cooperative launch) {t_s1!r} / {t_s2!r} (host-launched loop of "
+          f"20: {t_s_host!r}), its plain version {t_sp!r}; the phases: " + "; ".join(
+              f"{k} kernel {t[0]!r} / {t[2]!r} (host-launched loop of 20: {t[3]!r}), plain "
+              f"{t[1]!r}" for k, t in times.items())
+          + f"; an iteration: cg_step {k_us!r} us against the three phases {ph_us!r} us, their "
+          f"plain versions {p_us!r} us and the eager PyTorch sequence F-2 replaced {t_eager!r} "
+          f"us ({t_eager_host!r} us host-launched); from HBM (a captured iteration replayed "
+          f"after a 256 MB read, median of 21): cg_step {c_step!r} us, the three phases "
+          f"{c_three!r} us; bound "
+          f"{b['bound_ms'] * 1e3!r} us by {b['bound_by']} ({nbytes} B: 8 vectors); no single "
+          f"PyTorch call computes it; card: {card}")
 
 
 def main() -> int:
@@ -2046,7 +2192,8 @@ def smoke(plan_dir: str) -> int:
             fail(f"Ga41As41H72-SPD cg[{label}] launched the swell kernel {launches} times "
                  f"in {res.iters} iterations")
         phase("solver", f"Ga41As41H72-SPD cg[{label}]: F-2 launches " + repr(f2_launches(
-            cg_update, f"Ga41As41H72-SPD cg[{label}]", res.iters, general=label == "ilu")))
+            cg_update, f"Ga41As41H72-SPD cg[{label}]", res.iters,
+            "general" if label == "ilu" else "step")))
         captured_vs_eager("Ga41As41H72-SPD", label, glay, pre, dgb, 300, res)
     # the ILU-preconditioned solve is the solver path's record
     records["swell_solver_f64"]["launches"] = g_launches["ilu"]
@@ -2085,14 +2232,15 @@ def smoke(plan_dir: str) -> int:
                f"{dict(swell.LAUNCHES)})", res, ax_true, ab_norm, 1e-8, 4000)
         if launches_of(swell, "f64") < res.iters:
             fail(f"aniso cg[{label}] launched the swell kernel fewer times than it iterated")
-        f2 = f2_launches(cg_update, f"aniso cg[{label}]", res.iters, general=label == "ilu")
+        f2 = f2_launches(cg_update, f"aniso cg[{label}]", res.iters,
+                         "general" if label == "ilu" else "step")
         phase("solver", f"aniso cg[{label}]: F-2 launches {f2} in {res.iters} iterations")
         if label == "jacobi":  # F-2's main path: the record's launches
             f2_main = sum(f2.values())
         aiters[label] = res.iters
         aper[label] = captured_vs_eager(f"aniso {nx}^2", label, alay, pre, ab, 4000, res)
 
-    f2_phase(dev, card, records, ajac.inv, bound_of, loop_us, f2_main)
+    f2_phase(dev, card, records, ajac.inv, bound_of, loop_us, f2_main, flush_buf)
     # the bench's solver section as the bench runs it (its timed_cg on F-2)
     from spmv_acc_tpu_torch import bench as port_bench
 
@@ -2103,7 +2251,8 @@ def smoke(plan_dir: str) -> int:
         phase("solver", f"bench_solver_aniso: {ln.strip()}")
     bit = (bsol["solver_aniso_cg_iters_jacobi"], bsol["solver_aniso_cg_iters_ilu"])
     phase("solver", f"bench_solver_aniso: {bsol}; F-2 launches {dict(cg_update.LAUNCHES)}")
-    if bit != (aiters["jacobi"], aiters["ilu"]) or cg_update.LAUNCHES[("f64", "xr")] < sum(bit):
+    if (bit != (aiters["jacobi"], aiters["ilu"]) or cg_update.LAUNCHES[("f64", "step")] < bit[0]
+            or cg_update.LAUNCHES[("f64", "dot_xr")] < bit[1]):
         fail("the bench's solver section left cg_solve's iterations or did not run F-2")
     per_j, per_i = aper["jacobi"], aper["ilu"]
     win = (aiters["jacobi"] * per_j) / (aiters["ilu"] * per_i)
@@ -2170,7 +2319,8 @@ def smoke(plan_dir: str) -> int:
                 fail(f"spmv-solve --precond {pre} returned {rc}")
             its = int(re.search(r"iters=(\d+)", buf.getvalue()).group(1))
             phase("solve-cli", f"--precond {pre}: F-2 launches " + repr(f2_launches(
-                cg_update, f"spmv-solve --precond {pre}", its, general=pre == "ilu0")))
+                cg_update, f"spmv-solve --precond {pre}", its,
+                "general" if pre == "ilu0" else "step")))
 
     # 7h. SpGEMM: A @ A on the JAX bench's three matrices (bench.py:300-341), the
     # symbolic phase on the host and the numeric phase (plain PyTorch: a gather
@@ -2565,8 +2715,10 @@ def smoke(plan_dir: str) -> int:
             ("swell_planes_f64", "swell_spmv.cu", "spmv_acc_tpu/ops/swell.py:455"),
             # F-1 replaces no pallas_call: XLA's fusion of _swell_power_run's body
             ("feedback_f64", "feedback.cu", "spmv_acc_tpu/ops/swell.py:2681"),
-            # F-2 neither: XLA's fusions of _cg_loop's body
-            ("cg_update_f64", "cg_update.cu", "spmv_acc_tpu/models/cg.py:74")):
+            # F-2 neither: XLA's fusions of _cg_loop's body; the fused form on one
+            # device, the three phases where a distributed solve all-reduces
+            ("cg_update_f64", "cg_update.cu", "spmv_acc_tpu/models/cg.py:74"),
+            ("cg_phases_f64", "cg_update.cu", "spmv_acc_tpu/models/cg.py:74")):
         rec = records[name]
         if set(rec) != keys or rec["launches"] < 1:
             fail(f"{name} was not launched on the main path or not timed")

@@ -62,13 +62,18 @@ entry points both trees have are called:
   profiled captured solve of 64 iterations the device µs an iteration by
   kernel (``torch.profiler``) and the kernels launched an iteration;
 * **f2** (a tree with ``ops/cg_update.py`` only): each F-2 phase alone at
-  the aniso system's n (Jacobi form) and at ``--dist-rows`` (identity): device
-  µs a call in a loop of 20 (L2-warm, as in the CG loop), in a replayed
-  graph of 20 (``utils.timer.graph_us``) and after a 256 MB write (from
-  HBM, the median of 21), its plain version's, and the eager PyTorch
+  the aniso system's n and at 23,560 (Jacobi form; the latter is mostly the
+  launch's fixed cost) and at ``--dist-rows`` (identity), and
+  where the tree has it the fused ``cg_step``: device µs a call in a loop of
+  20 (L2-warm, as in the CG loop), in a replayed graph of 20
+  (``utils.timer.graph_us``) and after a 256 MB write (from HBM, the median
+  of 21; the three phases also in sequence), its plain version's, and the eager PyTorch
   sequence F-2 replaces (``cg_update.eager_step``) host-launched and in a
   graph, beside the bound (the vectors the iteration must read and write
   once, over 3352.32 GB/s);
+* **Ga41As41H72-SPD solve**: ``cg_solve`` as called (Jacobi, ILU with 3
+  sweeps), six times each: its 10 / 4 iterations all in the plain start,
+  every F-2 call launched from the host (wall seconds);
 * **dist swell**: ``dist_swell_cg_solve`` at world size 1 (an NCCL group
   joined through a file under ``build/``) on the dry run's SPD recipe at
   ``--dist-rows`` rows as called at tol 1e-8, and its ``dist_cg_blocks``
@@ -696,6 +701,38 @@ def iteration(dev, card, tag, dist_rows, nx):
                        "kernel us in a graph of 20": graph_us(kern),
                        "kernel us from HBM": cold_us(kern),
                        "plain us (loop of 20)": events_us(plain)}
+
+        # an iteration's worth from HBM: Ap = 1e30 p keeps x, r and the sums bounded
+        # over the repeats (p grows by z a call)
+        fcarry = tuple(t.clone() for t in carry)
+        fap, fwork = 1e30 * fcarry[2], cu.Work(fcarry[0])
+
+        def three():
+            cu.cg_dot(fcarry[2], fap, fwork, cu.PAP)
+            cu.cg_xr(fcarry, fap, fwork, inv, True, tol2, mx)
+            cu.cg_p(fcarry, fwork, inv, None, tol2, mx)
+
+        graphs = []
+
+        def replay_of(fn):
+            """``fn``'s launches captured once in a CUDA graph: its replay."""
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                fn()
+            graphs.append(g)
+            return g.replay
+
+        rec["the three phases us from HBM (a captured iteration)"] = cold_us(replay_of(three))
+        if hasattr(cu, "cg_step"):  # the fused form, on the same data
+            def step():
+                cu.cg_step(fcarry, fap, fwork, inv, tol2, mx)
+
+            rec["cg_step"] = {"kernel us (loop of 20, L2-warm)": events_us(step),
+                              "kernel us in a graph of 20": graph_us(step),
+                              "kernel us from HBM": cold_us(step),
+                              "kernel us from HBM (a captured call)": cold_us(replay_of(step)),
+                              "plain us (loop of 20)": events_us(
+                                  lambda: cu.cg_step_plain(fcarry, fap, fwork, inv, tol2, mx))}
         M = (lambda r: r) if inv is None else (lambda r: inv * r)
 
         def eager_seq():
@@ -703,10 +740,10 @@ def iteration(dev, card, tag, dist_rows, nx):
 
         vecs = 8 if form == "jacobi" else 7
         out({"loop": f"f2 {form} n={nn}", **rec,
-             "sum of the phases us (L2-warm)": sum(v["kernel us (loop of 20, L2-warm)"]
-                                                   for v in rec.values()),
-             "sum of the phases us in a graph": sum(v["kernel us in a graph of 20"]
-                                                    for v in rec.values()),
+             "sum of the phases us (L2-warm)": sum(rec[k]["kernel us (loop of 20, L2-warm)"]
+                                                   for k in phases),
+             "sum of the phases us in a graph": sum(rec[k]["kernel us in a graph of 20"]
+                                                    for k in phases),
              "eager sequence us (loop of 20, host-launched)": events_us(eager_seq),
              "eager sequence us in a graph of 20": graph_us(eager_seq),
              "bound us": vecs * 8 * nn / (PEAK_GBS * 1e9) * 1e6, "bound vectors": vecs})
@@ -714,7 +751,23 @@ def iteration(dev, card, tag, dist_rows, nx):
     if cu is not None:
         guarded("f2 jacobi", lambda: f2(csr.rows, "jacobi"), tag)
         guarded("f2 identity", lambda: f2(dist_rows, "identity"), tag)
+        guarded("f2 jacobi small", lambda: f2(23560, "jacobi"), tag)  # af23560's n
     del flush
+
+    def ga_solve():
+        """cg_solve as called on Ga41As41H72-SPD: its 10 / 4 iterations all
+        run in the plain start, each F-2 call launched from the host."""
+        label, gcsr, gb, max_iters, gpres = next(solver_systems(dev))
+        for name, pre in gpres.items():
+            walls = [solve_wall(lambda: cg.cg_solve(gcsr, gb, tol=1e-8, max_iters=max_iters,
+                                                    strategy="swell", precond=pre))
+                     for _ in range(6)]
+            out({"loop": f"{label} {name} cg_solve as called", "iters": walls[0][1].iters,
+                 "wall s": [w for w, _ in walls], "best wall s": min(w for w, _ in walls),
+                 "best us an iteration": min(w for w, _ in walls) / walls[0][1].iters * 1e6})
+        swell.clear_swell_cache()
+
+    guarded("Ga41As41H72-SPD solve", ga_solve, tag)
 
     from spmv_acc_tpu_torch.dryrun import _spd_fem
     from spmv_acc_tpu_torch.parallel.dist_spmv import make_mesh

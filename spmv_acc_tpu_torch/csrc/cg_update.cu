@@ -1,53 +1,92 @@
-// F-2, the CG iteration's vector work around the matvec: three launches, no
-// float atomics, two launches on the same data give the same bits.
+// F-2, the CG iteration's vector work around the matvec, no float atomics,
+// two launches on the same data give the same bits.
 //
 // Replaces XLA's fusions of the JAX package's CG loop, which has no Pallas
 // kernel of its own: spmv_acc_tpu/models/cg.py::_cg_loop, body :74-84 (the
 // p·Ap reduction, the x/r/z update with its dot products, the p update) and
 // cond :70-72 (dot(r, r) > tol2 and it < max_iters).  Eagerly the same
 // iteration is about twenty launches (dots, axpys, the Jacobi multiply, the
-// masks, the count); here it is three, or four and M's apply for a general
-// preconditioner (spmv_acc_tpu_torch/ops/cg_update.py):
+// masks, the count).  Two designs (spmv_acc_tpu_torch/ops/cg_update.py):
+//
+// The fused single-device form, one cooperative launch an iteration for M = I
+// or Jacobi (cg_step), two around M's apply for any other M (cg_dot_xr, then
+// z = M(r), then cg_dot_p).  Only two scalars order an iteration: alpha needs
+// the global p·Ap and beta the global r·z; no input vector depends on either.
+// So every thread first issues the loads of all it owns (p, Ap, x, r and inv:
+// kHold 16-B vectors of each, consecutive threads on consecutive vectors) and
+// holds them in registers, and the scalars are the only thing that crosses
+// the grid:
+//   phase A: each block sums p·Ap, writes its partial, grid.sync(), and every
+//     block folds all partials in block order (the same order on every block,
+//     so the same alpha everywhere);
+//   phase B: x += alpha p and r -= alpha Ap from registers, stored; z = inv * r
+//     (or z = r) formed in registers with the partials of r·z and r·r, then
+//     grid.sync() and the same fold;
+//   phase C: beta = r·z / rz, with the rz read at the start; p = z + beta p
+//     from registers, stored; block 0 writes sums[0..2] and the state rz, rr,
+//     it += 1.  Every block read the state before the first barrier, and no
+//     block reads it after one, so block 0's write races with nothing.
+// Elements past what the grid holds are walked grid-stride and read again in
+// the later phases; a ragged tail (n not a multiple of the vector width) is
+// walked by thread 0 of block 0, and vectors that are not all 16-B aligned
+// (a view t[1:]) take the instantiation that loads one element at a time.
+// The grid: as many blocks as hold the data at kHold vectors a thread, at
+// most as many as are resident (occupancy x SMs, queried at a device's first
+// call and kept, so that a launch inside a stream capture makes no query) and
+// kMaxBlocks; it depends only on n, the alignment and the card.
+//
+// The three-phase form, one launch a phase, for the distributed solve, whose
+// all-reduces sit between the phases:
 //   cg_dot: out = a·c (p·Ap; r·z in the general form);
 //   cg_xr:  alpha = rz / p·Ap; x += alpha p; r -= alpha Ap; the sums r·z and
 //           r·r of the new r, z = inv * r (Jacobi) or z = r formed in
 //           registers, or r·r alone where z = M(r) is applied after;
 //   cg_p:   beta = r·z / rz; p = z + beta p (z formed again, or read); then
 //           rz = r·z, rr = r·r, it += 1.
+// Each thread walks a fixed share of the elements (a grid-stride walk,
+// kUnroll elements loaded at once), the block sums it in a fixed tree, thread
+// 0 writes the block's partial and takes an integer ticket (atomicAdd on an
+// unsigned: the only atomic); the block that takes the last ticket folds
+// every block's partial in block order, writes the result and sets the
+// ticket back to 0.  cg_p's last block writes the state the same way, once
+// every block has read it.  (16-B loads and a grid sized by occupancy, as
+// the fused form has them, made the phases no faster at the distributed
+// solve's 1 M-row shard on the H100; PERF.md.)
+//
 // Masked (tol2 and max_iters given): every block reads active = rr > tol2
 // and it < max_iters from the state the previous launch left, and where it
-// is false the launch writes nothing at all.  So a captured graph of any
-// number of iterations does only what the plain loop does, and the stop test
-// reads the r·r that cg_xr summed, no extra dot.
+// is false the launch writes nothing at all (a cooperative launch: every
+// block returns before its first barrier).  So a captured graph of any number
+// of iterations does only what the plain loop does, and the stop test reads
+// the r·r that the update summed, no extra dot.
 //
-// Sums: each thread walks a fixed share of the elements (a grid-stride walk,
-// kUnroll elements loaded at once, FMAs in element order), the block sums it
-// in a fixed tree (warp shuffles, then the warps), thread 0 writes the
-// block's partial and takes an integer ticket (atomicAdd on an unsigned: the
-// only atomic); the block that takes the last ticket folds every block's
-// partial in block order, writes the result and sets the ticket back to 0.
-// cg_p's last block writes the state the same way, once every block has read
-// it.  The grid depends only on n and the card's SMs, so the order, and the
-// bits, repeat.  The elementwise IEEE operations are written as __dmul_rn /
-// __dadd_rn / __ddiv_rn (and the float32 ones), so nothing is contracted into
-// an FMA: x, r and p round as the eager expressions round them.
+// Sums: FMAs in element order within a thread, then warp shuffles and a tree
+// over the warps, then the block partials in block order; the order depends
+// only on the grid, so the bits repeat.  The elementwise IEEE operations are
+// written as __dmul_rn / __dadd_rn / __ddiv_rn (and the float32 ones), so
+// nothing is contracted into an FMA: x, r and p round as the eager
+// expressions round them, given the same sums.
 //
 // What bounds it on an H100: memory bytes.  An iteration with Jacobi must
 // read p, Ap, x, r and inv once and write x, r and p: 8 vectors, 64 B a row
-// in float64.  The three launches read 13 (p and Ap twice, r and inv again
-// for z, p again in cg_p): the vectors of a solve the size of the bench's
-// (2 MB each at 512^2) stay in the 50 MB L2 between the launches.  Loads are
-// one element a thread at a time, consecutive threads on consecutive
-// elements, kUnroll loads in flight; no alignment is assumed.
+// in float64.  The fused form moves exactly those (and where the grid cannot
+// hold the data, reads the rest again); the three phases read 13 (p and Ap
+// twice, r and inv again for z, p again in cg_p) and pay three launches,
+// three serial folds in one block, and the loads of each phase only after
+// the previous phase has ended.
 
+#include <cooperative_groups.h>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 1024;  // the wrapper's partials hold kMaxBlocks of each of two sums
+constexpr int kMaxBlocks = 2048;  // the wrapper's partials hold kMaxBlocks of each of three sums
+constexpr int kHold = 2;          // fused: vectors of each input a thread loads first and holds
+constexpr int kWalkUnroll = 2;    // fused: vectors of each input loaded at once when read again
 constexpr int kBlocksPerSM = 4;
 constexpr int kUnroll = 4;
 constexpr int kMaxDevices = 64;
@@ -341,6 +380,472 @@ int dispatch_p(int form, void* p, const void* r, const void* zin, int64_t n, voi
   return int(cudaErrorInvalidValue);
 }
 
+// ---- the fused single-device form
+
+namespace cg = cooperative_groups;
+
+// W elements loaded and stored at once: one 16-B vector (W = 16 / sizeof(T)),
+// or one element where the vectors are not all 16-B aligned.
+template <typename T, int W>
+struct Pack {
+  T e[W];
+};
+
+template <typename T, int W>
+struct Io {
+  static __device__ __forceinline__ Pack<T, W> ld(const T* a, int64_t j) {
+    Pack<T, W> v;
+    v.e[0] = a[j];
+    return v;
+  }
+  static __device__ __forceinline__ void st(T* a, int64_t j, const Pack<T, W>& v) { a[j] = v.e[0]; }
+};
+template <>
+struct Io<double, 2> {
+  static __device__ __forceinline__ Pack<double, 2> ld(const double* a, int64_t j) {
+    const double2 v = reinterpret_cast<const double2*>(a)[j];
+    return Pack<double, 2>{{v.x, v.y}};
+  }
+  static __device__ __forceinline__ void st(double* a, int64_t j, const Pack<double, 2>& v) {
+    reinterpret_cast<double2*>(a)[j] = make_double2(v.e[0], v.e[1]);
+  }
+};
+template <>
+struct Io<float, 4> {
+  static __device__ __forceinline__ Pack<float, 4> ld(const float* a, int64_t j) {
+    const float4 v = reinterpret_cast<const float4*>(a)[j];
+    return Pack<float, 4>{{v.x, v.y, v.z, v.w}};
+  }
+  static __device__ __forceinline__ void st(float* a, int64_t j, const Pack<float, 4>& v) {
+    reinterpret_cast<float4*>(a)[j] = make_float4(v.e[0], v.e[1], v.e[2], v.e[3]);
+  }
+};
+
+// One thread's vectors: first, first + stride, ... up to nvec; the fused
+// kernels hold the first kHold.  Thread 0 also walks the ragged tail.
+struct Share {
+  int64_t first, stride, nvec;
+  __device__ __forceinline__ explicit Share(int64_t nv)
+      : first(int64_t(blockIdx.x) * kThreads + threadIdx.x),
+        stride(int64_t(gridDim.x) * kThreads), nvec(nv) {}
+  __device__ __forceinline__ int64_t at(int h) const { return first + h * stride; }
+  __device__ __forceinline__ bool has(int h) const { return at(h) < nvec; }
+  __device__ __forceinline__ bool tail() const { return first == 0; }
+};
+
+template <typename T, int W>
+__device__ __forceinline__ T dot_add(const Pack<T, W>& a, const Pack<T, W>& c, T acc) {
+#pragma unroll
+  for (int e = 0; e < W; ++e) acc = fma_rn(a.e[e], c.e[e], acc);
+  return acc;
+}
+
+// x += alpha p, r -= alpha ap in place; z = inv * r into i (kJacobi; z = r
+// otherwise); acc gets r·z and r·r (kJacobi), else r·r.
+template <typename T, int W, int kForm, int K>
+__device__ __forceinline__ void update_xr(Pack<T, W>& x, Pack<T, W>& r, const Pack<T, W>& p,
+                                          const Pack<T, W>& a, Pack<T, W>& i, T alpha,
+                                          T (&acc)[K]) {
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    x.e[e] = add_rn(x.e[e], mul_rn(alpha, p.e[e]));
+    const T rn = sub_rn(r.e[e], mul_rn(alpha, a.e[e]));
+    r.e[e] = rn;
+    if (kForm == kJacobi) {
+      i.e[e] = mul_rn(i.e[e], rn);
+      acc[0] = fma_rn(rn, i.e[e], acc[0]);
+    }
+    acc[K - 1] = fma_rn(rn, rn, acc[K - 1]);
+  }
+}
+
+// p = z + beta p.
+template <typename T, int W>
+__device__ __forceinline__ void update_p(Pack<T, W>& p, const Pack<T, W>& z, T beta) {
+#pragma unroll
+  for (int e = 0; e < W; ++e) p.e[e] = add_rn(z.e[e], mul_rn(beta, p.e[e]));
+}
+
+// ---- the walks: this thread's vectors from `from` on, U of each input
+// loaded at once, and in thread 0 the tail past the last whole vector
+
+// acc + a·c.
+template <typename T, int W, int U>
+__device__ __forceinline__ T walk_dot(const Share& s, int64_t from, const T* a, const T* c,
+                                      int64_t n, T acc) {
+  using IO = Io<T, W>;
+  for (int64_t base = from; base < s.nvec; base += U * s.stride) {
+    Pack<T, W> va[U], vc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = base + u * s.stride;
+      if (j < s.nvec) va[u] = IO::ld(a, j), vc[u] = IO::ld(c, j);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * s.stride < s.nvec) acc = dot_add(va[u], vc[u], acc);
+  }
+  if (s.tail())
+    for (int64_t i = s.nvec * W; i < n; ++i) acc = fma_rn(a[i], c[i], acc);
+  return acc;
+}
+
+// x and r updated in place, acc as update_xr.
+template <typename T, int W, int U, int kForm, int K>
+__device__ __forceinline__ void walk_xr(const Share& s, int64_t from, T* x, T* r, const T* p,
+                                        const T* ap, const T* inv, int64_t n, T alpha,
+                                        T (&acc)[K]) {
+  using IO = Io<T, W>;
+  for (int64_t base = from; base < s.nvec; base += U * s.stride) {
+    Pack<T, W> vx[U], vr[U], vp[U], va[U], vi[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = base + u * s.stride;
+      if (j < s.nvec) {
+        vx[u] = IO::ld(x, j), vr[u] = IO::ld(r, j), vp[u] = IO::ld(p, j), va[u] = IO::ld(ap, j);
+        if (kForm == kJacobi) vi[u] = IO::ld(inv, j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = base + u * s.stride;
+      if (j >= s.nvec) continue;
+      update_xr<T, W, kForm, K>(vx[u], vr[u], vp[u], va[u], vi[u], alpha, acc);
+      IO::st(x, j, vx[u]);
+      IO::st(r, j, vr[u]);
+    }
+  }
+  if (s.tail())
+    for (int64_t i = s.nvec * W; i < n; ++i) {
+      Pack<T, 1> vx{{x[i]}}, vr{{r[i]}}, vi{{kForm == kJacobi ? inv[i] : T(0)}};
+      update_xr<T, 1, kForm, K>(vx, vr, Pack<T, 1>{{p[i]}}, Pack<T, 1>{{ap[i]}}, vi, alpha, acc);
+      x[i] = vx.e[0];
+      r[i] = vr.e[0];
+    }
+}
+
+// p = z + beta p in place, z = r (kIdentity), zin * r (kJacobi) or zin (kRead).
+template <typename T, int W, int U, int kForm>
+__device__ __forceinline__ void walk_p(const Share& s, int64_t from, T* p, const T* r,
+                                       const T* zin, int64_t n, T beta) {
+  using IO = Io<T, W>;
+  for (int64_t base = from; base < s.nvec; base += U * s.stride) {
+    Pack<T, W> vp[U], vz[U], vi[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = base + u * s.stride;
+      if (j < s.nvec) {
+        vp[u] = IO::ld(p, j);
+        vz[u] = IO::ld(kForm == kRead ? zin : r, j);
+        if (kForm == kJacobi) vi[u] = IO::ld(zin, j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = base + u * s.stride;
+      if (j >= s.nvec) continue;
+      if (kForm == kJacobi)
+#pragma unroll
+        for (int e = 0; e < W; ++e) vz[u].e[e] = mul_rn(vi[u].e[e], vz[u].e[e]);
+      update_p(vp[u], vz[u], beta);
+      IO::st(p, j, vp[u]);
+    }
+  }
+  if (s.tail())
+    for (int64_t i = s.nvec * W; i < n; ++i) {
+      const T z = kForm == kRead ? zin[i] : kForm == kJacobi ? mul_rn(zin[i], r[i]) : r[i];
+      p[i] = add_rn(z, mul_rn(beta, p[i]));
+    }
+}
+
+// The K sums of v over the block in a fixed order; every thread gets them.
+template <typename T, int K>
+__device__ __forceinline__ void block_totals(T (&v)[K]) {
+  __shared__ T total[K];
+  block_sums<T, K>(v);
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int k = 0; k < K; ++k) total[k] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = total[k];
+}
+
+// v[k] = every block's partials[k][b] folded in block order (every thread).
+template <typename T, int K>
+__device__ __forceinline__ void fold(T (&v)[K], const T* partials) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = T(0);
+  for (int b = threadIdx.x; b < int(gridDim.x); b += kThreads)
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = add_rn(v[k], __ldcg(partials + k * kMaxBlocks + b));
+  block_totals<T, K>(v);
+}
+
+// The fused kernels' fold: the block's K partials into partials rows
+// region..region+K-1, the grid's barrier, then every block folds them: every
+// thread of every block gets the same K totals in v.
+template <typename T, int K>
+__device__ __forceinline__ void grid_totals(T (&v)[K], T* partials, int region) {
+  block_sums<T, K>(v);
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int k = 0; k < K; ++k) partials[(region + k) * kMaxBlocks + blockIdx.x] = v[k];
+  cg::this_grid().sync();
+  fold<T, K>(v, partials + region * kMaxBlocks);
+}
+
+// cg_step: the whole iteration (kIdentity or kJacobi); sums = [p·Ap, r·z, r·r].
+template <typename T, int W, int kForm>
+__global__ void __launch_bounds__(kThreads, 2)
+step_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ p, const T* __restrict__ ap,
+            const T* __restrict__ inv, int64_t n, T* rz, T* rr, int64_t* it, const T* tol2,
+            const int64_t* max_iters, T* sums, T* __restrict__ partials) {
+  using IO = Io<T, W>;
+  using P = Pack<T, W>;
+  // the state, read by every block before its first barrier and by none after
+  const T rz_old = *rz;
+  const int64_t it_old = *it;
+  if (!is_active(rr, it, tol2, max_iters)) return;
+  const Share s(n / W);
+  P hp[kHold], ha[kHold], hx[kHold], hr[kHold], hi[kHold];
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) {
+      const int64_t j = s.at(h);
+      hp[h] = IO::ld(p, j), ha[h] = IO::ld(ap, j), hx[h] = IO::ld(x, j), hr[h] = IO::ld(r, j);
+      if (kForm == kJacobi) hi[h] = IO::ld(inv, j);
+    }
+  // A: p·Ap, alpha
+  T pap[1] = {T(0)};
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) pap[0] = dot_add(hp[h], ha[h], pap[0]);
+  pap[0] = walk_dot<T, W, kWalkUnroll>(s, s.at(kHold), p, ap, n, pap[0]);
+  grid_totals<T, 1>(pap, partials, 0);
+  const T alpha = div_rn(rz_old, pap[0]);
+  // B: x and r, z in registers, r·z and r·r
+  constexpr int K = kForm == kJacobi ? 2 : 1;  // {r·z, r·r} or {r·r}
+  T acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = T(0);
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) {
+      update_xr<T, W, kForm, K>(hx[h], hr[h], hp[h], ha[h], hi[h], alpha, acc);
+      IO::st(x, s.at(h), hx[h]);
+      IO::st(r, s.at(h), hr[h]);
+    }
+  walk_xr<T, W, kWalkUnroll, kForm, K>(s, s.at(kHold), x, r, p, ap, inv, n, alpha, acc);
+  grid_totals<T, K>(acc, partials, 1);
+  // C: beta, p
+  const T beta = div_rn(acc[0], rz_old);
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) {
+      update_p(hp[h], kForm == kJacobi ? hi[h] : hr[h], beta);
+      IO::st(p, s.at(h), hp[h]);
+    }
+  walk_p<T, W, kWalkUnroll, kForm>(s, s.at(kHold), p, r, inv, n, beta);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    sums[0] = pap[0];
+    sums[1] = acc[0];  // identity: r·z = r·r
+    sums[2] = acc[K - 1];
+    *rz = acc[0];
+    *rr = acc[K - 1];
+    *it = it_old + 1;
+  }
+}
+
+// cg_dot_xr: phases A and B of the general form; sums[0] = p·Ap, sums[2] = r·r.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 2)
+dot_xr_kernel(T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p,
+              const T* __restrict__ ap, int64_t n, const T* rz, const T* rr, const int64_t* it,
+              const T* tol2, const int64_t* max_iters, T* sums, T* __restrict__ partials) {
+  using IO = Io<T, W>;
+  using P = Pack<T, W>;
+  const T rz_old = *rz;
+  if (!is_active(rr, it, tol2, max_iters)) return;
+  const Share s(n / W);
+  P hp[kHold], ha[kHold], hx[kHold], hr[kHold];
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) {
+      const int64_t j = s.at(h);
+      hp[h] = IO::ld(p, j), ha[h] = IO::ld(ap, j), hx[h] = IO::ld(x, j), hr[h] = IO::ld(r, j);
+    }
+  T pap[1] = {T(0)};
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) pap[0] = dot_add(hp[h], ha[h], pap[0]);
+  pap[0] = walk_dot<T, W, kWalkUnroll>(s, s.at(kHold), p, ap, n, pap[0]);
+  grid_totals<T, 1>(pap, partials, 0);
+  const T alpha = div_rn(rz_old, pap[0]);
+  T acc[1] = {T(0)};
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) {
+      update_xr<T, W, kRead, 1>(hx[h], hr[h], hp[h], ha[h], hx[h], alpha, acc);
+      IO::st(x, s.at(h), hx[h]);
+      IO::st(r, s.at(h), hr[h]);
+    }
+  walk_xr<T, W, kWalkUnroll, kRead, 1>(s, s.at(kHold), x, r, p, ap, nullptr, n, alpha, acc);
+  // r·r: only block 0 needs the total
+  block_sums<T, 1>(acc);
+  if (threadIdx.x == 0) partials[kMaxBlocks + blockIdx.x] = acc[0];
+  cg::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  fold<T, 1>(acc, partials + kMaxBlocks);
+  if (threadIdx.x == 0) {
+    sums[0] = pap[0];
+    sums[2] = acc[0];
+  }
+}
+
+// cg_dot_p: r·z, beta, p = z + beta p; then sums[1] = rz = r·z, rr = sums[2], it += 1.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 2)
+dot_p_kernel(T* __restrict__ p, const T* __restrict__ r, const T* __restrict__ z, int64_t n,
+             T* rz, T* rr, int64_t* it, const T* tol2, const int64_t* max_iters, T* sums,
+             T* __restrict__ partials) {
+  using IO = Io<T, W>;
+  using P = Pack<T, W>;
+  const T rz_old = *rz;
+  const int64_t it_old = *it;
+  if (!is_active(rr, it, tol2, max_iters)) return;
+  const Share s(n / W);
+  P hp[kHold], hr[kHold], hz[kHold];
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) {
+      const int64_t j = s.at(h);
+      hr[h] = IO::ld(r, j), hz[h] = IO::ld(z, j), hp[h] = IO::ld(p, j);
+    }
+  T rzn[1] = {T(0)};
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) rzn[0] = dot_add(hr[h], hz[h], rzn[0]);
+  rzn[0] = walk_dot<T, W, kWalkUnroll>(s, s.at(kHold), r, z, n, rzn[0]);
+  grid_totals<T, 1>(rzn, partials, 0);
+  const T beta = div_rn(rzn[0], rz_old);
+#pragma unroll
+  for (int h = 0; h < kHold; ++h)
+    if (s.has(h)) {
+      update_p(hp[h], hz[h], beta);
+      IO::st(p, s.at(h), hp[h]);
+    }
+  walk_p<T, W, kWalkUnroll, kRead>(s, s.at(kHold), p, r, z, n, beta);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    sums[1] = rzn[0];
+    *rz = rzn[0];
+    *rr = sums[2];
+    *it = it_old + 1;
+  }
+}
+
+// The card's SMs and the most blocks of one kernel resident on each; sms -1
+// where the device cannot launch cooperatively.
+struct Residency {
+  int sms, per_sm;
+};
+
+// One cooperative launch (every block resident at once) of `kernel` over
+// nvec vectors: as many blocks as hold them at kHold a thread, at most the
+// resident blocks and kMaxBlocks.  `cache` is the kernel's own (one per
+// instantiation): filled at a device's first call, so that later calls
+// (inside a stream capture too) make no query.
+template <typename... Params, typename... Args>
+int launch_coop(void (*kernel)(Params...), Residency* cache, int64_t nvec, cudaStream_t st,
+                Args... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev < 0 || dev >= kMaxDevices) return int(cudaErrorInvalidDevice);
+  if (cache[dev].sms == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) !=
+            cudaSuccess)
+      return int(err);
+    cache[dev] = (!coop || sms < 1 || per_sm < 1) ? Residency{-1, 0} : Residency{sms, per_sm};
+  }
+  if (cache[dev].sms < 0) return int(cudaErrorCooperativeLaunchTooLarge);
+  int64_t most = int64_t(cache[dev].sms) * cache[dev].per_sm;
+  if (most > kMaxBlocks) most = kMaxBlocks;
+  const int64_t per_block = int64_t(kThreads) * kHold;
+  const int64_t need = (nvec + per_block - 1) / per_block;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(need < 1 ? 1 : (need < most ? need : most)));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// Whether every given pointer (NULL: none) is 16-B aligned: the vector loads.
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  return true;
+}
+
+// The fused entries' launches, W fixed.
+template <typename T, int W>
+struct Fused {
+  template <int kForm>
+  static int step(void* x, void* r, void* p, const void* ap, const void* inv, int64_t n, void* rz,
+                  void* rr, void* it, const void* tol2, const void* max_iters, void* sums,
+                  void* partials, cudaStream_t st) {
+    static Residency cache[kMaxDevices];
+    return launch_coop(step_kernel<T, W, kForm>, cache, n / W, st, static_cast<T*>(x),
+                  static_cast<T*>(r), static_cast<T*>(p), static_cast<const T*>(ap),
+                  static_cast<const T*>(inv), n, static_cast<T*>(rz), static_cast<T*>(rr),
+                  static_cast<int64_t*>(it), static_cast<const T*>(tol2),
+                  static_cast<const int64_t*>(max_iters), static_cast<T*>(sums),
+                  static_cast<T*>(partials));
+  }
+
+  static int dot_xr(void* x, void* r, const void* p, const void* ap, int64_t n, const void* rz,
+                    const void* rr, const void* it, const void* tol2, const void* max_iters,
+                    void* sums, void* partials, cudaStream_t st) {
+    static Residency cache[kMaxDevices];
+    return launch_coop(dot_xr_kernel<T, W>, cache, n / W, st, static_cast<T*>(x),
+                  static_cast<T*>(r), static_cast<const T*>(p), static_cast<const T*>(ap), n,
+                  static_cast<const T*>(rz), static_cast<const T*>(rr),
+                  static_cast<const int64_t*>(it), static_cast<const T*>(tol2),
+                  static_cast<const int64_t*>(max_iters), static_cast<T*>(sums),
+                  static_cast<T*>(partials));
+  }
+
+  static int dot_p(void* p, const void* r, const void* z, int64_t n, void* rz, void* rr, void* it,
+                   const void* tol2, const void* max_iters, void* sums, void* partials,
+                   cudaStream_t st) {
+    static Residency cache[kMaxDevices];
+    return launch_coop(dot_p_kernel<T, W>, cache, n / W, st, static_cast<T*>(p),
+                  static_cast<const T*>(r), static_cast<const T*>(z), n, static_cast<T*>(rz),
+                  static_cast<T*>(rr), static_cast<int64_t*>(it), static_cast<const T*>(tol2),
+                  static_cast<const int64_t*>(max_iters), static_cast<T*>(sums),
+                  static_cast<T*>(partials));
+  }
+};
+
+// f(Fused<T, W>{}) with T double (is_f64) or float and W the vector width
+// the pointers allow: one 16-B vector (2 doubles, 4 floats) or one element.
+template <typename F>
+int with_fused(int is_f64, bool vec, F f) {
+  if (is_f64) return vec ? f(Fused<double, 2>{}) : f(Fused<double, 1>{});
+  return vec ? f(Fused<float, 4>{}) : f(Fused<float, 1>{});
+}
+
 // A mask is tol2 and max_iters together, or neither.
 bool bad_mask(const void* tol2, const void* max_iters) {
   return (tol2 == nullptr) != (max_iters == nullptr);
@@ -350,10 +855,12 @@ bool bad_mask(const void* tol2, const void* max_iters) {
 
 // Every entry launches one kernel on `stream` and does not synchronise;
 // float64 (is_f64 != 0) or float32 vectors and sums, int64 it and max_iters;
-// `partials` holds 2 x 1024 elements and `ticket` one unsigned that is 0
-// between launches (the launch's last block sets it back).  Returns the
-// launch's error, else cudaGetLastError() after it (0 on success), or
-// cudaErrorInvalidValue for a bad size, form or mask.
+// `partials` holds 3 x 2048 elements and `ticket` (the phases') one unsigned
+// that is 0 between launches (the launch's last block sets it back).
+// Returns the launch's error, else cudaGetLastError() after it (0 on
+// success), or cudaErrorInvalidValue for a bad size, form or mask (and the
+// fused entries cudaErrorCooperativeLaunchTooLarge where the device cannot
+// launch cooperatively).
 
 // *out = a·c over n elements.
 extern "C" int cg_dot(int is_f64, const void* a, const void* c, int64_t n, void* out,
@@ -392,4 +899,50 @@ extern "C" int cg_p(int is_f64, int form, void* p, const void* r, const void* zi
                                      ticket, st)
                 : dispatch_p<float>(form, p, r, zin, n, rz, rr, it, tol2, max_iters, sums,
                                     ticket, st);
+}
+
+// The fused form: one cooperative launch each (no ticket).  Vectors all 16-B
+// aligned are loaded 16 B at a time, else one element at a time.
+
+// The whole iteration for M = I (form 0) or Jacobi (form 1, z = inv * r):
+// sums[0] = p·Ap, alpha = *rz / sums[0], x += alpha p, r -= alpha ap;
+// sums[1] = r·z and sums[2] = r·r of the new r; p = z + (sums[1] / *rz) p;
+// then *rz = sums[1], *rr = sums[2], *it += 1.  Masked by tol2 / max_iters
+// (NULL: unmasked); masked off, nothing is written.
+extern "C" int cg_step(int is_f64, int form, void* x, void* r, void* p, const void* ap,
+                       const void* inv, int64_t n, void* rz, void* rr, void* it, const void* tol2,
+                       const void* max_iters, void* sums, void* partials, void* stream) {
+  if (n <= 0 || bad_mask(tol2, max_iters) || (form != kIdentity && form != kJacobi) ||
+      (form == kJacobi) != (inv != nullptr))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_fused(is_f64, aligned16({x, r, p, ap, inv}), [&](auto l) {
+    using L = decltype(l);
+    auto step = form == kJacobi ? &L::template step<kJacobi> : &L::template step<kIdentity>;
+    return step(x, r, p, ap, inv, n, rz, rr, it, tol2, max_iters, sums, partials, st);
+  });
+}
+
+// The general form's first half: sums[0] = p·Ap, alpha = *rz / sums[0],
+// x += alpha p, r -= alpha ap, sums[2] = r·r of the new r.  Masked as cg_step.
+extern "C" int cg_dot_xr(int is_f64, void* x, void* r, const void* p, const void* ap, int64_t n,
+                         const void* rz, const void* rr, const void* it, const void* tol2,
+                         const void* max_iters, void* sums, void* partials, void* stream) {
+  if (n <= 0 || bad_mask(tol2, max_iters)) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_fused(is_f64, aligned16({x, r, p, ap}), [&](auto l) {
+    return decltype(l)::dot_xr(x, r, p, ap, n, rz, rr, it, tol2, max_iters, sums, partials, st);
+  });
+}
+
+// The second half, after z = M(r): sums[1] = r·z, p = z + (sums[1] / *rz) p;
+// then *rz = sums[1], *rr = sums[2], *it += 1.  Masked as cg_step.
+extern "C" int cg_dot_p(int is_f64, void* p, const void* r, const void* z, int64_t n, void* rz,
+                        void* rr, void* it, const void* tol2, const void* max_iters, void* sums,
+                        void* partials, void* stream) {
+  if (n <= 0 || bad_mask(tol2, max_iters)) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_fused(is_f64, aligned16({p, r, z}), [&](auto l) {
+    return decltype(l)::dot_p(p, r, z, n, rz, rr, it, tol2, max_iters, sums, partials, st);
+  });
 }

@@ -6,21 +6,20 @@ textbook preconditioned CG with the same stopping test, the residual
 iteration, and the same iteration count.  The JAX package runs the loop as a
 ``lax.while_loop`` on the device, and XLA fuses the body's vector work
 around the matvec into a few kernels.  Here every iteration is the matvec
-and F-2's three phases (``ops/cg_update.py``, the kernel of
-``csrc/cg_update.cu`` on a card): ``cg_dot`` (p·Ap), ``cg_xr`` (x and r in
-place, and the sums r·z and r·r of the new r) and ``cg_p`` (p in place, then
-rz, rr and the count); where M is the identity or Jacobi (:class:`Jacobi`)
-the kernels form z = inv * r themselves, any other preconditioner is applied
-between ``cg_xr`` and ``cg_p`` with ``cg_dot(r, z)`` after it.  The carry is
-``(x, r, p, rz, rr, it)``: the stop test reads the ``rr`` that ``cg_xr``
-summed (the JAX ``cond`` sums ``dot(r, r)`` of the same r again), and z, a
-function of r, is not carried.
+and F-2 (``ops/cg_update.py``, the kernel of ``csrc/cg_update.cu`` on a
+card).  On one device F-2 is its fused form: one cooperative launch,
+``cg_step``, where M is the identity or Jacobi (:class:`Jacobi`: the kernel
+forms z = inv * r in registers), and ``cg_dot_xr`` (p·Ap, x and r in place,
+r·r), M's apply and ``cg_dot_p`` (r·z, p, then rz, rr and the count) for any
+other preconditioner.  The carry is ``(x, r, p, rz, rr, it)``: the stop test
+reads the ``rr`` that F-2 summed (the JAX ``cond`` sums ``dot(r, r)`` of the
+same r again), and z, a function of r, is not carried.
 
 ``cg_solve`` runs its first ``CG_EAGER_ITERS`` iterations as the plain loop
 (``_cg_loop``'s, the stop test read on the host before each), and what is
-left in blocks of ``CG_BLOCK`` masked iterations: each phase reads ``active
-= rr > tol2 and it < max_iters`` on the device and writes nothing where it
-is false, and ``cg_p`` adds the iteration to the device count, so a block's
+left in blocks of ``CG_BLOCK`` masked iterations: each F-2 launch reads
+``active = rr > tol2 and it < max_iters`` on the device and writes nothing where it
+is false, and F-2 adds the iteration to the device count, so a block's
 launches do not depend on any value.  On the card a block is a captured CUDA
 graph (``utils.graphs.Loop``) and the host reads one flag after each block;
 on the CPU the same block runs eagerly.  A short solve thus pays no capture,
@@ -29,9 +28,11 @@ iteration changes nothing, so the iterations and x are the plain loop's, bit
 for bit.
 ``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
 group (``parallel/``): each rank holds a row block of A and the same block of
-every vector, F-2's sums are each rank's block and one ``all_reduce`` each
-time they are needed (``p·Ap`` after ``cg_dot``; ``[r·z, r·r]`` together before
-``cg_p``, as XLA's all-reduce combiner merges the JAX loop's psums), and
+every vector, and F-2 runs as three phases, ``cg_dot`` (p·Ap), ``cg_xr`` (x
+and r, then r·z and r·r) and ``cg_p`` (p, rz, rr, the count), its sums each
+rank's block and one ``all_reduce`` each time they are needed (``p·Ap`` after
+``cg_dot``; ``[r·z, r·r]`` together before ``cg_p``, as XLA's all-reduce
+combiner merges the JAX loop's psums), and
 the matvec takes the 1-hop halo exchange or the all-gather of x.  It runs the
 same ``CGBlocks`` (the JAX package jits its ``while_loop`` with the
 collectives inside): on the card each block is a captured graph that holds
@@ -105,7 +106,7 @@ def jacobi_preconditioner(csr: CSR) -> Jacobi:
 
 def _cg_start(matvec: Callable, M: Callable, b, x0, tol, reduce=None):
     """The initial carry (x, r, p, rz, rr, it) and tol2, as ``_cg_loop`` forms
-    them (p a copy of z, so that the phases may update it in place); each dot
+    them (p a copy of z, so that F-2 may update it in place); each dot
     is this rank's ``torch.dot`` completed by ``reduce`` (None: one device)."""
     def dot(a, c):
         s = torch.dot(a, c)
@@ -120,14 +121,22 @@ def _cg_start(matvec: Callable, M: Callable, b, x0, tol, reduce=None):
 
 
 def _step(matvec: Callable, M: Callable, reduce, tol2, max_iters, work: Work, carry):
-    """One CG iteration on ``carry`` in place: the matvec and F-2's phases,
-    masked by ``tol2`` and ``max_iters`` (None: unmasked); ``reduce`` (None:
-    one device) completes F-2's sums in place over the ranks."""
+    """One CG iteration on ``carry`` in place: the matvec and F-2, masked by
+    ``tol2`` and ``max_iters`` (None: unmasked).  On one device (``reduce``
+    None) F-2's fused form: ``cg_step`` where M is the identity or Jacobi,
+    else ``cg_dot_xr``, M and ``cg_dot_p``; over a mesh its three phases,
+    ``reduce`` completing their sums in place over the ranks between them."""
     x, r, p, rz, rr, it = carry
     ap = matvec(p)
+    if reduce is None:
+        if isinstance(M, Jacobi):
+            cg_update.cg_step(carry, ap, work, inv=M.inv, tol2=tol2, max_iters=max_iters)
+        else:
+            cg_update.cg_dot_xr(carry, ap, work, tol2=tol2, max_iters=max_iters)
+            cg_update.cg_dot_p(carry, M(r), work, tol2=tol2, max_iters=max_iters)
+        return carry
     cg_update.cg_dot(p, ap, work, cg_update.PAP)
-    if reduce is not None:
-        reduce(work.sums[:1])
+    reduce(work.sums[:1])
     if isinstance(M, Jacobi):
         cg_update.cg_xr(carry, ap, work, inv=M.inv, tol2=tol2, max_iters=max_iters)
         z = None
@@ -135,8 +144,7 @@ def _step(matvec: Callable, M: Callable, reduce, tol2, max_iters, work: Work, ca
         cg_update.cg_xr(carry, ap, work, with_rz=False, tol2=tol2, max_iters=max_iters)
         z = M(r)
         cg_update.cg_dot(r, z, work, cg_update.RZ)
-    if reduce is not None:
-        reduce(work.sums[1:])
+    reduce(work.sums[1:])
     cg_update.cg_p(carry, work, inv=M.inv if z is None else None, z=z, tol2=tol2,
                    max_iters=max_iters)
     return carry
@@ -173,7 +181,7 @@ def _more(carry, tol2, max_iters):
 def _masked_step(matvec, M, reduce, tol2, max_iters, carry, work: Optional[Work] = None):
     """One CG iteration where the stop test holds; the carry unchanged where
     not.  Updates ``carry`` in place and returns it; ``work`` is the scratch
-    of F-2's phases (a new one when None)."""
+    of F-2 (a new one when None)."""
     return _step(matvec, M, reduce, tol2, max_iters,
                  Work(carry[0]) if work is None else work, carry)
 

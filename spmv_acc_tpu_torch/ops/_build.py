@@ -51,6 +51,9 @@ SOURCES = {
         "cg_dot": [_I32, _P, _P, _I64, _P, _P, _P, _P],
         "cg_xr": [_I32, _I32, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
         "cg_p": [_I32, _I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+        "cg_step": [_I32, _I32, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+        "cg_dot_xr": [_I32, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+        "cg_dot_p": [_I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

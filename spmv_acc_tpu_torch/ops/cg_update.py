@@ -1,10 +1,26 @@
-"""F-2, the CG iteration's vector work around the matvec, in three phases.
+"""F-2, the CG iteration's vector work around the matvec.
 
 The JAX package jits its CG loop (``spmv_acc_tpu/models/cg.py::_cg_loop``,
 body :74-84, cond :70-72) and XLA fuses the body's vector work into a
 handful of kernels: the ``p·Ap`` reduction, one fused x/r/z update with its
 dot products, the p update.  The port's counterpart is the hand-written
-kernel of ``csrc/cg_update.cu``, one launch a phase:
+kernel of ``csrc/cg_update.cu`` in two forms.
+
+The fused single-device form, one cooperative launch for the whole
+iteration where M is the identity or Jacobi, two around any other M:
+
+* :func:`cg_step` -- ``sums[0] = p·Ap``, ``alpha = rz / sums[0]``,
+  ``x += alpha p``, ``r -= alpha Ap``, ``sums[1:] = [r·z, r·r]`` of the new r
+  with ``z = inv * r`` (Jacobi) or ``z = r``, ``p = z + (sums[1] / rz) p``,
+  then ``rz = sums[1]``, ``rr = sums[2]``, ``it += 1``;
+* :func:`cg_dot_xr` -- its first half for the general form: ``sums[0] =
+  p·Ap``, x and r, ``sums[2] = r·r``;
+* :func:`cg_dot_p` -- its second half, given ``z = M(r)``: ``sums[1] = r·z``,
+  p, then rz, rr and it.
+
+The three-phase form, for the distributed solve, whose all-reduces of the
+sums sit between the phases (``sums[:1]`` after ``cg_dot``, ``sums[1:]``
+before ``cg_p``):
 
 * :func:`cg_dot` -- ``sums[slot] = a·c`` (``p·Ap``; ``r·z`` in the general
   form);
@@ -17,22 +33,22 @@ kernel of ``csrc/cg_update.cu``, one launch a phase:
   ``rr = sums[2]``, ``it += 1``.
 
 The carry is ``(x, r, p, rz, rr, it)``; z is a function of r and is not
-carried.  With ``tol2`` and ``max_iters`` (0-d tensors) a phase is masked:
+carried.  With ``tol2`` and ``max_iters`` (0-d tensors) a call is masked:
 ``active = rr > tol2 and it < max_iters``, read from the carry as the
-previous iteration left it, and where it is false the phase writes nothing
-to x, r, p, rz, rr, it or ``sums``.  A phase reads no device value on the
-host.  ``Work`` holds one solve's scratch: the three sums, which a
-distributed solve all-reduces between the phases (``sums[:1]`` after
-``cg_dot``, ``sums[1:]`` before ``cg_p``), and on the card the kernels'
-block partials and ticket.
+previous iteration left it, and where it is false the call writes nothing
+to x, r, p, rz, rr, it or ``sums`` (``cg_dot`` alone is never masked).  A call
+reads no device value on the host.  ``Work`` holds one solve's scratch: the
+three sums and on the card the kernels' block partials and the phases'
+ticket.
 
-Each phase launches the kernel for CUDA tensors and runs its plain PyTorch
+Each entry launches the kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``: ``torch.dot`` and the eager expressions, masked with
-``torch.where``) for CPU tensors; there is no fallback from one to the other.
-The kernel rounds each elementwise operation as the plain version does (no
-contracted FMA), so given the same sums x, r and p are the same bits; the
-dot products are summed in another order (block partials folded in a fixed
-order, so two launches give the same bits).
+``torch.where``; the fused ones are the phases' in sequence) for CPU
+tensors; there is no fallback from one to the other.  The kernel rounds each
+elementwise operation as the plain version does (no contracted FMA), so
+given the same sums x, r and p are the same bits; the dot products are
+summed in another order (block partials folded in a fixed order, so two
+launches give the same bits).
 """
 
 from __future__ import annotations
@@ -43,31 +59,33 @@ from typing import Optional
 
 import torch
 
-__all__ = ["LAUNCHES", "PAP", "RZ", "RR", "Work", "cg_dot", "cg_dot_plain", "cg_xr",
+__all__ = ["LAUNCHES", "PAP", "RZ", "RR", "Work", "cg_step", "cg_step_plain", "cg_dot_xr",
+           "cg_dot_xr_plain", "cg_dot_p", "cg_dot_p_plain", "cg_dot", "cg_dot_plain", "cg_xr",
            "cg_xr_plain", "cg_p", "cg_p_plain", "eager_step"]
 
-# Launches in this process by (dtype, phase): ("f64" | "f32", "dot" | "xr" | "p").
+# Launches in this process by (dtype, entry): ("f64" | "f32", "step" | "dot_xr" |
+# "dot_p" | "dot" | "xr" | "p").
 # Only the launch sites add to it (and a captured graph's replays,
 # utils/graphs.py); set to 0 with ``.clear()`` to count a run.
 LAUNCHES: collections.Counter = collections.Counter()
 
 PAP, RZ, RR = 0, 1, 2  # the slots of Work.sums
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
-_MAX_BLOCKS = 1024  # csrc/cg_update.cu kMaxBlocks: the partials of one sum
+_MAX_BLOCKS = 2048  # csrc/cg_update.cu kMaxBlocks: the partials of one sum
 # the kernels' z: r itself, inv * r, or read (csrc/cg_update.cu Form)
 _IDENTITY, _JACOBI, _READ = 0, 1, 2
 
 
 class Work:
     """The scratch of one CG solve on the device of ``like``: ``sums``
-    ``[p·Ap, r·z, r·r]`` in its dtype, and on the card the block partials (two
-    sums' worth) and the integer ticket the last block of a launch takes."""
+    ``[p·Ap, r·z, r·r]`` in its dtype, and on the card the block partials (three
+    sums' worth) and the integer ticket the last block of a phase takes."""
 
     def __init__(self, like: torch.Tensor):
         self.sums = torch.zeros(3, dtype=like.dtype, device=like.device)
         self.partials = self.ticket = None
         if like.device.type == "cuda":
-            self.partials = torch.empty(2 * _MAX_BLOCKS, dtype=like.dtype, device=like.device)
+            self.partials = torch.empty(3 * _MAX_BLOCKS, dtype=like.dtype, device=like.device)
             self.ticket = torch.zeros(1, dtype=torch.int32, device=like.device)
 
 
@@ -112,6 +130,29 @@ def cg_p_plain(carry, work: Work, inv=None, z=None, tol2=None, max_iters=None) -
     _masked(act, work.sums[RZ], rz)
     _masked(act, work.sums[RR], rr)
     it.add_(1 if act is None else act.to(it.dtype))
+
+
+def cg_step_plain(carry, ap, work: Work, inv=None, tol2=None, max_iters=None) -> None:
+    """:func:`cg_dot_plain` (p·Ap, masked as the kernel masks it),
+    :func:`cg_xr_plain` and :func:`cg_p_plain` in sequence."""
+    x, r, p, rz, rr, it = carry
+    _masked(_active(rr, it, tol2, max_iters), torch.dot(p, ap), work.sums[PAP])
+    cg_xr_plain(carry, ap, work, inv, True, tol2, max_iters)
+    cg_p_plain(carry, work, inv, None, tol2, max_iters)
+
+
+def cg_dot_xr_plain(carry, ap, work: Work, tol2=None, max_iters=None) -> None:
+    """:func:`cg_dot_plain` (p·Ap, masked) and :func:`cg_xr_plain` without r·z."""
+    x, r, p, rz, rr, it = carry
+    _masked(_active(rr, it, tol2, max_iters), torch.dot(p, ap), work.sums[PAP])
+    cg_xr_plain(carry, ap, work, None, False, tol2, max_iters)
+
+
+def cg_dot_p_plain(carry, z, work: Work, tol2=None, max_iters=None) -> None:
+    """:func:`cg_dot_plain` (r·z, masked) and :func:`cg_p_plain` with z read."""
+    x, r, p, rz, rr, it = carry
+    _masked(_active(rr, it, tol2, max_iters), torch.dot(r, z), work.sums[RZ])
+    cg_p_plain(carry, work, None, z, tol2, max_iters)
 
 
 def eager_step(carry, ap, M, tol2=None, max_iters=None):
@@ -247,3 +288,53 @@ def cg_p(carry, work: Work, inv: Optional[torch.Tensor] = None, z: Optional[torc
     _launch("p", first, "cg_p", form, _ptr(p), _ptr(r), _ptr(z if z is not None else inv),
             p.numel(), _ptr(rz), _ptr(rr), _ptr(it), _ptr(tol2), _ptr(max_iters),
             _ptr(work.sums), _ptr(work.ticket))
+
+
+def cg_step(carry, ap: torch.Tensor, work: Work, inv: Optional[torch.Tensor] = None, tol2=None,
+            max_iters=None) -> None:
+    """The whole iteration's vector work in place for M = I (``inv`` None) or
+    Jacobi (``z = inv * r``): x, r, p and rz, rr, it, and ``sums`` as the
+    phases leave them; masked by ``tol2`` and ``max_iters`` (module
+    docstring).  Launches ``cg_step`` of ``csrc/cg_update.cu`` (one cooperative
+    launch) for CUDA tensors, runs :func:`cg_step_plain` for CPU tensors."""
+    x, r, p, rz, rr, it = carry
+    vectors = [("x", x), ("r", r), ("p", p), ("ap", ap)] + ([] if inv is None else
+                                                          [("inv", inv)])
+    first = _check("cg_step", vectors, [("rz", rz), ("rr", rr), ("it", it)], tol2, max_iters,
+                   work)
+    if _device("cg_step", first) == "cpu":
+        return cg_step_plain(carry, ap, work, inv, tol2, max_iters)
+    _launch("step", first, "cg_step", _IDENTITY if inv is None else _JACOBI, _ptr(x), _ptr(r),
+            _ptr(p), _ptr(ap), _ptr(inv), x.numel(), _ptr(rz), _ptr(rr), _ptr(it), _ptr(tol2),
+            _ptr(max_iters), _ptr(work.sums), _ptr(work.partials))
+
+
+def cg_dot_xr(carry, ap: torch.Tensor, work: Work, tol2=None, max_iters=None) -> None:
+    """The general form's first half in place: ``sums[0] = p·Ap``, x += alpha
+    p and r -= alpha Ap (``alpha = rz / sums[0]``), ``sums[2] = r·r`` of the
+    new r; masked by ``tol2`` and ``max_iters``.  Launches ``cg_dot_xr`` (one
+    cooperative launch) for CUDA tensors, runs :func:`cg_dot_xr_plain` for
+    CPU tensors."""
+    x, r, p, rz, rr, it = carry
+    first = _check("cg_dot_xr", [("x", x), ("r", r), ("p", p), ("ap", ap)],
+                   [("rz", rz), ("rr", rr), ("it", it)], tol2, max_iters, work)
+    if _device("cg_dot_xr", first) == "cpu":
+        return cg_dot_xr_plain(carry, ap, work, tol2, max_iters)
+    _launch("dot_xr", first, "cg_dot_xr", _ptr(x), _ptr(r), _ptr(p), _ptr(ap), x.numel(),
+            _ptr(rz), _ptr(rr), _ptr(it), _ptr(tol2), _ptr(max_iters), _ptr(work.sums),
+            _ptr(work.partials))
+
+
+def cg_dot_p(carry, z: torch.Tensor, work: Work, tol2=None, max_iters=None) -> None:
+    """The general form's second half in place, given ``z = M(r)``:
+    ``sums[1] = r·z``, p = z + (sums[1] / rz) p, then rz = sums[1], rr =
+    sums[2] and it += 1; masked by ``tol2`` and ``max_iters``.  Launches
+    ``cg_dot_p`` (one cooperative launch) for CUDA tensors, runs
+    :func:`cg_dot_p_plain` for CPU tensors."""
+    x, r, p, rz, rr, it = carry
+    first = _check("cg_dot_p", [("p", p), ("r", r), ("z", z)], [("rz", rz), ("rr", rr),
+                                                               ("it", it)], tol2, max_iters, work)
+    if _device("cg_dot_p", first) == "cpu":
+        return cg_dot_p_plain(carry, z, work, tol2, max_iters)
+    _launch("dot_p", first, "cg_dot_p", _ptr(p), _ptr(r), _ptr(z), p.numel(), _ptr(rz),
+            _ptr(rr), _ptr(it), _ptr(tol2), _ptr(max_iters), _ptr(work.sums), _ptr(work.partials))

@@ -205,17 +205,20 @@ def _masked_step_without_host_reads(csr, b) -> list:
     clean = []
     for name, (matvec, b_local) in matvecs.items():
         b_local = torch.as_tensor(b_local).contiguous()
-        # the distributed solvers' M = I (z formed by F-2), then a general M
-        for M in (Jacobi(None), lambda r: r):
-            carry, tol2 = _cg_start(matvec, M, b_local, torch.zeros_like(b_local), 1e-12,
-                                    reduce)
-            max_iters = torch.tensor(10)
-            saved = torch.Tensor.item, torch.Tensor.__bool__
-            torch.Tensor.item = torch.Tensor.__bool__ = refuse
-            try:
-                _masked_step(matvec, M, reduce, tol2, max_iters, carry)
-            finally:
-                torch.Tensor.item, torch.Tensor.__bool__ = saved
+        inv = torch.linspace(0.5, 2.0, b_local.numel(), dtype=b_local.dtype)
+        # M = I (the distributed solvers'), Jacobi and a general M, each with the
+        # all-reduced sums (F-2's phases) and with this rank's own (its fused form)
+        for M in (Jacobi(None), Jacobi(inv.to(b_local.device)), lambda r: r):
+            for red in (reduce, None):
+                carry, tol2 = _cg_start(matvec, M, b_local, torch.zeros_like(b_local), 1e-12,
+                                        red)
+                max_iters = torch.tensor(10)
+                saved = torch.Tensor.item, torch.Tensor.__bool__
+                torch.Tensor.item = torch.Tensor.__bool__ = refuse
+                try:
+                    _masked_step(matvec, M, red, tol2, max_iters, carry)
+                finally:
+                    torch.Tensor.item, torch.Tensor.__bool__ = saved
         clean.append(name)
     return clean
 
@@ -244,9 +247,10 @@ def rank_cases(cases: list) -> list:
       ``steps`` times from ones by a ``utils.graphs.Loop`` and by a Python
       loop: (both results in global rows);
     - ``masked_step``: ``csr`` (square), ``b``: one masked CG iteration
-      (``models.cg._masked_step``, M = I and a general M) with the
-      all-reduced sums, over the all-gather and the halo ``dist_spmv``
-      matvec and ``dist_swell``'s,
+      (``models.cg._masked_step``, M = I, Jacobi and a general M) with the
+      all-reduced sums (F-2's phases) and with this rank's own (its fused
+      form), over the all-gather and the halo ``dist_spmv`` matvec and
+      ``dist_swell``'s,
       with ``torch.Tensor.item`` and ``__bool__`` raising: the names of the
       matvecs whose step ran without a host read;
     - ``context``: ``init_distributed()``'s fields, the halo_feasible of

@@ -1131,10 +1131,11 @@ def test_cg_update_phases_match_plain_on_card(cuda_device, dtype, n, form, mask)
                                           ("ilu sweeps", torch.float64),
                                           ("none", torch.float32), ("jacobi", torch.float32)])
 def test_cg_solve_launches_f2_on_card(cuda_device, monkeypatch, precond, dtype):
-    """cg_solve on the card runs F-2 at every iteration, plain and masked
-    (counted per phase; the general form launches cg_dot twice an iteration),
-    and the captured blocks give the eager loop's iterations and x bit for
-    bit, in both dtypes."""
+    """cg_solve on the card runs F-2's fused form at every iteration, plain
+    and masked: one cg_step launch an iteration with M = I or Jacobi,
+    cg_dot_xr and cg_dot_p around M with ILU, and no phase; the captured
+    blocks give the eager loop's iterations and x bit for bit, in both
+    dtypes."""
     from spmv_acc_tpu_torch.models import cg
     from spmv_acc_tpu_torch.ops import cg_update, swell
     from spmv_acc_tpu_torch.ops import trisolve as tri
@@ -1155,17 +1156,21 @@ def test_cg_solve_launches_f2_on_card(cuda_device, monkeypatch, precond, dtype):
         got = cg.cg_solve(csr, b, tol=tol, max_iters=2000, strategy="swell", precond=pre)
         torch.cuda.synchronize()
         dk = "f64" if dtype == torch.float64 else "f32"
-        steps = cg_update.LAUNCHES[(dk, "xr")]
+        keys = ["dot_xr", "dot_p"] if precond == "ilu sweeps" else ["step"]
+        steps = cg_update.LAUNCHES[(dk, keys[0])]
         assert got.iters == eager.iters and torch.equal(got.x, eager.x)
-        assert steps >= got.iters > 0 and cg_update.LAUNCHES[(dk, "p")] == steps
-        assert cg_update.LAUNCHES[(dk, "dot")] == steps * (2 if precond == "ilu sweeps" else 1)
-        assert set(cg_update.LAUNCHES) == {(dk, "dot"), (dk, "xr"), (dk, "p")}
+        assert steps >= got.iters > 0
+        if eager_iters:
+            assert steps == got.iters
+        assert dict(cg_update.LAUNCHES) == {(dk, k): steps for k in keys}
 
 
 @pytest.mark.cuda
 def test_dist_cg_launches_f2_on_card(nccl_group, monkeypatch):
-    """dist_cg_solve over NCCL at world size 1, plain and captured: F-2 at
-    every iteration, the same iterations and x."""
+    """dist_cg_solve over NCCL at world size 1, plain and captured: F-2's
+    three phases at every iteration (cg_dot, cg_xr, cg_p: three launches,
+    the all-reduces between them), never the fused form; the same
+    iterations and x."""
     from spmv_acc_tpu_torch.cli.solve import spdize
     from spmv_acc_tpu_torch.formats import banded_csr
     from spmv_acc_tpu_torch.formats.containers import CSR
@@ -1185,6 +1190,155 @@ def test_dist_cg_launches_f2_on_card(nccl_group, monkeypatch):
         cg_update.LAUNCHES.clear()
         runs.append(cg.dist_cg_solve(pa, pad_vector(pa, b), mesh, tol=1e-10, max_iters=500))
         torch.cuda.synchronize()
-        assert cg_update.LAUNCHES[("f64", "xr")] >= runs[-1].iters > 0
+        steps = cg_update.LAUNCHES[("f64", "xr")]
+        assert steps >= runs[-1].iters > 0
+        assert dict(cg_update.LAUNCHES) == {("f64", k): steps for k in ("dot", "xr", "p")}
     assert runs[0].iters == runs[1].iters
     assert float((runs[1].x - runs[0].x).norm() / runs[0].x.norm()) <= 1e-12
+
+
+# ---- F-2's fused form (cg_step, cg_dot_xr, cg_dot_p) against its plain version
+
+def _fused_inputs(device, dtype, n, form, mask, seed, misaligned):
+    """A random carry of n rows (views one element into their storage where
+    ``misaligned``: not 16-B aligned), Ap, inv (Jacobi) or z (general), the
+    mask none / active / off by tol2 / off by max_iters, and the sums."""
+    rng = np.random.default_rng(seed)
+    k = int(misaligned)
+
+    def vec(lo=-1.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, n + k)).to(device, dtype)[k:]
+
+    def scalar(v, dt=dtype):
+        return torch.tensor(v, dtype=dt, device=device)
+
+    carry = (vec(), vec(), vec(), scalar(rng.uniform(0.5, 2.0)), scalar(rng.uniform(0.5, 2.0)),
+             scalar(5, torch.int64))
+    ap = vec()
+    inv = vec(0.5, 2.0) if form == "jacobi" else None
+    z = vec() if form == "general" else None
+    rr = float(carry[4])
+    tol2 = {"none": None, "active": scalar(0.5 * rr), "off by tol2": scalar(2.0 * rr),
+            "off by max_iters": scalar(0.5 * rr)}[mask]
+    max_iters = None if mask == "none" else scalar(5 if mask == "off by max_iters" else 100,
+                                                   torch.int64)
+    sums = torch.from_numpy(rng.uniform(0.5, 2.0, 3)).to(device, dtype)
+    return carry, ap, inv, z, tol2, max_iters, sums
+
+
+def _run_fused(cu, carry, ap, inv, z, tol2, max_iters, sums):
+    """The fused form on a copy of ``carry``: (the carry, the sums)."""
+    c = tuple(t.clone() for t in carry)
+    w = cu.Work(carry[0])
+    w.sums.copy_(sums)
+    if z is None:
+        cu.cg_step(c, ap, w, inv, tol2, max_iters)
+    else:
+        cu.cg_dot_xr(c, ap, w, tol2, max_iters)
+        cu.cg_dot_p(c, z, w, tol2, max_iters)
+    return c, w.sums
+
+
+def check_fused(cu, carry, ap, inv, z, tol2, max_iters, sums):
+    """The fused kernel against its plain version from one carry, or an
+    AssertionError: the sums within 1e-12 (float64) or 1e-5 (float32) of
+    sum|a_i c_i| of the plain version's (p·Ap from the same p and Ap; r·z and
+    r·r of the same new r, another summation order); x, r and p within 1e-12
+    (|alpha||p| + |x|) elementwise plus one float32 ulp of the plain
+    version's given the kernel's sums (the same IEEE operations); rz, rr and
+    it the kernel's sums and the count.  Masked off: nothing written.  Two
+    launches: the same bits.  Returns max|kernel - plain| of x, r, p."""
+    f32 = carry[0].dtype == torch.float32
+    dot_tol = 1e-5 if f32 else 1e-12
+    ulp = torch.finfo(torch.float32).eps if f32 else 0.0
+    got, ks = _run_fused(cu, carry, ap, inv, z, tol2, max_iters, sums)
+    got2, ks2 = _run_fused(cu, carry, ap, inv, z, tol2, max_iters, sums)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got + (ks,), got2 + (ks2,))), "two launches"
+    active = tol2 is None or bool((carry[4] > tol2) & (carry[5] < max_iters))
+    if not active:
+        assert all(torch.equal(a, b) for a, b in zip(got + (ks,), carry + (sums,))), "masked"
+        return 0.0
+    # the plain version given the kernel's sums
+    want, w = tuple(t.clone() for t in carry), cu.Work(carry[0])
+    w.sums.copy_(ks)
+    cu.cg_xr_plain(want, ap, w, inv, z is None, tol2, max_iters)
+    plain_sums = w.sums.clone()
+    w.sums[1:] = ks[1:]
+    cu.cg_p_plain(want, w, inv, z, tol2, max_iters)
+    rn = want[1]
+    zn = z if z is not None else (rn if inv is None else inv * rn)
+    pap = torch.dot(carry[2], ap)
+    for k, (got_s, want_s, scale) in enumerate((
+            (ks[0], pap, (carry[2] * ap).abs().sum()),
+            (ks[1], torch.dot(rn, zn), (rn * zn).abs().sum()),
+            (ks[2], plain_sums[2], (rn * rn).sum()))):
+        assert abs(float(got_s - want_s)) <= dot_tol * float(scale), f"sums[{k}]"
+    alpha = (carry[3] / ks[0]).abs()
+    beta = (ks[1] / carry[3]).abs()
+    gaps = []
+    for name, g, wv, scale in (("x", got[0], want[0], alpha * carry[2].abs() + carry[0].abs()),
+                               ("r", got[1], want[1], alpha * ap.abs() + carry[1].abs()),
+                               ("p", got[2], want[2], beta * carry[2].abs() + zn.abs())):
+        gap = (g - wv).abs()
+        gaps.append(float(gap.max()))
+        assert bool((gap <= 1e-12 * scale + ulp * wv.abs()).all()), name
+    assert torch.equal(got[3], ks[1]) and torch.equal(got[4], ks[2]) and int(got[5]) == 6
+    return max(gaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,misaligned", [(23560, False), (262144, False), (4194319, False),
+                                          (100003, False), (262144, True), (77, True)])
+@pytest.mark.parametrize("form", ["identity", "jacobi", "general"])
+@pytest.mark.parametrize("mask", ["none", "active", "off by tol2", "off by max_iters"])
+def test_fused_cg_update_matches_plain_on_card(cuda_device, dtype, n, misaligned, form, mask):
+    """cg_step (identity, Jacobi) and cg_dot_xr + cg_dot_p (general) against
+    their plain versions (``check_fused``) at af23560's and aniso 512^2's n,
+    past what the grid holds in registers (4,194,319: the walk that reads
+    again), an odd n (the ragged tail) and views that are not 16-B aligned
+    (one element at a time); each launch counted once."""
+    from spmv_acc_tpu_torch.ops import cg_update as cu
+
+    args = _fused_inputs(cuda_device, dtype, n, form, mask, n + len(form) + len(mask), misaligned)
+    assert misaligned == (args[0][0].data_ptr() % 16 != 0)
+    cu.LAUNCHES.clear()
+    check_fused(cu, *args)
+    dk = "f64" if dtype == torch.float64 else "f32"
+    keys = ["dot_xr", "dot_p"] if form == "general" else ["step"]
+    assert dict(cu.LAUNCHES) == {(dk, k): 2 for k in keys}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["jacobi", "general"])
+def test_fused_cg_update_captured_on_card(cuda_device, form):
+    """A CUDA graph of 12 captured fused steps (the last 3 masked off by
+    max_iters) replays to the bits of the same 12 steps launched from the
+    host."""
+    from spmv_acc_tpu_torch.ops import cg_update as cu
+
+    carry, ap, inv, z, tol2, _, _ = _fused_inputs(cuda_device, torch.float64, 262144, form,
+                                                  "active", 3, False)
+    max_iters = torch.tensor(5 + 9, dtype=torch.int64, device=cuda_device)
+
+    def steps(c, w):
+        for _ in range(12):
+            if z is None:
+                cu.cg_step(c, ap, w, inv, tol2, max_iters)
+            else:
+                cu.cg_dot_xr(c, ap, w, tol2, max_iters)
+                cu.cg_dot_p(c, z, w, tol2, max_iters)
+
+    host, wh = tuple(t.clone() for t in carry), cu.Work(carry[0])
+    steps(host, wh)
+    graphed, wg = tuple(t.clone() for t in carry), cu.Work(carry[0])
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        steps(graphed, wg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(graphed, carry))  # captured, not run
+    g.replay()
+    torch.cuda.synchronize()
+    assert int(host[5]) == 14
+    assert all(torch.equal(a, b) for a, b in zip(graphed + (wg.sums,), host + (wh.sums,)))
