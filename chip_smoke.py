@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the repo root on a machine with a Hopper card, ``nvcc`` and a C++
-compiler.  It builds the six kernel sources of ``spmv_acc_tpu_torch/csrc``
+compiler.  It builds the seven kernel sources of ``spmv_acc_tpu_torch/csrc``
 (swell with its plane form, tile, ELL row sum, plane split, the chain's
-feedback F-1, the CG update F-2; one nvcc each, all at once), holds every
+feedback F-1, the CG update F-2, the triangular solves F-3; one nvcc each,
+all at once), holds every
 variant the port launches against its plain PyTorch version (swell at
 float64 and float32, BSR r = 1..4, k = 1, 3, 8 columns; the
 tile and ELL kernels, the plane split (bit for bit) and the plane-form swell at
@@ -33,7 +34,8 @@ seconds and graph memory, the launches of every replay counted) and F-1
 ``solver`` phase holds ``cg_solve``'s captured blocks against the eager loop
 (the recorded iterations 10 / 4 on Ga41As41H72-SPD and 1347 / 417 on aniso,
 Jacobi / ILU; x bit for bit; µs an iteration), captures a CG block over
-the exact chunk-scheduled ILU apply, holds F-2 (``csrc/cg_update.cu``, the
+the exact ILU apply (two F-3 launches an apply; x bit for bit the eager
+loop's), holds F-2 (``csrc/cg_update.cu``, the
 CG update around the matvec: the fused single-device form and the three
 phases) against its plain versions at every shape a CG of the smoke runs at
 (Ga41As41H72-SPD, aniso, af23560 and the distributed shard of 1 M rows),
@@ -41,7 +43,14 @@ times both at the aniso shape beside the bound, and counts F-2's launches
 by route in every CG it runs (``cg_solve``, the bench's
 ``bench_solver_aniso`` and ``spmv-solve``: ``cg_step`` once an iteration,
 or ``cg_dot_xr`` and ``cg_dot_p`` around ILU; in the ``dist`` phase
-``dist_swell_cg_solve``, 39 iterations at m = 1 M: the three phases).  Every swell layout the
+``dist_swell_cg_solve``, 39 iterations at m = 1 M: the three phases).  The
+``trisolve`` phase holds F-3 (``csrc/trisolve.cu``: ``tri_levels``, the exact
+solve over the level schedule, and ``tri_sweeps``, the Jacobi sweeps) bit
+for bit against its plain versions on the exact ILU(0) factors of aniso
+512^2, dw4096-SPD and af23560-SPD in both dtypes, times both beside the
+bounds and ``torch.triangular_solve`` on the sparse factor, and drives
+``cg_solve`` with the exact ILU on dw4096-SPD and af23560-SPD and with
+``ilu0(sweeps=3)`` gather sweeps on aniso.  Every swell layout the
 run builds goes to the disk plan cache in a fresh directory under ``build/``
 that the run deletes at its end: the ``plan-cache`` phase drops the process's
 caches and runs boneS10 and TSOPF_RS_b2383 again from the saved layouts (the
@@ -1248,6 +1257,225 @@ def f2_phase(dev, card, records, inv, bound_of, loop_us, main_launches, flush_bu
           f"PyTorch call computes it; card: {card}")
 
 
+def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
+    """F-3 (``csrc/trisolve.cu``, the ILU(0) triangular solves) at full size:
+    the exact ILU(0) factors of aniso 512^2 (1023 levels a factor), dw4096-SPD
+    and af23560-SPD.  For every factor, in float64 and float32: ``trisolve``
+    (``tri_levels``) and ``trisolve_sweeps`` with 3 sweeps (``tri_sweeps``)
+    bit for bit against their plain versions run on a CPU copy of the plan,
+    two launches the same bits.  Then device µs a call (a replayed graph of
+    20) of each kernel beside its plain version on the card, the bound (the
+    factor's bytes over the HBM rate; the level chain: levels x the µs a
+    level of ``tri_levels`` on a 4096-level chain of one row each), and
+    PyTorch's ``torch.triangular_solve`` on the sparse CSR factor (cuSPARSE),
+    or its refusal; the exact ILU apply at aniso against its plain version.
+    The main paths, their counts set to 0 just before: ``cg_solve`` with the
+    exact ILU on dw4096-SPD and af23560-SPD (the ``trisolve_f64`` record's
+    launches: dw4096-SPD's) and, at aniso, ``ilu0(sweeps=3)`` with
+    ``ILU_SWELL_MIN`` raised past its factors (the gather sweeps:
+    ``tri_sweeps_f64``'s)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import spmv_acc_tpu_torch as port
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import generate as gen
+    from spmv_acc_tpu_torch.models.cg import cg_solve
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+    from spmv_acc_tpu_torch.ops.golden import host_spmv
+    from spmv_acc_tpu_torch.utils import cuda_time_us
+    from spmv_acc_tpu_torch.utils.timer import graph_us
+
+    def cpu_copy(plan):
+        """The plan with its tensors on the CPU (its own cast cache)."""
+        tensors = {f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
+                   if isinstance(getattr(plan, f.name), torch.Tensor)}
+        return dataclasses.replace(plan, _cast={}, **tensors)
+
+    def spd_system(name):
+        rp, ci, v, (m, _) = gen.example_like(name).to_numpy()
+        rp2, ci2, v2 = spdize(rp.astype(np.int64), ci.astype(np.int64), v, m)
+        csr = port.CSR.from_numpy(rp2, ci2, v2, (m, m), device=dev)
+        x_true = np.random.default_rng(5).standard_normal(m)
+        b = torch.from_numpy(host_spmv(1.0, 0.0, rp2, ci2, v2, x_true, np.zeros(m))).to(dev)
+        return csr, b, x_true
+
+    def factor_bytes(plan, item=8):
+        """What one solve must move: the factor in CSR (a value and a 4-B
+        column a dependency, the row pointer, the diagonal unless unit), b
+        read and y written."""
+        diag = 0 if plan.lower else item * plan.m
+        return plan.num_deps * (item + 4) + 4 * (plan.m + 1) + diag + 2 * item * plan.m
+
+    def factor_csr(plan):
+        """The factor as a sparse CSR tensor on the card: the strict part and,
+        for U, the diagonal (L's unit diagonal is not stored)."""
+        rows, cols, vals = plan.dep_rows, plan.dep_cols, plan.dep_vals
+        if not plan.lower:
+            ar = torch.arange(plan.m, device=dev)
+            rows, cols, vals = torch.cat([rows, ar]), torch.cat([cols, ar]), torch.cat(
+                [vals, plan.diag])
+        order = torch.argsort(rows * plan.m + cols)
+        crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          torch.cumsum(torch.bincount(rows, minlength=plan.m), 0)])
+        return torch.sparse_csr_tensor(crow, cols[order], vals[order], size=(plan.m, plan.m))
+
+    def library(plan, b, y):
+        """(ms a call, text) of torch.triangular_solve on the CSR factor."""
+        try:
+            mat = factor_csr(plan)
+            fn = lambda: torch.triangular_solve(  # noqa: E731
+                b.unsqueeze(1), mat, upper=not plan.lower, unitriangular=plan.lower)[0]
+            got = fn()[:, 0]
+            torch.cuda.synchronize()
+            gap = float((got - y).abs().max() / y.abs().max())
+            ms = cuda_time_us(fn) / 1e3
+            return ms, (f"torch.triangular_solve on the sparse CSR factor (cuSPARSE, its "
+                        f"analysis in every call) {ms!r} ms a call, max|lib - F-3| / max|y| "
+                        f"{gap!r}")
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            return None, f"torch.triangular_solve on the sparse CSR factor refused: {e}"
+
+    # the level chain: one row a level, one dependency a row, the one-block form
+    nch = 4096
+    rp_c = np.r_[0, 1, np.arange(3, 2 * nch, 2)]
+    ci_c = np.r_[0, np.stack([np.arange(nch - 1), np.arange(1, nch)], 1).ravel()]
+    chain = tri.analyze_trisolve(rp_c, ci_c, np.ones(len(ci_c)), (nch, nch), lower=True,
+                                 unit_diag=False, device=dev)
+    if chain.num_levels != nch or chain.widest_level != 1:
+        fail("the level chain's plan is not a chain")
+    cb = torch.ones(nch, dtype=torch.float64, device=dev)
+    us_level = graph_us(lambda: tri.trisolve(chain, cb), calls=5) / nch
+    phase("trisolve", f"the level chain: {nch} levels of one row, tri_levels (one block) "
+          f"{us_level * nch!r} us a call in a replayed graph of 5, {us_level!r} us a level; "
+          f"card: {card}")
+
+    systems = {"aniso 512^2": (acsr, ab, None)}
+    for name in ("dw4096", "af23560"):
+        systems[f"{name}-SPD"] = spd_system(name)
+    facts = {}
+    rng = np.random.default_rng(15)
+    for label, (csr, b, _) in systems.items():
+        t0 = time.perf_counter()
+        fact = facts[label] = tri.ilu0(csr, sweeps=0)
+        torch.cuda.synchronize()
+        t_fact = time.perf_counter() - t0
+        for fname, plan in (("L", fact.l_plan), ("U", fact.u_plan)):
+            cplan = cpu_copy(plan)
+            bh = torch.from_numpy(rng.uniform(-1, 1, plan.m))
+            form = "grid" if plan.widest_level > tri._BLOCK_MAX else "one block"
+            for dtype in (torch.float64, torch.float32):
+                bc = bh.to(dtype)
+                bd = bc.to(dev)
+                tri.LAUNCHES.clear()
+                y1, y2 = tri.trisolve(plan, bd), tri.trisolve(plan, bd)
+                s1, s2 = tri.trisolve_sweeps(plan, bd, 3), tri.trisolve_sweeps(plan, bd, 3)
+                torch.cuda.synchronize()
+                launched = dict(tri.LAUNCHES)
+                want, want_s = tri.trisolve_plain(cplan, bc), tri.trisolve_sweeps_plain(
+                    cplan, bc, 3)
+                same = (torch.equal(y1.cpu(), want) and torch.equal(y1, y2)
+                        and torch.equal(s1.cpu(), want_s) and torch.equal(s1, s2))
+                finite = bool(torch.isfinite(y1).all() and torch.isfinite(s1).all())
+                phase("trisolve", f"{label} {fname} ({plan.m} rows, {plan.num_deps} "
+                      f"dependencies, at most {int(plan.dep_len.max())} a row, "
+                      f"{plan.num_levels} levels, widest {plan.widest_level}: {form}) "
+                      f"{str(dtype)[6:]}: tri_levels and tri_sweeps (3) bit for bit their "
+                      f"plain versions on a CPU copy, two launches the same bits: {same}; "
+                      f"finite: {finite}; launches {launched}")
+                if not same or not finite:
+                    fail(f"{label} {fname} {dtype}: F-3 differs from its plain version")
+                if sum(launched.values()) != 4:
+                    fail(f"{label} {fname}: F-3 did not launch once a solve")
+        phase("trisolve", f"{label}: ilu0(sweeps=0) factor and plans {t_fact!r} s")
+
+    # device µs a call beside the plain versions, the bounds and the library
+    for label in ("aniso 512^2", "dw4096-SPD", "af23560-SPD"):
+        fact = facts[label]
+        for fname, plan in (("L", fact.l_plan), ("U", fact.u_plan)):
+            b = torch.from_numpy(rng.uniform(-1, 1, plan.m)).to(dev)
+            lv = lambda: tri.trisolve(plan, b)  # noqa: E731
+            sw = lambda: tri.trisolve_sweeps(plan, b, 3)  # noqa: E731
+            calls = 5 if plan.num_levels > 600 else 20
+            t_lv = (graph_us(lv, calls=calls), graph_us(lv, calls=calls))
+            t_sw = (graph_us(sw), graph_us(sw))
+            p_lv = loop_us(lambda: tri.trisolve_plain(plan, b), 2)
+            p_sw = loop_us(lambda: tri.trisolve_sweeps_plain(plan, b, 3), 5)
+            lib_ms, lib_text = library(plan, b, lv())
+            nbytes = factor_bytes(plan)
+            ops = 2 * plan.num_deps + 2 * plan.m
+            bl, bs = bound_of(nbytes, ops, FP64_TFLOPS), bound_of(nbytes, 3 * ops, FP64_TFLOPS)
+            chain_us = plan.num_levels * us_level
+            phase("trisolve", f"{label} {fname} f64, device us a call in a replayed graph: "
+                  f"tri_levels {t_lv[0]!r} / {t_lv[1]!r} (plain, host-launched loop of 2: "
+                  f"{p_lv!r}), tri_sweeps (3) {t_sw[0]!r} / {t_sw[1]!r} (plain {p_sw!r}); "
+                  f"bound {bl['bound_ms'] * 1e3!r} us by {bl['bound_by']} ({nbytes} B at the "
+                  f"HBM rate), the level chain {chain_us!r} us ({plan.num_levels} levels x "
+                  f"{us_level!r}); {lib_text}; card: {card}")
+            if label == "aniso 512^2" and fname == "L":
+                records["trisolve_f64"] = {"max_abs_err": 0.0, "ms": sum(t_lv) / 2e3,
+                                           "plain_ms": p_lv / 1e3, "library_ms": lib_ms, **bl}
+                records["tri_sweeps_f64"] = {"max_abs_err": 0.0, "ms": sum(t_sw) / 2e3,
+                                             "plain_ms": p_sw / 1e3, "library_ms": None, **bs}
+        exact = facts[label]
+        b = systems[label][1]
+        ms_k = loop_us(lambda: exact.solve(b), 5) / 1e3
+        ms_p = loop_us(lambda: tri.trisolve_plain(exact.u_plan, tri.trisolve_plain(
+            exact.l_plan, b)), 2) / 1e3
+        phase("trisolve", f"{label} exact ILU apply (two F-3 launches): {ms_k!r} ms a call "
+              f"(host-launched loop of 5), the plain version {ms_p!r} ms; card: {card}")
+
+    # the main paths: cg_solve as called with the exact ILU, and the gather sweeps
+    for label in ("dw4096-SPD", "af23560-SPD"):
+        csr, b, x_true = systems[label]
+        walls = []
+        for _ in range(3):
+            tri.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cg_solve(csr, b, tol=1e-8, max_iters=1000, strategy="swell",
+                           precond=facts[label])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launched = dict(tri.LAUNCHES)
+        err = float(np.linalg.norm(res.x.cpu().numpy() - x_true) / np.linalg.norm(x_true))
+        met = float(res.residual_norm) <= 1e-8 * float(b.norm())
+        phase("trisolve", f"{label} cg_solve(precond=ilu0(sweeps=0)) as called: "
+              f"{res.iters} iterations, residual met: {met}, rel err {err!r}; walls "
+              f"{walls!r} s (best {min(walls)!r}); F-3 launches of the last solve "
+              f"{launched}; card: {card}")
+        if not met or sum(launched.values()) < 2 * (res.iters + 1):
+            fail(f"{label}: the exact-ILU CG did not converge or did not run F-3 an apply")
+        if any(k[1] == "sweeps" for k in launched) != (facts[label].l_plan.rows_sorted is None):
+            fail(f"{label}: F-3 ran another entry than the plan asks")
+        if label == "dw4096-SPD":
+            records["trisolve_f64"]["launches"] = sum(launched.values())
+    was = tri.ILU_SWELL_MIN
+    tri.ILU_SWELL_MIN = 1 << 62
+    try:
+        gather = tri.ilu0(acsr, sweeps=3)
+    finally:
+        tri.ILU_SWELL_MIN = was
+    if gather.swell is not None:
+        fail("ilu0 built a swell backing past ILU_SWELL_MIN")
+    tri.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = cg_solve(acsr, ab, tol=1e-8, max_iters=4000, strategy="swell", precond=gather)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = dict(tri.LAUNCHES)
+    met = float(res.residual_norm) <= 1e-8 * float(ab.norm())
+    phase("trisolve", f"aniso 512^2 cg_solve(precond=ilu0(sweeps=3)), ILU_SWELL_MIN past "
+          f"its factors (the gather sweeps on F-3): {res.iters} iterations, residual met: "
+          f"{met}, {secs!r} s as called; F-3 launches {launched}; card: {card}")
+    if not met or set(launched) != {("f64", "sweeps")} or launched[("f64", "sweeps")] < 2 * (
+            res.iters + 1):
+        fail("the gather-sweep ILU CG did not converge or did not run tri_sweeps an apply")
+    records["tri_sweeps_f64"]["launches"] = launched[("f64", "sweeps")]
+
+
 def main() -> int:
     import torch
 
@@ -2260,24 +2488,29 @@ def smoke(plan_dir: str) -> int:
     ms_exact = loop_us(lambda: exact.solve(ab), 2) / 1e3
     phase("solver", f"aniso per iteration (captured fixed-trip loops of 65 and 513, host "
           f"clock): jacobi {per_j!r} us, ilu(3 sweeps) {per_i!r} us; total_wall_win {win!r}; "
-          f"exact chunk-scheduled ILU apply ({afact.l_plan.num_iters} + "
-          f"{afact.u_plan.num_iters} iterations) {ms_exact!r} ms; card: {card}")
-    # the exact trisolve captured too: its schedule lives on the host, so one
-    # apply is num_iters steps of small launches in the graph
+          f"exact ILU apply (two F-3 launches over {afact.l_plan.num_levels} + "
+          f"{afact.u_plan.num_levels} levels) {ms_exact!r} ms; card: {card}")
+    # the exact ILU captured: two F-3 launches an apply in the graph
     from spmv_acc_tpu_torch.models.cg import CGBlocks
 
     amv = lambda v: swell.swell_ax(alay, v)  # noqa: E731
     eager_x = [_cg_loop(amv, exact.solve, ab, torch.zeros_like(ab), 0.0, 8).x for _ in range(2)]
     box = []
     ablock = CGBlocks(amv, exact.solve, ab, eager_iters=0)
+    tri.LAUNCHES.clear()
     secs, mem = first_call(lambda: box.append(ablock.solve(ab, torch.zeros_like(ab), 0.0, 8)))
-    text = same_or_close("aniso cg[exact ilu]", box[0].x, eager_x)
+    f3 = dict(tri.LAUNCHES)
+    same = torch.equal(box[0].x, eager_x[0]) and torch.equal(eager_x[0], eager_x[1])
     phase("solver", f"aniso cg[exact ilu], 8 iterations in one captured block of "
-          f"{box[0].iters}: x against the eager loop {text}; first call {secs!r} s with the "
-          f"capture, graph memory {mem} B; card: {card}")
-    if box[0].iters != 8:
-        fail("the captured exact-ILU CG did not run its 8 iterations")
+          f"{box[0].iters}: x bit for bit the eager loop's (which repeats itself): {same}; "
+          f"first call {secs!r} s with the capture, graph memory {mem} B; F-3 launches "
+          f"(the warm-up's and the replay's, 2 an apply) {f3}; card: {card}")
+    if box[0].iters != 8 or not same:
+        fail("the captured exact-ILU CG did not run its 8 iterations bit for bit")
+    if set(f3) != {("f64", "levels_block")} or f3[("f64", "levels_block")] < 2 * 9:
+        fail("the captured exact-ILU CG did not run F-3's tri_levels")
     del ablock
+    trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab)
 
     # the JAX package's on-chip form: every matvec splits p into bf16 planes and
     # reads them in the plane-form swell kernel
@@ -2718,7 +2951,11 @@ def smoke(plan_dir: str) -> int:
             # F-2 neither: XLA's fusions of _cg_loop's body; the fused form on one
             # device, the three phases where a distributed solve all-reduces
             ("cg_update_f64", "cg_update.cu", "spmv_acc_tpu/models/cg.py:74"),
-            ("cg_phases_f64", "cg_update.cu", "spmv_acc_tpu/models/cg.py:74")):
+            ("cg_phases_f64", "cg_update.cu", "spmv_acc_tpu/models/cg.py:74"),
+            # F-3 neither: XLA's loops of the triangular solves (trisolve's
+            # fori_loop; trisolve_sweeps' fori_loop)
+            ("trisolve_f64", "trisolve.cu", "spmv_acc_tpu/ops/trisolve.py:224"),
+            ("tri_sweeps_f64", "trisolve.cu", "spmv_acc_tpu/ops/trisolve.py:263")):
         rec = records[name]
         if set(rec) != keys or rec["launches"] < 1:
             fail(f"{name} was not launched on the main path or not timed")

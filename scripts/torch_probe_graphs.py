@@ -5,7 +5,8 @@ they replace, on one card.
     python3 scripts/torch_probe_graphs.py tune [--out FILE]
     python3 scripts/torch_probe_graphs.py corpus [NAME ...] [--out FILE]
     python3 scripts/torch_probe_graphs.py check [NAME ...] [--out FILE]
-    python3 scripts/torch_probe_graphs.py solve [--out FILE]
+    python3 scripts/torch_probe_graphs.py solve [systems] [cli] [exact] [--root DIR] [--label L]
+                                                [--out FILE]
     python3 scripts/torch_probe_graphs.py iteration [--root DIR] [--label L] [--out FILE]
 
 ``tune`` holds F-1 (``ops/feedback.py``, the chain's feedback kernel)
@@ -39,14 +40,26 @@ captured chain on data that moves x (x and y scaled until the multiplier is
 product): x bit for bit the same steps launched from the host, and within
 n·(1e-5·(multiplier - 1) + 4 ulps) relative of the eager PyTorch chain.
 
-``solve`` times the solver as a user calls it, on the tree it runs from (run
-it from a copy of another commit to compare two): ``cg_solve`` three times
-on Ga41As41H72-SPD, 512^2 aniso, af23560-SPD and dw4096-SPD (Jacobi; ILU(0)
-with 3 sweeps, the last two with ``ilu0``'s default: 6 sweeps on af23560, the
-exact solves on dw4096), and ``spmv-solve`` as a process on Ga41As41H72,
-af23560 and dw4096 (Jacobi, ``ilu0``): wall seconds and iterations.  Where ``models.cg`` has ``CGBlocks``, also the capture's cost: a
-``CGBlocks`` captured from the first iteration, its first solve against its
-second, beside the eager loop's seconds an iteration.
+``solve`` times the solver as a user calls it, on the tree at ``--root``
+(default: this one; an unpacked ``git archive`` of another commit to compare
+two: run it once a tree, in turns, in one call, each line tagged
+``--label``), in sections (default: all three):
+
+* **systems**: ``cg_solve`` three times on Ga41As41H72-SPD, 512^2 aniso,
+  af23560-SPD and dw4096-SPD (Jacobi; ILU(0) with 3 sweeps, the last two with
+  ``ilu0``'s default: 6 sweeps on af23560, the exact solves on dw4096): wall
+  seconds and iterations.  Where ``models.cg`` has ``CGBlocks``, also the
+  capture's cost: a ``CGBlocks`` captured from the first iteration, its
+  first solve against its second, beside the eager loop's seconds an
+  iteration;
+* **cli**: ``spmv-solve`` as a process on Ga41As41H72, af23560 and dw4096
+  (Jacobi, ``ilu0``): wall seconds and iterations;
+* **exact**: the exact ILU(0) (``ilu0(sweeps=0)``) on 512^2 aniso,
+  dw4096-SPD and af23560-SPD: one apply (``ILU0.solve``, device ms a call
+  in a host-launched loop of 3, the middle of three loops), the first call
+  of a ``CGBlocks`` of 8 iterations captured from the first (seconds with
+  the capture, graph memory, x against the eager loop's), and on dw4096-SPD
+  and af23560-SPD ``cg_solve`` as called at tol 1e-8, four walls.
 
 ``iteration`` times a CG iteration of the tree at ``--root`` (default: this
 one; an unpacked ``git archive`` of another commit to compare two: run it
@@ -496,7 +509,59 @@ def check(names, dev, card):
         torch.cuda.empty_cache()
 
 
-def solve(dev, card):
+def solve_exact(dev, card, tag):
+    """The ``exact`` section of ``solve``."""
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats.containers import CSR
+    from spmv_acc_tpu_torch.formats.generate import example_like
+    from spmv_acc_tpu_torch.models.cg import CGBlocks, _cg_loop, cg_solve
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops.golden import host_spmv
+    from spmv_acc_tpu_torch.ops.trisolve import ilu0
+
+    def spd_system(name):
+        rp, ci, v, (m, _) = example_like(name).to_numpy()
+        rp2, ci2, v2 = spdize(rp.astype(np.int64), ci.astype(np.int64), v, m)
+        csr = CSR.from_numpy(rp2, ci2, v2, (m, m), device=dev)
+        x_true = np.random.default_rng(5).standard_normal(m)
+        b = torch.from_numpy(host_spmv(1.0, 0.0, rp2, ci2, v2, x_true, np.zeros(m))).to(dev)
+        return f"{name}-SPD", csr, b
+
+    label, an, ab, _, _ = aniso_system(dev)
+    for system, csr, b in ((label, an, ab), spd_system("dw4096"), spd_system("af23560")):
+        t0 = time.perf_counter()
+        fact = ilu0(csr, sweeps=0)
+        torch.cuda.synchronize()
+        rec = {"probe": "solve exact", "label": tag, "system": system,
+               "factor_s": time.perf_counter() - t0,
+               "levels": [fact.l_plan.num_levels, fact.u_plan.num_levels],
+               "apply_ms": events_us(lambda: fact.solve(b), 3) / 1e3}
+        layout = swell.get_swell_plan(csr)
+
+        def mv(v):
+            return swell.swell_ax(layout, v)
+
+        x0 = torch.zeros_like(b)
+        eager = [_cg_loop(mv, fact.solve, b, x0, 0.0, 8).x for _ in range(2)]
+        box = []
+        block = CGBlocks(mv, fact.solve, b, eager_iters=0)
+        secs, mem = captured_first(lambda: box.append(block.solve(b, x0, 0.0, 8)))
+        rec.update({"captured_block_first_call_s": secs, "graph_memory_B": mem,
+                    "captured_iters": box[0].iters,
+                    "captured_x_equals_eager": torch.equal(box[0].x, eager[0]),
+                    "eager_repeats": torch.equal(eager[0], eager[1])})
+        del block, box
+        if system != label:
+            walls = [solve_wall(lambda: cg_solve(csr, b, tol=1e-8, max_iters=1000,
+                                                 strategy="swell", precond=fact))
+                     for _ in range(4)]
+            rec.update({"iters": walls[0][1].iters, "cg_solve_wall_s": [w for w, _ in walls]})
+        emit({**rec, "card": card})
+        swell.clear_swell_cache()
+        torch.cuda.empty_cache()
+
+
+def solve(dev, card, tag="", sections=("systems", "cli", "exact")):
     import tempfile
 
     from spmv_acc_tpu_torch.cli.solve import spdize
@@ -518,7 +583,10 @@ def solve(dev, card):
         return (f"{name}-SPD", csr, b, 1000, {"jacobi": jacobi_preconditioner(csr),
                                               "ilu default": ilu0(csr)})
 
-    systems = list(solver_systems(dev)) + [spd_system("af23560"), spd_system("dw4096")]
+    if "exact" in sections:
+        solve_exact(dev, card, tag)
+    systems = ([] if "systems" not in sections else
+               list(solver_systems(dev)) + [spd_system("af23560"), spd_system("dw4096")])
     for label, csr, b, max_iters, pres in systems:
         layout = swell.get_swell_plan(csr)
 
@@ -529,7 +597,7 @@ def solve(dev, card):
             walls = [solve_wall(lambda: cg_solve(csr, b, tol=1e-8, max_iters=max_iters,
                                                  strategy="swell", precond=pre))
                      for _ in range(3)]
-            rec = {"probe": "solve", "system": label, "precond": pname,
+            rec = {"probe": "solve", "label": tag, "system": label, "precond": pname,
                    "sweeps": pre.sweeps if isinstance(pre, ILU0) else None,
                    "iters": walls[0][1].iters, "cg_solve_wall_s": [w for w, _ in walls]}
             if hasattr(cg_mod, "CG_EAGER_ITERS"):
@@ -549,6 +617,8 @@ def solve(dev, card):
             emit({**rec, "card": card})
             torch.cuda.empty_cache()
         swell.clear_swell_cache()
+    if "cli" not in sections:
+        return
     with tempfile.TemporaryDirectory() as td:
         for name in ("Ga41As41H72", "af23560", "dw4096"):
             path = os.path.join(td, f"{name}.bin2")
@@ -560,7 +630,7 @@ def solve(dev, card):
                                      capture_output=True, text=True)
                 wall = time.perf_counter() - t0
                 lines = out.stdout.strip().splitlines()
-                emit({"probe": "spmv-solve", "name": name, "precond": pre, "rc": out.returncode,
+                emit({"probe": "spmv-solve", "label": tag, "name": name, "precond": pre, "rc": out.returncode,
                       "process_wall_s": wall, "output": lines[-2:] if lines else out.stderr[-400:],
                       "card": card})
 
@@ -813,7 +883,7 @@ def main(argv=None) -> int:
     p.add_argument("names", nargs="*")
     p.add_argument("--out", default=None)
     p.add_argument("--root", default=ROOT, help="the tree whose spmv_acc_tpu_torch is imported")
-    p.add_argument("--label", default="", help="tags the lines of `iteration`")
+    p.add_argument("--label", default="", help="tags the lines of `iteration` and `solve`")
     p.add_argument("--dist-rows", type=int, default=1_048_576)
     p.add_argument("--nx", type=int, default=512, help="the aniso grid of `iteration`")
     args = p.parse_args(argv)
@@ -838,7 +908,10 @@ def main(argv=None) -> int:
     elif args.mode == "check":
         check(args.names or bench.LARGE + bench.SMALL, dev, card)
     elif args.mode == "solve":
-        solve(dev, card)
+        bad = set(args.names) - {"systems", "cli", "exact"}
+        if bad:
+            p.error(f"solve takes the sections systems, cli and exact, not {sorted(bad)}")
+        solve(dev, card, args.label, tuple(args.names) or ("systems", "cli", "exact"))
     elif args.mode == "iteration":
         iteration(dev, card, args.label, args.dist_rows, args.nx)
     else:

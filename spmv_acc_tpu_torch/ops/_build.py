@@ -20,7 +20,7 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "SWELL_SRC", "TILE_SRC", "ELL_SRC", "PLANE_SRC",
-           "FEEDBACK_SRC", "CG_UPDATE_SRC", "SOURCES",
+           "FEEDBACK_SRC", "CG_UPDATE_SRC", "TRISOLVE_SRC", "SOURCES",
            "nvcc_path", "nvcc_command", "build", "build_all", "load_lib"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +32,7 @@ ELL_SRC = os.path.join(CSRC_DIR, "ell_rowsum.cu")
 PLANE_SRC = os.path.join(CSRC_DIR, "plane_split.cu")
 FEEDBACK_SRC = os.path.join(CSRC_DIR, "feedback.cu")
 CG_UPDATE_SRC = os.path.join(CSRC_DIR, "cg_update.cu")
+TRISOLVE_SRC = os.path.join(CSRC_DIR, "trisolve.cu")
 
 _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # source -> {C entry: its argument types}; every entry returns a CUDA error code
@@ -54,6 +55,10 @@ SOURCES = {
         "cg_step": [_I32, _I32, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
         "cg_dot_xr": [_I32, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
         "cg_dot_p": [_I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    TRISOLVE_SRC: {
+        "tri_levels": [_I32, _I32, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "tri_sweeps": [_I32, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

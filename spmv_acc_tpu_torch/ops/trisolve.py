@@ -9,20 +9,33 @@ Counterpart of ``spmv_acc_tpu/ops/trisolve.py``, with the same results:
 * **Level analysis**: one sequential native pass per factor
   (``trisolve_levels``); the dependency extraction and the chunk schedule are
   vectorised numpy.
-* **Exact solve** (:func:`trisolve`) is chunk-scheduled: dependencies and rows
-  are sorted by level, and each iteration scatter-adds at most ``_W``
-  dependency products into partial sums, then finalises at most ``_R`` rows.
-  The JAX package runs it as an XLA ``fori_loop`` with no Pallas kernel; here
-  it is a Python loop of PyTorch ops on the tensors' device, about eight small
-  launches per iteration.  The schedule's offsets and counts stay on the host,
-  so the loop slices without the JAX package's static-shape padding (no ``_W``
-  / ``_R`` pad and no sink slot).
+* **Exact solve** (:func:`trisolve`): dependencies and rows are sorted by
+  level.  The JAX package runs the solve as one XLA ``fori_loop`` over a chunk
+  schedule (each iteration scatter-adds at most ``_W`` dependency products
+  into partial sums, then finalises at most ``_R`` rows), with no Pallas
+  kernel.  On the card the port runs it as F-3 (``csrc/trisolve.cu``, entry
+  ``tri_levels``): one launch per solve that walks the levels in order, each
+  row summing its dependencies in plan order, levels separated by
+  ``__syncthreads()`` in one block where the widest level fits one block
+  (``_BLOCK_MAX`` rows), else by ``grid.sync()`` in a cooperative launch.
+  :func:`trisolve_plain` keeps the chunk schedule as a Python loop of PyTorch
+  ops (its offsets and counts on the host, so it slices without the JAX
+  package's static-shape padding: no ``_W`` / ``_R`` pad and no sink slot);
+  it runs on the CPU and is the reference the kernel is held to.
 * **Sweep solve** (:func:`trisolve_sweeps`): S Jacobi sweeps
-  y <- (b - N y) / D, each one gather and one ``index_add_``.  Rows at level
-  < t are exact after t sweeps.
+  y <- (b - N y) / D from y = b / D.  Rows at level < t are exact after t
+  sweeps.  On the card one cooperative launch of F-3's ``tri_sweeps`` (two
+  buffers swapped at each ``grid.sync()``); :func:`trisolve_sweeps_plain`, one
+  gather and one ``index_add_`` a sweep, on the CPU.
 * **Swell backing** (:class:`SweepSwell`): on factors with at least
   ``ILU_SWELL_MIN`` off-diagonal nnz, each sweep's N @ y runs on the swell
   kernel (``ops/swell.py``) over the strict L and U parts.
+
+Both kernels sum a row's products in plan order from 0 and round each
+multiply, add, subtract and divide as the plain version does (no contracted
+FMA), so on the same inputs they give the plain version's bits on the CPU,
+and two launches give the same bits.  On the card the plain versions'
+``index_add_`` adds with float atomics in no fixed order.
 
 The two factor layouts are built one after the other: the JAX package builds
 them on two threads against an unlocked plan cache (``trisolve.py:403-413``);
@@ -31,6 +44,8 @@ the port does not share that hazard.
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
 from typing import List, Optional
 
@@ -39,9 +54,9 @@ import torch
 
 from ..formats.containers import CSR
 
-__all__ = ["ilu0_host", "TriSolvePlan", "analyze_trisolve", "trisolve", "trisolve_sweeps",
-           "SweepSwell", "sweep_apply_swell", "ILU0", "ilu0", "ILU_SWELL_MIN",
-           "ILU_AUTO_SWEEPS"]
+__all__ = ["ilu0_host", "TriSolvePlan", "analyze_trisolve", "trisolve", "trisolve_plain",
+           "trisolve_sweeps", "trisolve_sweeps_plain", "SweepSwell", "sweep_apply_swell",
+           "ILU0", "ilu0", "ILU_SWELL_MIN", "ILU_AUTO_SWEEPS", "LAUNCHES"]
 
 # chunk sizes of the exact schedule (dependencies / rows per iteration)
 _W = 4096
@@ -54,6 +69,15 @@ _EXACT_MAX_LEVELS = 4096
 ILU_SWELL_MIN = 100_000
 # Jacobi sweeps per solve when ilu0(sweeps=None) finds no exact schedule
 ILU_AUTO_SWEEPS = 6
+# the widest level (rows) the one-block form of tri_levels takes
+# (csrc/trisolve.cu kBlockMax); wider schedules take the cooperative grid
+_BLOCK_MAX = 1024
+
+# F-3 launches in this process by (dtype, entry): ("f64" | "f32", "levels_block" |
+# "levels_grid" | "sweeps").  Only the launch sites add to it (and a captured
+# graph's replays, utils/graphs.py); set to 0 with ``.clear()`` to count a run.
+LAUNCHES: collections.Counter = collections.Counter()
+_DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def ilu0_host(row_ptr, col_idx, values, shape):
@@ -121,13 +145,19 @@ class TriSolvePlan:
     """Level schedule of one triangular factor.
 
     Dependencies (off-diagonal triplets) are sorted by the level of their row
-    (stable, so CSR order within a level) and live on the plan's device.
-    Iteration t of the exact schedule scatter-adds dependencies
-    ``[dep_off[t], dep_off[t] + dep_cnt[t])`` and then finalises rows
-    ``rows_sorted[row_off[t] : row_off[t] + row_cnt[t]]``; within one
-    iteration the dependencies land before the rows read them, so the last
-    dependency chunk of a level may share an iteration with its first row
-    chunk.  The schedule is None past ``_EXACT_MAX_LEVELS`` levels."""
+    (stable, so CSR order within a level) and live on the plan's device; a
+    row's dependencies are contiguous there, at ``dep_start[row]`` for
+    ``dep_len[row]`` (0 and 0 for a row without one), which F-3 reads.
+    Level L holds rows ``rows_sorted[level_ptr[L] : level_ptr[L + 1]]``;
+    ``widest_level`` is the most rows of one level.
+
+    The host chunk schedule, which :func:`trisolve_plain` walks: iteration t
+    scatter-adds dependencies ``[dep_off[t], dep_off[t] + dep_cnt[t])`` and
+    then finalises rows ``rows_sorted[row_off[t] : row_off[t] + row_cnt[t]]``;
+    within one iteration the dependencies land before the rows read them, so
+    the last dependency chunk of a level may share an iteration with its
+    first row chunk.  ``rows_sorted``, ``level_ptr`` and the schedule are None
+    past ``_EXACT_MAX_LEVELS`` levels."""
 
     m: int
     lower: bool
@@ -137,16 +167,32 @@ class TriSolvePlan:
     dep_cols: torch.Tensor          # (ndep,) int64
     dep_vals: torch.Tensor          # (ndep,) value dtype
     diag: torch.Tensor              # (m,) diagonal (ones for a unit diagonal)
+    dep_start: torch.Tensor         # (m,) int64, a row's first dependency
+    dep_len: torch.Tensor           # (m,) int64, its dependencies
+    widest_level: int
     num_iters: int
     rows_sorted: Optional[torch.Tensor]  # (m,) int64, rows by level
+    level_ptr: Optional[torch.Tensor]    # (num_levels + 1,) int64 into rows_sorted
     dep_off: Optional[np.ndarray]   # host (num_iters,) int64
     dep_cnt: Optional[np.ndarray]
     row_off: Optional[np.ndarray]
     row_cnt: Optional[np.ndarray]
+    # dtype -> (dep_vals, diag) in that dtype, each cast made once
+    _cast: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_deps(self) -> int:
         return int(self.dep_rows.shape[0])
+
+    def values(self, dtype: torch.dtype):
+        """``(dep_vals, diag)`` in ``dtype``: the plan's own tensors, or a copy
+        cast once and kept."""
+        if dtype == self.dep_vals.dtype and dtype == self.diag.dtype:
+            return self.dep_vals, self.diag
+        got = self._cast.get(dtype)
+        if got is None:
+            got = self._cast[dtype] = (self.dep_vals.to(dtype), self.diag.to(dtype))
+        return got
 
 
 def analyze_trisolve(row_ptr, col_idx, values, shape, lower: bool, unit_diag: bool,
@@ -170,19 +216,27 @@ def analyze_trisolve(row_ptr, col_idx, values, shape, lower: bool, unit_diag: bo
 
     order_d = np.argsort(level[dep_r], kind="stable")
     dep_r, dep_c, dep_v = dep_r[order_d], dep_c[order_d], dep_v[order_d]
+    # the stable sort keeps a row's dependencies together: each row's first
+    # position is where the sorted rows change
+    first = np.flatnonzero(np.diff(dep_r, prepend=-1))
+    dep_start = np.zeros(m, dtype=np.int64)
+    dep_start[dep_r[first]] = first
+    dep_len = np.bincount(dep_r, minlength=m).astype(np.int64)
+    rl = np.bincount(level, minlength=num_levels).astype(np.int64)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     common = dict(m=m, lower=lower, num_levels=num_levels, level_of_row=level,
-                  dep_rows=t(dep_r), dep_cols=t(dep_c), dep_vals=t(dep_v), diag=t(diag))
+                  dep_rows=t(dep_r), dep_cols=t(dep_c), dep_vals=t(dep_v), diag=t(diag),
+                  dep_start=t(dep_start), dep_len=t(dep_len),
+                  widest_level=int(rl.max()) if m else 0)
     if num_levels > _EXACT_MAX_LEVELS:
-        return TriSolvePlan(**common, num_iters=0, rows_sorted=None, dep_off=None,
-                            dep_cnt=None, row_off=None, row_cnt=None)
+        return TriSolvePlan(**common, num_iters=0, rows_sorted=None, level_ptr=None,
+                            dep_off=None, dep_cnt=None, row_off=None, row_cnt=None)
 
     order_r = np.argsort(level, kind="stable")
     dl = np.bincount(level[dep_r], minlength=num_levels).astype(np.int64)
-    rl = np.bincount(level, minlength=num_levels).astype(np.int64)
     dstart = np.concatenate([[0], np.cumsum(dl)])
     rstart = np.concatenate([[0], np.cumsum(rl)])
 
@@ -206,21 +260,21 @@ def analyze_trisolve(row_ptr, col_idx, values, shape, lower: bool, unit_diag: bo
                 r_off.append(0)
                 r_cnt.append(0)
     return TriSolvePlan(**common, num_iters=len(d_off), rows_sorted=t(order_r),
+                        level_ptr=t(rstart.astype(np.int64)),
                         dep_off=np.asarray(d_off, dtype=np.int64),
                         dep_cnt=np.asarray(d_cnt, dtype=np.int64),
                         row_off=np.asarray(r_off, dtype=np.int64),
                         row_cnt=np.asarray(r_cnt, dtype=np.int64))
 
 
-def trisolve(plan: TriSolvePlan, b: torch.Tensor) -> torch.Tensor:
-    """Solve T y = b exactly on ``b``'s device, by the chunk schedule; a factor
-    without one (more than ``_EXACT_MAX_LEVELS`` levels) runs ``num_levels``
-    Jacobi sweeps, which are exact too."""
+def trisolve_plain(plan: TriSolvePlan, b: torch.Tensor) -> torch.Tensor:
+    """T y = b exactly on ``b``'s device as PyTorch ops, by the chunk
+    schedule; a factor without one (more than ``_EXACT_MAX_LEVELS`` levels)
+    runs ``num_levels`` Jacobi sweeps, which are exact too.  The CPU path of
+    :func:`trisolve` and the reference its kernel is held to."""
     if plan.rows_sorted is None:
-        return trisolve_sweeps(plan, b, plan.num_levels)
-    dtype = b.dtype
-    dep_vals = plan.dep_vals.to(dtype)
-    diag = plan.diag.to(dtype)
+        return trisolve_sweeps_plain(plan, b, plan.num_levels)
+    dep_vals, diag = plan.values(b.dtype)
     y = torch.zeros_like(b)
     sums = torch.zeros_like(b)
     for t in range(plan.num_iters):
@@ -235,18 +289,97 @@ def trisolve(plan: TriSolvePlan, b: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def trisolve_sweeps(plan: TriSolvePlan, b: torch.Tensor, sweeps: int) -> torch.Tensor:
-    """Approximate triangular solve: ``sweeps`` Jacobi iterations
-    y <- (b - N y) / D from y = b / D, each one gather and one ``index_add_``
-    (the JAX package's ``segment_sum``).  ``sweeps >= num_levels`` is exact."""
-    dtype = b.dtype
-    dep_vals = plan.dep_vals.to(dtype)
-    diag = plan.diag.to(dtype)
+def trisolve_sweeps_plain(plan: TriSolvePlan, b: torch.Tensor, sweeps: int) -> torch.Tensor:
+    """``sweeps`` Jacobi iterations y <- (b - N y) / D from y = b / D as
+    PyTorch ops, each one gather and one ``index_add_`` (the JAX package's
+    ``segment_sum``).  The CPU path of :func:`trisolve_sweeps` and the
+    reference its kernel is held to."""
+    dep_vals, diag = plan.values(b.dtype)
     y = b / diag
     for _ in range(sweeps):
         sums = torch.zeros_like(b).index_add_(0, plan.dep_rows, dep_vals * y[plan.dep_cols])
         y = (b - sums) / diag
     return y
+
+
+def _check(name: str, plan: TriSolvePlan, b) -> str:
+    """``b`` one float64/float32 vector of ``plan.m`` on the plan's device
+    (contiguous on the card); returns the device type."""
+    if not isinstance(b, torch.Tensor):
+        raise TypeError(f"{name}: b must be a torch.Tensor, got {type(b).__name__}")
+    if b.dtype not in _DTYPES:
+        raise ValueError(f"{name} runs float64 and float32, not {b.dtype}")
+    if b.dim() != 1 or b.shape[0] != plan.m:
+        raise ValueError(f"{name}: b has shape {tuple(b.shape)}, the factor ({plan.m},)")
+    if b.device != plan.diag.device:
+        raise ValueError(f"{name}: b is on {b.device}, the plan on {plan.diag.device}")
+    if b.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"{name} has no kernel for device {b.device}")
+    if b.device.type == "cuda" and not b.is_contiguous():
+        raise ValueError(f"{name}: b must be contiguous")
+    return b.device.type
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(entry: str, key: str, b: torch.Tensor, *args) -> None:
+    from ._build import TRISOLVE_SRC, load_lib
+
+    lib = load_lib(TRISOLVE_SRC)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = getattr(lib, entry)(int(b.dtype == torch.float64), *args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[(_DTYPES[b.dtype], key)] += 1
+
+
+def _sweeps_kernel(plan: TriSolvePlan, b: torch.Tensor, sweeps: int) -> torch.Tensor:
+    dep_vals, diag = plan.values(b.dtype)
+    y = torch.empty_like(b)
+    scratch = torch.empty_like(b)
+    _launch("tri_sweeps", "sweeps", b, plan.m, sweeps, _ptr(plan.dep_start), _ptr(plan.dep_len),
+            _ptr(plan.dep_cols), _ptr(dep_vals), _ptr(diag), _ptr(b), _ptr(y), _ptr(scratch))
+    return y
+
+
+def trisolve(plan: TriSolvePlan, b: torch.Tensor) -> torch.Tensor:
+    """Solve T y = b exactly.  For a CUDA ``b``, one launch of F-3
+    (``csrc/trisolve.cu``): ``tri_levels`` over the level schedule (one block
+    where the widest level fits ``_BLOCK_MAX`` rows, else a cooperative
+    grid), or past ``_EXACT_MAX_LEVELS`` levels ``tri_sweeps`` with
+    ``num_levels`` sweeps.  For a CPU ``b``, :func:`trisolve_plain`."""
+    if _check("trisolve", plan, b) == "cpu":
+        return trisolve_plain(plan, b)
+    if plan.m == 0:
+        return torch.empty_like(b)
+    if plan.rows_sorted is None:
+        return _sweeps_kernel(plan, b, plan.num_levels)
+    dep_vals, diag = plan.values(b.dtype)
+    y = torch.empty_like(b)
+    grid = plan.widest_level > _BLOCK_MAX
+    _launch("tri_levels", "levels_grid" if grid else "levels_block", b, int(grid),
+            plan.widest_level, plan.num_levels, _ptr(plan.level_ptr), _ptr(plan.rows_sorted),
+            _ptr(plan.dep_start), _ptr(plan.dep_len), _ptr(plan.dep_cols), _ptr(dep_vals),
+            _ptr(diag), _ptr(b), _ptr(y))
+    return y
+
+
+def trisolve_sweeps(plan: TriSolvePlan, b: torch.Tensor, sweeps: int) -> torch.Tensor:
+    """Approximate triangular solve: ``sweeps`` Jacobi iterations
+    y <- (b - N y) / D from y = b / D; ``sweeps >= num_levels`` is exact.  For
+    a CUDA ``b``, one cooperative launch of F-3's ``tri_sweeps``; for a CPU
+    ``b``, :func:`trisolve_sweeps_plain`."""
+    device = _check("trisolve_sweeps", plan, b)
+    if isinstance(sweeps, bool) or not isinstance(sweeps, (int, np.integer)) or sweeps < 0:
+        raise ValueError(f"trisolve_sweeps: sweeps must be an int >= 0, got {sweeps!r}")
+    if device == "cpu":
+        return trisolve_sweeps_plain(plan, b, int(sweeps))
+    if plan.m == 0:
+        return torch.empty_like(b)
+    return _sweeps_kernel(plan, b, int(sweeps))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,8 +422,9 @@ class ILU0:
     """Factorization handle: M^{-1} r by two triangular solves.
 
     ``sweeps`` > 0 makes both solves Jacobi-sweep approximations; 0 means the
-    exact chunk-scheduled solves.  ``swell`` (set by :func:`ilu0` on large
-    factors) runs each sweep's N @ y on the swell kernel."""
+    exact solves.  On the card each factor solve is one F-3 launch;
+    ``swell`` (set by :func:`ilu0` on large factors) runs each sweep's N @ y
+    on the swell kernel instead."""
 
     l_plan: TriSolvePlan
     u_plan: TriSolvePlan

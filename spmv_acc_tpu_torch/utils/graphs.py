@@ -75,10 +75,10 @@ CAPTURE_MODE = "thread_local"
 def launch_counters() -> list:
     """The kernels' launch counters (``LAUNCHES`` of every module with a
     kernel wrapper)."""
-    from ..ops import adaptive_plus, cg_update, feedback, swell, vector_row
+    from ..ops import adaptive_plus, cg_update, feedback, swell, trisolve, vector_row
 
     return [swell.LAUNCHES, adaptive_plus.LAUNCHES, vector_row.LAUNCHES, feedback.LAUNCHES,
-            cg_update.LAUNCHES]
+            cg_update.LAUNCHES, trisolve.LAUNCHES]
 
 
 def _snapshot() -> list:

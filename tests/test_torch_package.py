@@ -962,9 +962,8 @@ def _cg_system(device, n=40):
 @pytest.mark.parametrize("precond", ["none", "jacobi", "ilu sweeps", "ilu swell", "ilu exact"])
 def test_captured_cg_equals_eager_on_card(cuda_device, monkeypatch, precond):
     """cg_solve's captured blocks, from the first iteration, against the eager
-    loop on the swell matvec: the same iterations and x bit for bit, except
-    where index_add_'s atomics (the exact trisolve) do not repeat even
-    eagerly: there within 1e-12."""
+    loop on the swell matvec: the same iterations and x bit for bit (the
+    ILU solves run F-3, which repeats itself bit for bit)."""
     from spmv_acc_tpu_torch.models import cg
     from spmv_acc_tpu_torch.models.cg import _cg_loop, cg_solve, jacobi_preconditioner
     from spmv_acc_tpu_torch.ops import swell
@@ -986,12 +985,8 @@ def test_captured_cg_equals_eager_on_card(cuda_device, monkeypatch, precond):
     eager = [_cg_loop(lambda v: swell.swell_ax(layout, v), M, b, torch.zeros_like(b), 1e-10,
                       2000) for _ in range(2)]
     got = cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=pre)
-    assert got.iters == eager[0].iters < 2000
-    if torch.equal(eager[0].x, eager[1].x):
-        assert torch.equal(got.x, eager[0].x)
-    else:
-        assert precond == "ilu exact"
-        assert float((got.x - eager[0].x).norm() / eager[0].x.norm()) <= 1e-12
+    assert got.iters == eager[0].iters == eager[1].iters < 2000
+    assert torch.equal(eager[0].x, eager[1].x) and torch.equal(got.x, eager[0].x)
 
 
 @pytest.mark.cuda
@@ -1342,3 +1337,153 @@ def test_fused_cg_update_captured_on_card(cuda_device, form):
     torch.cuda.synchronize()
     assert int(host[5]) == 14
     assert all(torch.equal(a, b) for a, b in zip(graphed + (wg.sums,), host + (wh.sums,)))
+
+
+# ---- F-3, the triangular solves (csrc/trisolve.cu) against their plain version
+
+def _f3_factors(name):
+    """(host CSR arrays, combined ILU(0) values) of an F-3 test system; "wide"
+    is a lower triangle whose first level holds 3000 rows (the grid form)."""
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import aniso_laplacian_csr, coo_to_csr_arrays, example_like
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    if name == "wide":
+        rng = np.random.default_rng(3)
+        m = 5000
+        deps = rng.integers(0, 3000, size=(2000, 3))
+        rows = np.concatenate([np.arange(m), np.repeat(np.arange(3000, m), 3)])
+        cols = np.concatenate([np.arange(m), deps.ravel()])
+        vals = np.concatenate([rng.random(m) + 1.0, rng.standard_normal(6000)])
+        rp, ci, v = coo_to_csr_arrays(rows, cols, vals, (m, m))
+        return (rp, ci, v, (m, m)), v
+    if name == "aniso48":
+        rp, ci, v, shape = aniso_laplacian_csr(48, 48, 0.01).to_numpy()
+    else:  # dw4096-SPD
+        rp, ci, v, (m, _) = example_like("dw4096").to_numpy()
+        rp, ci, v = spdize(rp.astype(np.int64), ci.astype(np.int64), v, m)
+        shape = (m, m)
+    return (rp, ci, v, shape), tri.ilu0_host(rp, ci, v, shape)
+
+
+def _f3_plan_pairs(name, device):
+    """[(plan on the card, the same plan on the CPU)] for L (unit diagonal)
+    and U, or the one lower factor of "wide"."""
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    (rp, ci, _, shape), lu = _f3_factors(name)
+    kinds = [(True, False)] if name == "wide" else [(True, True), (False, False)]
+    return [tuple(tri.analyze_trisolve(rp, ci, lu, shape, lower=lower, unit_diag=unit,
+                                       device=dev) for dev in (device, "cpu"))
+            for lower, unit in kinds]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["aniso48", "dw4096-SPD", "wide"])
+@pytest.mark.parametrize("form", ["as planned", "grid"])
+def test_f3_matches_plain_on_card(cuda_device, monkeypatch, dtype, name, form):
+    """tri_levels (one block where the widest level fits 1024 rows, else the
+    cooperative grid; "grid" forces the grid on every plan) and tri_sweeps
+    (0, 1, 3 sweeps) against the plain versions run on a CPU copy of the
+    plan: bit for bit, in both dtypes; a second launch gives the same bits;
+    one launch a call, counted by form."""
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    if form == "grid":
+        monkeypatch.setattr(tri, "_BLOCK_MAX", 0)
+    dk = "f64" if dtype == torch.float64 else "f32"
+    for plan, cplan in _f3_plan_pairs(name, cuda_device):
+        if name == "dw4096-SPD":
+            assert int(plan.dep_len.max()) >= 3
+        b_host = torch.from_numpy(np.random.default_rng(plan.m).standard_normal(plan.m)).to(dtype)
+        b = b_host.to(cuda_device)
+        key = "levels_grid" if plan.widest_level > tri._BLOCK_MAX else "levels_block"
+        tri.LAUNCHES.clear()
+        y1, y2 = tri.trisolve(plan, b), tri.trisolve(plan, b)
+        torch.cuda.synchronize()
+        assert dict(tri.LAUNCHES) == {(dk, key): 2}
+        want = tri.trisolve_plain(cplan, b_host)
+        assert y1.dtype == dtype and torch.equal(y1.cpu(), want) and torch.equal(y1, y2)
+        for sweeps in (0, 1, 3):
+            tri.LAUNCHES.clear()
+            s1, s2 = tri.trisolve_sweeps(plan, b, sweeps), tri.trisolve_sweeps(plan, b, sweeps)
+            torch.cuda.synchronize()
+            assert dict(tri.LAUNCHES) == {(dk, "sweeps"): 2}
+            assert torch.equal(s1.cpu(), tri.trisolve_sweeps_plain(cplan, b_host, sweeps))
+            assert torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_f3_past_the_level_cap_on_card(cuda_device, monkeypatch, dtype):
+    """A factor past _EXACT_MAX_LEVELS: trisolve is one tri_sweeps launch of
+    num_levels sweeps, the plain version's bits."""
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    monkeypatch.setattr(tri, "_EXACT_MAX_LEVELS", 8)
+    dk = "f64" if dtype == torch.float64 else "f32"
+    for plan, cplan in _f3_plan_pairs("aniso48", cuda_device):
+        assert plan.rows_sorted is None and plan.num_levels > 8
+        b_host = torch.from_numpy(np.random.default_rng(4).standard_normal(plan.m)).to(dtype)
+        tri.LAUNCHES.clear()
+        y = tri.trisolve(plan, b_host.to(cuda_device))
+        torch.cuda.synchronize()
+        assert dict(tri.LAUNCHES) == {(dk, "sweeps"): 1}
+        assert torch.equal(y.cpu(), tri.trisolve_plain(cplan, b_host))
+
+
+@pytest.mark.cuda
+def test_f3_argument_checks_on_card(cuda_device):
+    """A non-contiguous vector and a vector on another device than the plan
+    raise before any launch."""
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    plan, cplan = _f3_plan_pairs("aniso48", cuda_device)[0]
+    b = torch.zeros(2 * plan.m, dtype=torch.float64, device=cuda_device)
+    tri.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="must be contiguous"):
+        tri.trisolve(plan, b[::2])
+    with pytest.raises(ValueError, match="the plan on cuda"):
+        tri.trisolve(plan, torch.zeros(plan.m, dtype=torch.float64))
+    with pytest.raises(ValueError, match="the plan on cpu"):
+        tri.trisolve_sweeps(cplan, b[:plan.m], 2)
+    assert not tri.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["ilu exact", "ilu sweeps"])
+def test_cg_solve_launches_f3_on_card(cuda_device, monkeypatch, precond):
+    """cg_solve with ILU(0) on the gather path: two F-3 launches an apply
+    (one a factor), no index_add_, in the plain loop (1 + iterations
+    applies) and in captured blocks, whose x is the plain loop's bit for bit."""
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    monkeypatch.setattr(tri, "ILU_SWELL_MIN", 1 << 60)
+    csr, b = _cg_system(cuda_device)
+    pre = tri.ilu0(csr, sweeps=0 if precond == "ilu exact" else 3)
+    assert pre.swell is None
+    keys = ({("f64", "levels_block")} if precond == "ilu exact" else {("f64", "sweeps")})
+
+    def no_index_add(*a, **k):
+        raise AssertionError("index_add_ on the ILU path")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "index_add_", no_index_add)
+        pre.solve(b)
+    runs = {}
+    for eager_iters in (10 ** 9, 0):
+        monkeypatch.setattr(cg, "CG_EAGER_ITERS", eager_iters)
+        tri.LAUNCHES.clear()
+        got = cg.cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=pre)
+        torch.cuda.synchronize()
+        assert set(tri.LAUNCHES) == keys and 0 < got.iters < 2000
+        launches = sum(tri.LAUNCHES.values())
+        if eager_iters:
+            assert launches == 2 * (got.iters + 1)
+        else:
+            assert launches % 2 == 0 and launches >= 2 * (got.iters + 1)
+        runs[eager_iters] = got
+    assert runs[0].iters == runs[10 ** 9].iters and torch.equal(runs[0].x, runs[10 ** 9].x)
+
