@@ -337,7 +337,7 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
                                                         pad_global)
     from spmv_acc_tpu_torch.parallel.multihost import init_distributed, shutdown_distributed
     from spmv_acc_tpu_torch.parallel.scaling_bench import _loop_us, _renormalised
-    from spmv_acc_tpu_torch.utils import verify_y
+    from spmv_acc_tpu_torch.utils import profiling, verify_y
     from spmv_acc_tpu_torch.utils.graphs import Loop
 
     dsm = sys.modules["spmv_acc_tpu_torch.parallel.dist_spmv"]
@@ -375,9 +375,10 @@ def dist_phase(dev, card, rdzv, records, loop_us, time_us, library, bound_of):
         brp, bci, bv, (bm, bn) = band.to_numpy()
         band_dev = band.to(dev)
         t0 = time.perf_counter()
+        before = profiling.spans()
         d4 = build_dist_swell(band_dev, 4)
         t_build = time.perf_counter() - t0
-        build_split = ", ".join(f"{k} {t!r} s" for k, t in swell.PLAN_TIMES.items())
+        build_split = ", ".join(f"{k} {t!r} s" for k, t in swell.plan_steps(before).items())
         bxn = gen.random_x_y(bn, bm, seed=42)[0]
         bx = torch.from_numpy(bxn).to(dev)
         xp4 = pad_global(d4, bx)
@@ -1507,7 +1508,7 @@ def smoke(plan_dir: str) -> int:
     from spmv_acc_tpu_torch.ops import _build
     from spmv_acc_tpu_torch.ops import swell
     from spmv_acc_tpu_torch.ops.golden import host_spmm, host_spmv
-    from spmv_acc_tpu_torch.utils import cuda_time_us, verify_y
+    from spmv_acc_tpu_torch.utils import cuda_time_us, profiling, verify_y
     from spmv_acc_tpu_torch.utils.stats import bytes_moved, chip_peak_gbs
 
     dev = torch.device("cuda")
@@ -1858,9 +1859,10 @@ def smoke(plan_dir: str) -> int:
     dx, dy = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
     h = port.Handle()
     swell.LAUNCHES.clear()
+    before = profiling.spans()
     out = port.spmv(csr, dx, dy, alpha=1.0, beta=1.0, strategy="adaptive", handle=h)
     torch.cuda.synchronize()
-    cold = {"boneS10": (h.kernel_time_us, dict(swell.PLAN_TIMES))}
+    cold = {"boneS10": (h.kernel_time_us, swell.plan_steps(before))}
     launches = launches_of(swell, "f64", 1, 1)
     rp, ci, v, _ = bone.to_numpy()
     rep = verify_y(out, host_spmv(1.0, 1.0, rp, ci, v, x, y))
@@ -1887,10 +1889,11 @@ def smoke(plan_dir: str) -> int:
     tsopf_dev = tsopf.to(dev)
     h = port.Handle()
     swell.LAUNCHES.clear()
+    before = profiling.spans()
     out = port.spmv(tsopf_dev, torch.from_numpy(tx).to(dev), torch.from_numpy(ty).to(dev),
                     alpha=1.0, beta=1.0, strategy="adaptive", handle=h)
     torch.cuda.synchronize()
-    cold["TSOPF_RS_b2383"] = (h.kernel_time_us, dict(swell.PLAN_TIMES))
+    cold["TSOPF_RS_b2383"] = (h.kernel_time_us, swell.plan_steps(before))
     launches = launches_of(swell, "f64", 4, 1)
     trp, tci, tv, _ = tsopf.to_numpy()
     rep = verify_y(out, host_spmv(1.0, 1.0, trp, tci, tv, tx, ty))
@@ -1925,9 +1928,10 @@ def smoke(plan_dir: str) -> int:
         port.dispatch.clear_caches()
         h = port.Handle()
         swell.LAUNCHES.clear()
+        before = profiling.spans()
         out = port.spmv(dcsr, dxn, dyn, alpha=1.0, beta=1.0, strategy="adaptive", handle=h)
         torch.cuda.synchronize()
-        warm = dict(swell.PLAN_TIMES)
+        warm = swell.plan_steps(before)
         launches = launches_of(swell, "f64", r, 1)
         rep = verify_y(out, host_spmv(1.0, 1.0, hrp, hci, hv, xn, yn))
         loaded = swell.get_swell_plan(dcsr)

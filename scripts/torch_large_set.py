@@ -50,7 +50,7 @@ def main(argv=None) -> int:
     from spmv_acc_tpu_torch.formats import generate as gen
     from spmv_acc_tpu_torch.ops import swell
     from spmv_acc_tpu_torch.ops.golden import host_spmv
-    from spmv_acc_tpu_torch.utils import cuda_time_us
+    from spmv_acc_tpu_torch.utils import cuda_time_us, profiling
     from spmv_acc_tpu_torch.utils.stats import chip_peak_gbs
 
     dev = torch.device("cuda")
@@ -94,10 +94,11 @@ def main(argv=None) -> int:
         csr = host.to(dev)
         dx = torch.from_numpy(x).to(dev)
         t0 = time.perf_counter()
+        before = profiling.spans()
         lay = swell.get_swell_plan(csr)
         torch.cuda.synchronize()
         t_plan = time.perf_counter() - t0
-        plan = "warm" if "load" in swell.PLAN_TIMES else "cold"
+        plan = "warm" if "load" in swell.plan_steps(before) else "cold"
         swell.LAUNCHES.clear()
         a = swell.swell_ax(lay, dx)
         torch.cuda.synchronize()

@@ -62,6 +62,7 @@ from .dispatch import Handle, make_spmv_fn, spmv
 from .formats.generate import example_like, random_x_y
 from .ops import swell
 from .ops.golden import host_spmv
+from .utils import profiling
 from .utils.graphs import UNROLL
 from .utils.host import host_array
 from .utils.stats import BenchTimes, bytes_moved, chip_peak_gbs, flops, print_statistics
@@ -257,9 +258,10 @@ def bench_matrix(name: str, log, device="cuda", peak_gbs=None, iters=None) -> Ma
     t0 = time.perf_counter()
     handle = Handle()
     swell.LAUNCHES.clear()
+    before = profiling.spans()
     hy = host_array(spmv(csr, dx, dy, alpha=1.0, beta=1.0, strategy="adaptive", handle=handle))
     launches = dict(swell.LAUNCHES)
-    plan_times = dict(swell.PLAN_TIMES)
+    plan_times = swell.plan_steps(before)
     golden = host_spmv(1.0, 1.0, *host.to_numpy()[:3], x, y0)
     rep = verify_y(hy, golden, dtype=DTYPE)
     ok = rep.ok and hy.shape == (m,) and bool(np.isfinite(hy).all())

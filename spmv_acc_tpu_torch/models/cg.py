@@ -52,6 +52,7 @@ import torch
 from ..formats.containers import CSR
 from ..ops import cg_update
 from ..ops.cg_update import Work
+from ..utils import profiling
 
 __all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CGBlocks", "Jacobi", "cg_solve",
            "dist_cg_solve", "dist_cg_blocks", "jacobi_preconditioner"]
@@ -210,11 +211,19 @@ class CGBlocks:
         self.loop = None
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor, tol, max_iters: int) -> CGResult:
+        """Spans: ``cg.solve`` around the call, ``cg.eager`` around the plain
+        iterations and their host reads, ``cg.blocks`` around the masked
+        blocks (their captures, ``graphs.capture``, inside it)."""
+        with profiling.span("cg.solve"):
+            return self._solve(b, x0, tol, max_iters)
+
+    def _solve(self, b, x0, tol, max_iters: int) -> CGResult:
         from ..utils.graphs import Loop
 
         carry, tol2 = _cg_start(self.matvec, self.M, b, x0, tol, self.reduce)
         limit = min(self.eager_iters, max_iters)
-        carry, done = _plain_steps(self.matvec, self.M, self.reduce, tol2, carry, limit)
+        with profiling.span("cg.eager"):
+            carry, done = _plain_steps(self.matvec, self.M, self.reduce, tol2, carry, limit)
         if done < limit:  # converged
             x, _, _, _, rr, it = carry
             return CGResult(x=x, iters=int(it), residual_norm=torch.sqrt(rr))
@@ -223,16 +232,17 @@ class CGBlocks:
         if self.loop is not None:
             self.loop.load(carry)
         # done: iterations run, masked ones included: never past max_iters
-        while done < max_iters and bool(_more(carry, self.tol2, self.max_iters)):
-            if self.loop is None:
-                # the step holds no reference to self: the loop's graphs go with it
-                step = functools.partial(_masked_step, self.matvec, self.M, self.reduce, self.tol2,
-                                         self.max_iters, work=Work(b))
-                self.loop = Loop(step, carry, unroll=self.block)
-            k = min(self.block, max_iters - done)
-            self.loop.advance(k)
-            done += k
-            carry = self.loop.carry
+        with profiling.span("cg.blocks"):
+            while done < max_iters and bool(_more(carry, self.tol2, self.max_iters)):
+                if self.loop is None:
+                    # the step holds no reference to self: the loop's graphs go with it
+                    step = functools.partial(_masked_step, self.matvec, self.M, self.reduce,
+                                             self.tol2, self.max_iters, work=Work(b))
+                    self.loop = Loop(step, carry, unroll=self.block)
+                k = min(self.block, max_iters - done)
+                self.loop.advance(k)
+                done += k
+                carry = self.loop.carry
         x, _, _, _, rr, it = carry
         return CGResult(x=x.clone(), iters=int(it), residual_norm=torch.sqrt(rr))
 

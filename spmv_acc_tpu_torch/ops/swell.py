@@ -31,7 +31,6 @@ import ctypes
 import dataclasses
 import os
 import tempfile
-import time
 import zipfile
 import zlib
 
@@ -39,12 +38,13 @@ import numpy as np
 import torch
 
 from ..config import LANES, cache_dir
+from ..utils import profiling
 from .bsr_block import bsr_condense, detect_block_size
 from .swell_plan import (ChunkSchedule, SwellLayout, _canonicalize, build_swell_layout,
                          build_swell_schedule, swell_slabs)
 from .xla import axpby_finish
 
-__all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "PLAN_TIMES", "get_swell_plan",
+__all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan", "plan_steps",
            "swell_plan_within_cap", "clear_swell_cache", "kernel_group",
            "rescheduled", "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain", "prep_x",
            "prep_x_plain", "swell_ax_planes", "swell_ax_planes_plain", "spmv_swell",
@@ -154,20 +154,24 @@ def _torch_dtype(dtype) -> torch.dtype:
 # build a new CSR (or call clear_swell_cache) after changing one.
 _SWELL_CACHE: dict = {}
 
-# Seconds of each step of the last layout ``_plan`` built or loaded (the steps it
-# took: host_copy, hash, load, slabs, layout, save, schedule, h2d).
-PLAN_TIMES: dict = {}
-
 
 def clear_swell_cache() -> None:
     _SWELL_CACHE.clear()
 
 
+def plan_steps(before: dict) -> dict:
+    """Seconds of each plan step taken since ``before`` (a
+    ``utils.profiling.spans()`` copy), by step: the steps of the plans built or
+    loaded since, summed."""
+    return {k[len("swell.plan."):]: st.seconds for k, st in profiling.since(before).items()
+            if k.startswith("swell.plan.")}
+
+
 def _timed(step: str, fn, *args):
-    t0 = time.perf_counter()
-    out = fn(*args)
-    PLAN_TIMES[step] = time.perf_counter() - t0
-    return out
+    """``fn(*args)`` in the span ``swell.plan.<step>`` (host_copy, hash, load,
+    slabs, layout, save, schedule, h2d), a child of the plan's ``swell.plan``."""
+    with profiling.span("swell.plan." + step):
+        return fn(*args)
 
 
 def _slabs(rp, ci, v, shape, dtype: torch.dtype, r):
@@ -308,12 +312,13 @@ def _plan(csr, dtype, r):
     if (hit is not None and hit[0] is csr.row_ptr and hit[1] is csr.col_idx
             and hit[2] is csr.values):
         return hit[3:]
-    PLAN_TIMES.clear()
-    lay, cells = _host_layout(csr, tdtype, r)
-    layout = None
-    if lay is not None:
-        sched = _timed("schedule", build_swell_schedule, lay)
-        layout = _timed("h2d", DeviceSwellLayout.from_host, lay, csr.device, *csr.shape, sched)
+    with profiling.span("swell.plan"):
+        lay, cells = _host_layout(csr, tdtype, r)
+        layout = None
+        if lay is not None:
+            sched = _timed("schedule", build_swell_schedule, lay)
+            layout = _timed("h2d", DeviceSwellLayout.from_host, lay, csr.device, *csr.shape,
+                            sched)
     _SWELL_CACHE[key] = (csr.row_ptr, csr.col_idx, csr.values, layout, cells)
     return layout, cells
 

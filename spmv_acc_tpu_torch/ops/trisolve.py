@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..formats.containers import CSR
+from ..utils import profiling
 
 __all__ = ["ilu0_host", "TriSolvePlan", "analyze_trisolve", "trisolve", "trisolve_plain",
            "trisolve_sweeps", "trisolve_sweeps_plain", "SweepSwell", "sweep_apply_swell",
@@ -458,7 +459,16 @@ def ilu0(csr: CSR, sweeps: Optional[int] = None) -> ILU0:
     ``sweeps=None`` picks exact solves when both factors have an exact schedule
     of at most 512 iterations, else ``ILU_AUTO_SWEEPS`` (6) Jacobi sweeps per
     solve.  Sweep solves on factors with at least ``ILU_SWELL_MIN``
-    off-diagonal nnz run on the swell kernel (:class:`SweepSwell`)."""
+    off-diagonal nnz run on the swell kernel (:class:`SweepSwell`).
+
+    The span ``ilu0``: its self time is the host factor, the two level
+    analyses and the handle; the factors' swell plans are ``swell.plan``
+    spans inside it."""
+    with profiling.span("ilu0"):
+        return _ilu0(csr, sweeps)
+
+
+def _ilu0(csr: CSR, sweeps: Optional[int]) -> ILU0:
     from .swell import get_swell_plan
 
     rp, ci, v, shape = csr.to_numpy()

@@ -42,8 +42,9 @@ import torch
 import torch.distributed as dist
 
 from ..config import LANES
-from ..ops.swell import PLAN_TIMES, DeviceSwellLayout, _host_layout, _plan_cache_on, _torch_dtype, swell_ax
+from ..ops.swell import DeviceSwellLayout, _host_layout, _plan_cache_on, _torch_dtype, swell_ax
 from ..ops.swell_plan import ChunkSchedule, SwellLayout, build_swell_schedule
+from ..utils import profiling
 from .dist_spmv import gather_mesh, halo_exchanger, mesh_device, mesh_rank
 
 __all__ = ["DistSwellPlan", "build_dist_swell", "dist_swell_spmv_fn",
@@ -89,19 +90,20 @@ class DistSwellPlan:
 def _shared_host_layout(csr, tdtype: torch.dtype, mesh) -> SwellLayout:
     """The global host layout.  With a mesh of several ranks and the disk plan
     cache on, rank 0 builds and saves it first and the others load it after a
-    barrier, instead of each rank paying the build."""
+    barrier, instead of each rank paying the build.  The span
+    ``swell.plan``, as a single device's plan."""
     device = csr.device if mesh is None else mesh_device(mesh)
-    PLAN_TIMES.clear()
-    if mesh is None or mesh.size() == 1 or not _plan_cache_on(device):
-        lay, cells = _host_layout(csr, tdtype, None, device)
-    elif mesh_rank(mesh) == 0:
-        try:
+    with profiling.span("swell.plan"):
+        if mesh is None or mesh.size() == 1 or not _plan_cache_on(device):
             lay, cells = _host_layout(csr, tdtype, None, device)
-        finally:
+        elif mesh_rank(mesh) == 0:
+            try:
+                lay, cells = _host_layout(csr, tdtype, None, device)
+            finally:
+                dist.barrier(group=mesh.get_group())
+        else:
             dist.barrier(group=mesh.get_group())
-    else:
-        dist.barrier(group=mesh.get_group())
-        lay, cells = _host_layout(csr, tdtype, None, device)
+            lay, cells = _host_layout(csr, tdtype, None, device)
     if lay is None:
         raise ValueError(f"the swell layout of this {csr.shape[0]}x{csr.shape[1]} matrix would "
                          f"hold {cells} value slots, more than SWELL_MAX_SLOTS")

@@ -36,6 +36,11 @@ them, so the counters' growth during capture is taken back and added again at
 every replay (``_Graph.replay``): a counter counts what ran, warm-ups
 included, one step's launches for each step.
 
+Each capture, from ``capture_begin`` to ``capture_end``, is the span
+``graphs.capture`` (``utils.profiling``), and the caching allocator's growth
+in reserved bytes across it is added to the counter ``graphs.pool_bytes``:
+what the graph's memory pool took from the card.
+
 Capture calls ``CUDAGraph.capture_begin`` directly, not through
 ``torch.cuda.graph``, whose entry synchronizes the device and empties the
 caching allocator (every cached block returned to CUDA, to be allocated
@@ -48,6 +53,8 @@ import collections
 import gc
 
 import torch
+
+from . import profiling
 
 __all__ = ["UNROLL", "CAPTURE_MODE", "Loop", "launch_counters"]
 
@@ -95,17 +102,21 @@ class _Graph:
             body()  # warm-up: builds the libraries, fills caches, runs for real
             before = _snapshot()
             self.graph = torch.cuda.CUDAGraph()
+            reserved = torch.cuda.memory_reserved(stream.device)
             # no garbage collection inside the capture: freeing a tensor there
             # may need a CUDA call that invalidates it
             gc.disable()
             try:
-                self.graph.capture_begin(pool=pool, capture_error_mode=CAPTURE_MODE)
-                try:
-                    body()
-                finally:
-                    self.graph.capture_end()
+                with profiling.span("graphs.capture"):
+                    self.graph.capture_begin(pool=pool, capture_error_mode=CAPTURE_MODE)
+                    try:
+                        body()
+                    finally:
+                        self.graph.capture_end()
             finally:
                 gc.enable()
+            profiling.count("graphs.pool_bytes",
+                            torch.cuda.memory_reserved(stream.device) - reserved)
         torch.cuda.current_stream().wait_stream(stream)
         self.delta = []
         for counter, old in zip(launch_counters(), before):

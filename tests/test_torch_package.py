@@ -434,6 +434,7 @@ def test_disk_cached_layout_runs_the_kernel_on_card(cuda_device, tmp_path, monke
 
     from spmv_acc_tpu_torch.formats import fem_like_csr, random_x_y
     from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.utils import profiling
 
     monkeypatch.setenv("SPMV_TPU_PLAN_CACHE_DIR", str(tmp_path))
     monkeypatch.delenv("SPMV_TPU_NO_PLAN_CACHE", raising=False)
@@ -442,8 +443,11 @@ def test_disk_cached_layout_runs_the_kernel_on_card(cuda_device, tmp_path, monke
     live = swell.get_swell_plan(csr, r=r)
     assert len(list(tmp_path.glob("torch_swell_*.npz"))) == 1
     swell.clear_swell_cache()
+    before = profiling.spans()
     loaded = swell.get_swell_plan(csr, r=r)
-    assert "load" in swell.PLAN_TIMES and "slabs" not in swell.PLAN_TIMES
+    steps = swell.plan_steps(before)
+    assert "load" in steps and "slabs" not in steps
+    assert profiling.since(before)["swell.plan"].count == 1
     for f in dataclasses.fields(live):
         a, b = getattr(live, f.name), getattr(loaded, f.name)
         if isinstance(a, torch.Tensor):
@@ -905,6 +909,30 @@ def test_cg_solve_plain_start_then_captured_on_card(cuda_device, monkeypatch):
         monkeypatch.setattr(cg, "CG_EAGER_ITERS", eager)
         got = cg.cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=M)
         assert got.iters == want.iters and torch.equal(got.x, want.x), eager
+
+
+@pytest.mark.cuda
+def test_cg_solve_spans_on_card(cuda_device):
+    """A captured solve's spans (``utils.profiling``): one each of
+    ``cg.solve``, ``cg.eager`` and ``cg.blocks``, the block's one capture
+    inside ``cg.blocks``, and the pool it grew counted in bytes."""
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.utils import profiling
+
+    csr, b = _cg_system(cuda_device)
+    swell.get_swell_plan(csr)
+    M = cg.jacobi_preconditioner(csr)
+    before = profiling.spans()
+    res = cg.cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=M)
+    torch.cuda.synchronize()
+    t = profiling.since(before)
+    assert res.iters > cg.CG_EAGER_ITERS + cg.CG_BLOCK
+    assert {k: s.count for k, s in t.items()} == {
+        "cg.solve": 1, "cg.eager": 1, "cg.blocks": 1, "graphs.capture": 1,
+        "graphs.pool_bytes": 1}
+    assert 0 < t["graphs.capture"].seconds < t["cg.blocks"].seconds < t["cg.solve"].seconds
+    assert t["graphs.pool_bytes"].total > 0
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ from spmv_acc_tpu.formats.generate import banded_csr, fem_like_csr, random_x_y
 from spmv_acc_tpu_torch.dispatch import clear_caches
 from spmv_acc_tpu_torch.formats import CSR
 from spmv_acc_tpu_torch.ops import swell, swell_plan
+from spmv_acc_tpu_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True)
@@ -47,6 +48,13 @@ def _fem(dtype=np.float64):
 
 def _entries(path):
     return sorted(p.name for p in path.glob("torch_swell_*.npz"))
+
+
+def _planned(call):
+    """(what ``call()`` returns, the plan steps it took: ``swell.plan_steps``)."""
+    before = profiling.spans()
+    out = call()
+    return out, set(swell.plan_steps(before))
 
 
 def _no_build(monkeypatch):
@@ -75,13 +83,13 @@ def _assert_layouts_equal(live, loaded):
 @pytest.mark.parametrize("r", [None, 1, 2])
 def test_roundtrip_loads_the_same_layout(cache, monkeypatch, dtype, r):
     csr = _fem(dtype)
-    live = swell.get_swell_plan(csr, r=r)
+    live, steps = _planned(lambda: swell.get_swell_plan(csr, r=r))
     assert len(_entries(cache)) == 1, "layout not persisted"
-    assert {"hash", "slabs", "layout", "save"} <= set(swell.PLAN_TIMES)
+    assert {"hash", "slabs", "layout", "save"} <= steps
     swell.clear_swell_cache()
     _no_build(monkeypatch)
-    loaded = swell.get_swell_plan(csr, r=r)
-    assert "load" in swell.PLAN_TIMES and "slabs" not in swell.PLAN_TIMES
+    loaded, steps = _planned(lambda: swell.get_swell_plan(csr, r=r))
+    assert "load" in steps and "slabs" not in steps
     assert loaded is not live and loaded.tail_rows.dtype == torch.int64
     _assert_layouts_equal(live, loaded)
     x = torch.from_numpy(random_x_y(4096, 4096, seed=3, dtype=dtype)[0])
@@ -141,8 +149,8 @@ def test_truncated_entry_is_rebuilt_and_replaced(cache, monkeypatch):
     whole = path.read_bytes()
     path.write_bytes(whole[: len(whole) // 2])
     swell.clear_swell_cache()
-    rebuilt = swell.get_swell_plan(csr)
-    assert "slabs" in swell.PLAN_TIMES and "save" in swell.PLAN_TIMES
+    rebuilt, steps = _planned(lambda: swell.get_swell_plan(csr))
+    assert "slabs" in steps and "save" in steps
     _assert_layouts_equal(live, rebuilt)
     assert path.stat().st_size == len(whole) and _entries(cache) == [name]
     swell.clear_swell_cache()
@@ -159,8 +167,8 @@ def test_entry_of_another_dtype_is_not_served(cache):
     f32, f64 = (cache / n for n in sorted(_entries(cache), key=lambda n: "f64" in n))
     f64.write_bytes(f32.read_bytes())
     swell.clear_swell_cache()
-    lay = swell.get_swell_plan(csr)
-    assert lay.dtype == torch.float64 and "slabs" in swell.PLAN_TIMES
+    lay, steps = _planned(lambda: swell.get_swell_plan(csr))
+    assert lay.dtype == torch.float64 and "slabs" in steps
 
 
 def test_schedule_is_rebuilt_from_the_loaded_layout(cache, monkeypatch):
@@ -169,8 +177,8 @@ def test_schedule_is_rebuilt_from_the_loaded_layout(cache, monkeypatch):
     swell.clear_swell_cache()
     _no_build(monkeypatch)
     monkeypatch.setattr(swell_plan, "SWELL_CHUNK_ROWS", 1)
-    loaded = swell.get_swell_plan(csr)
-    assert "schedule" in swell.PLAN_TIMES
+    loaded, steps = _planned(lambda: swell.get_swell_plan(csr))
+    assert "schedule" in steps
     assert live.schedule.max_rows == 64 and loaded.schedule.max_rows == 1
     assert loaded.schedule.nchunks > live.schedule.nchunks
     assert torch.equal(loaded.vals, live.vals)
@@ -178,8 +186,8 @@ def test_schedule_is_rebuilt_from_the_loaded_layout(cache, monkeypatch):
 
 def test_no_plan_cache_writes_nothing(cache, monkeypatch):
     monkeypatch.setenv("SPMV_TPU_NO_PLAN_CACHE", "1")
-    swell.get_swell_plan(_fem())
-    assert not os.listdir(cache) and "hash" not in swell.PLAN_TIMES
+    _, steps = _planned(lambda: swell.get_swell_plan(_fem()))
+    assert not os.listdir(cache) and "hash" not in steps
 
 
 def test_cpu_matrix_without_the_force_writes_nothing(cache, monkeypatch):
@@ -199,8 +207,9 @@ def test_failed_save_leaves_the_call_whole(tmp_path, monkeypatch):
     blocker.write_text("not a directory")
     monkeypatch.setenv("SPMV_TPU_PLAN_CACHE", "1")
     monkeypatch.setenv("SPMV_TPU_PLAN_CACHE_DIR", str(blocker / "plans"))
-    lay = swell.get_swell_plan(_fem())
-    assert lay.slots > 0 and "save" not in swell.PLAN_TIMES
+    lay, steps = _planned(lambda: swell.get_swell_plan(_fem()))
+    # the save was tried (its span records the failed attempt) and wrote nothing
+    assert lay.slots > 0 and "save" in steps and list(tmp_path.iterdir()) == [blocker]
 
 
 def test_jax_entries_and_port_entries_never_meet(cache, monkeypatch):
@@ -214,8 +223,8 @@ def test_jax_entries_and_port_entries_never_meet(cache, monkeypatch):
     jax_files = sorted(p.name for p in cache.glob("plan_*.npz"))
     assert len(jax_files) == 1 and not _entries(cache)
     csr = CSR.from_numpy(*ref.to_numpy())
-    live = swell.get_swell_plan(csr)  # the JAX entry is there: the port builds anyway
-    assert "slabs" in swell.PLAN_TIMES and len(_entries(cache)) == 1
+    live, steps = _planned(lambda: swell.get_swell_plan(csr))  # the JAX entry is there:
+    assert "slabs" in steps and len(_entries(cache)) == 1          # the port builds anyway
     assert sorted(p.name for p in cache.glob("plan_*.npz")) == jax_files
     ref_swell._SWELL_CACHE.clear()
     assert ref_swell.get_swell_plan(ref, np.float64).plan.buckets == ()  # its own entry
