@@ -107,7 +107,9 @@ def ell_cells(csr: CSR, tune: TuneConfig) -> int:
 
 
 def clear_caches() -> None:
-    """Drop every cached plan, layout, pack, transpose and ELL slab."""
+    """Drop every cached plan, layout, pack, transpose and ELL slab, and the
+    solvers ``cg_solve`` keeps."""
+    from .models.cg import clear_solver_cache
     from .ops.adaptive_plus import clear_tile_cache
     from .ops.swell import clear_swell_cache
     from .ops.zoo import clear_pack_cache
@@ -117,6 +119,7 @@ def clear_caches() -> None:
     clear_swell_cache()
     clear_tile_cache()
     clear_pack_cache()
+    clear_solver_cache()
     _T_CACHE.clear()
     _ELL_CACHE.clear()
 

@@ -15,17 +15,22 @@ other preconditioner.  The carry is ``(x, r, p, rz, rr, it)``: the stop test
 reads the ``rr`` that F-2 summed (the JAX ``cond`` sums ``dot(r, r)`` of the
 same r again), and z, a function of r, is not carried.
 
-``cg_solve`` runs its first ``CG_EAGER_ITERS`` iterations as the plain loop
-(``_cg_loop``'s, the stop test read on the host before each), and what is
-left in blocks of ``CG_BLOCK`` masked iterations: each F-2 launch reads
-``active = rr > tol2 and it < max_iters`` on the device and writes nothing where it
-is false, and F-2 adds the iteration to the device count, so a block's
-launches do not depend on any value.  On the card a block is a captured CUDA
-graph (``utils.graphs.Loop``) and the host reads one flag after each block;
-on the CPU the same block runs eagerly.  A short solve thus pays no capture,
-and a long one pays it once.  Once the solve has converged a masked
-iteration changes nothing, so the iterations and x are the plain loop's, bit
-for bit.
+A solve (:class:`CGBlocks`) runs in blocks of ``CG_BLOCK`` masked
+iterations: each F-2 launch reads ``active = rr > tol2 and it < max_iters``
+on the device and writes nothing where it is false, and F-2 adds the
+iteration to the device count, so a block's launches do not depend on any
+value.  On the card a block is a captured CUDA graph (``utils.graphs.Loop``)
+and the host reads one flag after each block; on the CPU the same block runs
+eagerly.  A solver that has no block graph yet first runs up to
+``CG_EAGER_ITERS`` iterations as the plain loop (``_cg_loop``'s, the stop
+test read on the host before each) and captures only if the solve goes on;
+one that holds its graph runs in blocks from the first iteration.
+``cg_solve`` keeps its last ``CG_SOLVERS`` solvers, by matrix,
+preconditioner, strategy and right-hand side's shape: against one matrix
+and preconditioner, only the first solve that runs past the plain start
+captures, and a short solve never does.  Once the solve has converged a
+masked iteration changes nothing, so the iterations and x are the plain
+loop's, bit for bit, wherever the blocks start.
 ``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
 group (``parallel/``): each rank holds a row block of A and the same block of
 every vector, and F-2 runs as three phases, ``cg_dot`` (p·Ap), ``cg_xr`` (x
@@ -43,7 +48,9 @@ same graphs in the same order.
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -54,8 +61,9 @@ from ..ops import cg_update
 from ..ops.cg_update import Work
 from ..utils import profiling
 
-__all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CGBlocks", "Jacobi", "cg_solve",
-           "dist_cg_solve", "dist_cg_blocks", "jacobi_preconditioner"]
+__all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CG_SOLVERS", "CGBlocks", "Jacobi",
+           "cg_solve", "clear_solver_cache", "dist_cg_solve", "dist_cg_blocks",
+           "jacobi_preconditioner"]
 
 # Masked CG iterations in one block: the host reads one flag a block.  A solve
 # runs whole blocks, so up to CG_BLOCK - 1 masked iterations after convergence
@@ -65,14 +73,22 @@ __all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CGBlocks", "Jacobi", "cg_s
 # 2.3 ms more than 4 on Ga41As41H72-SPD's 4-iteration ILU solve.
 CG_BLOCK = 8
 
-# Plain iterations before the first captured block.  Beyond its warm-up (the
-# block's iterations, run for real) a block's capture cost 5-35 ms on the H100
-# (2.4-3.5 s over the exact ILU apply; 65-90 ms more for a process's first
-# capture; scripts/torch_probe_graphs.py solve, PERF.md): the time of 11-240
-# plain iterations on the bench's solver systems, af23560 and dw4096.  A
-# solve shorter than this pays no capture (Ga41As41H72-SPD's 10 and 4
-# iterations run at the plain loop's time); a longer one pays it once.
+# Plain iterations before a solver's first captured block.  Beyond its
+# warm-up (the block's iterations, run for real) a block's capture cost 5-35
+# ms on the H100 (2.4-3.5 s over the exact ILU apply; 65-90 ms more for a
+# process's first capture; scripts/torch_probe_graphs.py solve, PERF.md): the
+# time of 11-240 plain iterations on the bench's solver systems, af23560 and
+# dw4096.  It guards only a solver's first solve past it, or an operator
+# whose solves never pass it (Ga41As41H72-SPD's 10 and 4 iterations run at
+# the plain loop's time, with no capture): a kept solver that holds its
+# graph runs in blocks from the first iteration.
 CG_EAGER_ITERS = 64
+
+# Solvers cg_solve keeps, least recently used first out.  Each holds its
+# block graphs and their memory pool (21 and 63 MB on hpcg104 under Jacobi
+# and ILU(0), PERF.md), so that a caller solving against one matrix and
+# preconditioner captures once, not once a solve.
+CG_SOLVERS = 4
 
 
 class CGResult(NamedTuple):
@@ -189,12 +205,13 @@ def _masked_step(matvec, M, reduce, tol2, max_iters, carry, work: Optional[Work]
 
 class CGBlocks:
     """Preconditioned CG on any ``matvec`` and preconditioner callable:
-    ``eager_iters`` plain iterations, then blocks of ``block`` masked ones
-    (module docstring), captured CUDA graphs for CUDA tensors, eager for CPU
-    ones.  The last block before ``max_iters`` is cut to the iterations left,
-    so a solve at tol 0 runs exactly ``max_iters``.  The graphs are captured
-    at the first solve that reaches a block and kept for later solves with the
-    same shapes (``tol`` and ``max_iters`` live in device buffers).  Where
+    blocks of ``block`` masked iterations (module docstring), captured CUDA
+    graphs for CUDA tensors, eager for CPU ones.  The last block before
+    ``max_iters`` is cut to the iterations left, so a solve at tol 0 runs
+    exactly ``max_iters``.  The graphs are captured at the first solve that
+    runs past ``eager_iters`` plain iterations and kept for later solves with
+    the same shapes (``tol`` and ``max_iters`` live in device buffers), which
+    then run in blocks from their first iteration.  Where
     ``reduce`` sums over a mesh (``dist_cg_blocks``), every rank of its group
     solves with the same arguments (``utils.graphs.Loop``)."""
 
@@ -212,8 +229,9 @@ class CGBlocks:
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor, tol, max_iters: int) -> CGResult:
         """Spans: ``cg.solve`` around the call, ``cg.eager`` around the plain
-        iterations and their host reads, ``cg.blocks`` around the masked
-        blocks (their captures, ``graphs.capture``, inside it)."""
+        iterations and their host reads (none once the graphs exist),
+        ``cg.blocks`` around the masked blocks (their captures,
+        ``graphs.capture``, inside it)."""
         with profiling.span("cg.solve"):
             return self._solve(b, x0, tol, max_iters)
 
@@ -221,17 +239,18 @@ class CGBlocks:
         from ..utils.graphs import Loop
 
         carry, tol2 = _cg_start(self.matvec, self.M, b, x0, tol, self.reduce)
-        limit = min(self.eager_iters, max_iters)
-        with profiling.span("cg.eager"):
-            carry, done = _plain_steps(self.matvec, self.M, self.reduce, tol2, carry, limit)
-        if done < limit:  # converged
-            x, _, _, _, rr, it = carry
-            return CGResult(x=x, iters=int(it), residual_norm=torch.sqrt(rr))
+        done = 0  # iterations run, masked ones included: never past max_iters
+        if self.loop is None:  # no graph yet: the plain start
+            limit = min(self.eager_iters, max_iters)
+            with profiling.span("cg.eager"):
+                carry, done = _plain_steps(self.matvec, self.M, self.reduce, tol2, carry, limit)
+            if done < limit:  # converged
+                x, _, _, _, rr, it = carry
+                return CGResult(x=x, iters=int(it), residual_norm=torch.sqrt(rr))
+        else:
+            self.loop.load(carry)
         self.tol2.copy_(tol2)
         self.max_iters.fill_(max_iters)
-        if self.loop is not None:
-            self.loop.load(carry)
-        # done: iterations run, masked ones included: never past max_iters
         with profiling.span("cg.blocks"):
             while done < max_iters and bool(_more(carry, self.tol2, self.max_iters)):
                 if self.loop is None:
@@ -247,6 +266,55 @@ class CGBlocks:
         return CGResult(x=x.clone(), iters=int(it), residual_norm=torch.sqrt(rr))
 
 
+_SOLVERS: collections.OrderedDict = collections.OrderedDict()  # key -> (held, CGBlocks)
+_SOLVERS_LOCK = threading.Lock()
+
+
+def clear_solver_cache() -> None:
+    """Drop every solver ``cg_solve`` keeps, and with them their graphs."""
+    with _SOLVERS_LOCK:
+        _SOLVERS.clear()
+
+
+def _take_solver(key):
+    """The kept solver of ``key``, taken out of the cache while it solves (a
+    second caller of the same key builds its own), or None."""
+    with _SOLVERS_LOCK:
+        entry = _SOLVERS.pop(key, None)
+    return None if entry is None else entry[1]
+
+
+def _keep_solver(key, held: tuple, solver: CGBlocks) -> None:
+    """Keep ``solver`` under ``key`` (its ids' objects ``held``, so that no id
+    is reused while it is kept), dropping the least recently used past
+    ``CG_SOLVERS``."""
+    with _SOLVERS_LOCK:
+        _SOLVERS[key] = (held, solver)
+        _SOLVERS.move_to_end(key)
+        while len(_SOLVERS) > CG_SOLVERS:
+            _SOLVERS.popitem(last=False)
+
+
+def _new_solver(csr: CSR, chosen: str, precond, b: torch.Tensor) -> CGBlocks:
+    """A :class:`CGBlocks` on ``csr``'s matvec by the strategy ``chosen`` (on
+    the swell layout for swell) and ``precond`` (an ILU0 as its ``solve``)."""
+    from ..dispatch import spmv
+    from ..ops.trisolve import ILU0
+
+    if chosen == "swell":
+        from ..ops.swell import get_swell_plan, swell_ax
+
+        layout, dtype = get_swell_plan(csr), b.dtype
+
+        def matvec(v):
+            return swell_ax(layout, v.to(layout.dtype)).to(dtype)
+    else:
+        def matvec(v):
+            return spmv(csr, v, strategy=chosen)
+    return CGBlocks(matvec, precond.solve if isinstance(precond, ILU0) else precond, b,
+                    block=CG_BLOCK, eager_iters=CG_EAGER_ITERS)
+
+
 def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: float = 1e-8,
              max_iters: int = 1000, strategy: str = "adaptive",
              precond: Optional[Callable] = None) -> CGResult:
@@ -254,30 +322,30 @@ def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: 
     SpMV, on ``csr``'s device.  ``strategy="swell"``, or ``"adaptive"`` when the
     picker chooses swell, runs every matvec on the swell layout (the swell
     kernel on a card); ``precond`` is a callable or an :class:`~..ops.trisolve.ILU0`.
-    Runs :class:`CGBlocks`: the plain loop for ``CG_EAGER_ITERS`` iterations,
-    then captured CUDA graphs on a card."""
-    from ..dispatch import pick_strategy, spmv
-    from ..ops.trisolve import ILU0
+
+    Runs a :class:`CGBlocks` kept across calls (``CG_SOLVERS`` of them) by
+    ``csr``'s arrays, the ``precond`` object, the chosen strategy, ``b``'s
+    dtype, shape and device, ``CG_BLOCK`` and ``CG_EAGER_ITERS``: a new
+    solver runs the plain loop for ``CG_EAGER_ITERS`` iterations, then
+    captured CUDA graphs on a card; a kept one that holds its graphs runs
+    them from the first iteration.  The counters ``cg.solvers.hit`` and
+    ``cg.solvers.built`` (``utils.profiling``) count the two."""
+    from ..dispatch import pick_strategy
     from ..plan import get_plan
 
     if x0 is None:
         x0 = torch.zeros_like(b)
-    if isinstance(precond, ILU0):
-        precond = precond.solve
-    plan = get_plan(csr)
-    chosen = pick_strategy(plan, csr) if strategy == "adaptive" else strategy
-    if chosen == "swell":
-        from ..ops.swell import get_swell_plan, swell_ax
-
-        layout = get_swell_plan(csr)
-
-        def matvec(v):
-            return swell_ax(layout, v.to(layout.dtype)).to(b.dtype)
-    else:
-        def matvec(v):
-            return spmv(csr, v, strategy=chosen)
-    return CGBlocks(matvec, precond, b, block=CG_BLOCK,
-                    eager_iters=CG_EAGER_ITERS).solve(b, x0, tol, max_iters)
+    chosen = pick_strategy(get_plan(csr), csr) if strategy == "adaptive" else strategy
+    held = (csr.row_ptr, csr.col_idx, csr.values, precond)
+    key = tuple(id(h) for h in held) + (chosen, b.dtype, tuple(b.shape), b.device, CG_BLOCK,
+                                        CG_EAGER_ITERS)
+    solver = _take_solver(key)
+    profiling.count("cg.solvers.built" if solver is None else "cg.solvers.hit")
+    if solver is None:
+        solver = _new_solver(csr, chosen, precond, b)
+    res = solver.solve(b, x0, tol, max_iters)
+    _keep_solver(key, held, solver)
+    return res
 
 
 def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGResult:

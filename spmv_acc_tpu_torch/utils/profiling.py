@@ -13,7 +13,8 @@ thread), and each counter's sum, in one table per process that ``spans``
 copies and ``reset`` clears.  The solver, the captured loops and the plans
 open spans where their work happens (``cg.solve``, ``cg.eager``,
 ``cg.blocks``, ``graphs.capture``, ``swell.plan`` and its steps, ``ilu0``),
-never one an iteration.  While a ``torch.profiler`` session records, a span
+never one an iteration; ``cg_solve`` counts the solvers it keeps and builds
+(``cg.solvers.hit``, ``cg.solvers.built``).  While a ``torch.profiler`` session records, a span
 also enters ``record_function``, so the trace shows it on the kernels'
 clock; otherwise it does not (a bare ``record_function`` cost 6.1 µs on
 the H100 machine's host with no profiler running, a span 0.92 µs:

@@ -30,6 +30,7 @@ from spmv_acc_tpu_torch.formats.generate import aniso_laplacian_csr
 from spmv_acc_tpu_torch.io import write_csr_text
 from spmv_acc_tpu_torch.models import cg
 from spmv_acc_tpu_torch.ops import trisolve as tri
+from spmv_acc_tpu_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True)
@@ -319,3 +320,152 @@ def test_cg_solve_runs_every_strategy_through_the_blocks(strategy, monkeypatch):
                        1e-10, 1000)
     got = cg.cg_solve(csr, b, tol=1e-10, max_iters=1000, strategy=strategy)
     assert got.iters == want.iters and torch.equal(got.x, want.x)
+
+
+# ---- the solvers cg_solve keeps (cg._SOLVERS): one CGBlocks per matrix,
+# preconditioner object, strategy, dtype and shape, its graphs kept across
+# calls; a kept solver that holds its loop runs in blocks from the first
+# iteration.
+
+def _solver_counts(before):
+    t = profiling.since(before)
+    return {k: int(t[k].total) if k in t else 0 for k in ("cg.solvers.built", "cg.solvers.hit")}
+
+
+@pytest.mark.parametrize("precond", ["none", "jacobi", "ilu"])
+def test_cg_solve_keeps_its_solver_across_calls(precond, monkeypatch):
+    """Two solves on the same csr, preconditioner object, dtype and shape
+    build one CGBlocks; the second (its loop built by the first) runs no
+    plain iteration, and both equal the plain loop bit for bit."""
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 8)
+    csr, b = _aniso_system()
+    pre = {"none": None, "jacobi": cg.jacobi_preconditioner(csr),
+           "ilu": tri.ilu0(csr, sweeps=3)}[precond]
+    M = pre.solve if isinstance(pre, tri.ILU0) else pre
+    want = cg._cg_loop(_matvec(csr), M, b, torch.zeros_like(b), 1e-8, 2000)
+    assert want.iters > 8
+    before = profiling.spans()
+    first = cg.cg_solve(csr, b, tol=1e-8, max_iters=2000, strategy="swell", precond=pre)
+    assert _solver_counts(before) == {"cg.solvers.built": 1, "cg.solvers.hit": 0}
+    mid = profiling.spans()
+    again = cg.cg_solve(csr, b, tol=1e-8, max_iters=2000, strategy="swell", precond=pre)
+    assert _solver_counts(before) == {"cg.solvers.built": 1, "cg.solvers.hit": 1}
+    assert "cg.eager" not in profiling.since(mid) and len(cg._SOLVERS) == 1
+    for got in (first, again):
+        assert got.iters == want.iters
+        assert torch.equal(got.x, want.x) and torch.equal(got.residual_norm, want.residual_norm)
+
+
+@pytest.mark.parametrize("change", ["precond", "dtype", "block", "eager_iters", "strategy",
+                                    "matrix"])
+def test_cg_solve_builds_a_solver_for_another_key(change, monkeypatch):
+    """A new preconditioner object, another dtype of b, a changed CG_BLOCK or
+    CG_EAGER_ITERS, another strategy or a copy of the matrix builds a new
+    solver beside the first, and a solve through it equals a fresh one."""
+    csr, b = _aniso_system()
+    pre = None if change == "dtype" else cg.jacobi_preconditioner(csr)
+    strategy = "swell"
+    before = profiling.spans()
+    cg.cg_solve(csr, b, tol=1e-8, strategy=strategy, precond=pre)
+    if change == "precond":
+        pre = cg.jacobi_preconditioner(csr)
+    elif change == "dtype":
+        b = b.float()
+    elif change == "block":
+        monkeypatch.setattr(cg, "CG_BLOCK", 3)
+    elif change == "eager_iters":
+        monkeypatch.setattr(cg, "CG_EAGER_ITERS", 5)
+    elif change == "strategy":
+        strategy = "line"
+    else:
+        csr = CSR.from_numpy(*csr.to_numpy())
+    got = cg.cg_solve(csr, b, tol=1e-8, strategy=strategy, precond=pre)
+    assert _solver_counts(before) == {"cg.solvers.built": 2, "cg.solvers.hit": 0}
+    assert len(cg._SOLVERS) == 2
+    cg.clear_solver_cache()
+    fresh = cg.cg_solve(csr, b, tol=1e-8, strategy=strategy, precond=pre)
+    assert got.iters == fresh.iters and torch.equal(got.x, fresh.x)
+
+
+@pytest.mark.parametrize("case", ["short", "zero_rhs", "max_iters", "full"])
+def test_a_solver_with_its_loop_solves_in_blocks_from_the_first_iteration(case):
+    """A CGBlocks whose loop exists skips the plain start: a solve that
+    converges within the first block, b = 0, max_iters below the block, and
+    a whole solve give _cg_loop's iterations, x and residual bit for bit."""
+    csr, b = _aniso_system()
+    M = cg.jacobi_preconditioner(csr)
+    mv = _matvec(csr)
+    solver = cg.CGBlocks(mv, M, b, block=8, eager_iters=4)
+    solver.solve(b, torch.zeros_like(b), 1e-8, 2000)
+    assert solver.loop is not None
+    tol, max_iters = {"short": (0.1, 2000), "zero_rhs": (1e-8, 2000), "max_iters": (1e-14, 5),
+                      "full": (1e-8, 2000)}[case]
+    if case == "zero_rhs":
+        b = torch.zeros_like(b)
+    want = cg._cg_loop(mv, M, b, torch.zeros_like(b), tol, max_iters)
+    before = profiling.spans()
+    got = solver.solve(b, torch.zeros_like(b), tol, max_iters)
+    t = profiling.since(before)
+    assert "cg.eager" not in t and t["cg.blocks"].count == 1
+    assert got.iters == want.iters
+    assert torch.equal(got.x, want.x) and torch.equal(got.residual_norm, want.residual_norm)
+    assert {"short": 1 < got.iters < 8, "zero_rhs": got.iters == 0 and not got.x.any(),
+            "max_iters": got.iters == 5, "full": 8 < got.iters < 2000 and got.iters % 8}[case]
+
+
+def test_cg_solve_drops_the_least_recently_used_solver(monkeypatch):
+    """Past CG_SOLVERS the least recently used solver goes (a solve with its
+    key builds again), the others stay, and dispatch.clear_caches() empties
+    the cache."""
+    from spmv_acc_tpu_torch import dispatch
+
+    monkeypatch.setattr(cg, "CG_SOLVERS", 2)
+    csr, b = _aniso_system()
+    pres = [cg.jacobi_preconditioner(csr) for _ in range(3)]
+
+    def solve(i):
+        return cg.cg_solve(csr, b, tol=1e-8, strategy="swell", precond=pres[i])
+
+    before = profiling.spans()
+    for i in (0, 1, 0, 2):  # 2 drops 1, the least recently used
+        solve(i)
+    assert _solver_counts(before) == {"cg.solvers.built": 3, "cg.solvers.hit": 1}
+    assert [held[3] for held, _ in cg._SOLVERS.values()] == [pres[0], pres[2]]
+    solve(0)
+    solve(1)
+    assert _solver_counts(before) == {"cg.solvers.built": 4, "cg.solvers.hit": 2}
+    dispatch.clear_caches()
+    assert not cg._SOLVERS
+    solve(1)
+    assert _solver_counts(before) == {"cg.solvers.built": 5, "cg.solvers.hit": 2}
+
+
+def test_a_solver_in_use_is_not_shared():
+    """A cg_solve made while the kept solver of its key solves (here from
+    inside that solve's preconditioner) builds a solver of its own; every
+    solve gives the plain loop's answer, and the next call finds a kept
+    one."""
+    csr, b = _aniso_system()
+    inner = []
+
+    class Nested:
+        armed = False
+
+        def __call__(self, r):
+            if self.armed:
+                self.armed = False
+                inner.append(cg.cg_solve(csr, b, tol=1e-8, strategy="swell", precond=self))
+            return r
+
+    pre = Nested()
+    before = profiling.spans()
+    first = cg.cg_solve(csr, b, tol=1e-8, strategy="swell", precond=pre)
+    pre.armed = True
+    outer = cg.cg_solve(csr, b, tol=1e-8, strategy="swell", precond=pre)
+    assert len(inner) == 1
+    assert _solver_counts(before) == {"cg.solvers.built": 2, "cg.solvers.hit": 1}
+    again = cg.cg_solve(csr, b, tol=1e-8, strategy="swell", precond=pre)
+    assert _solver_counts(before) == {"cg.solvers.built": 2, "cg.solvers.hit": 2}
+    want = cg._cg_loop(_matvec(csr), lambda r: r, b, torch.zeros_like(b), 1e-8, 1000)
+    for got in (first, inner[0], outer, again):
+        assert got.iters == want.iters and torch.equal(got.x, want.x)

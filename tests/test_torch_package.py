@@ -930,9 +930,40 @@ def test_cg_solve_spans_on_card(cuda_device):
     assert res.iters > cg.CG_EAGER_ITERS + cg.CG_BLOCK
     assert {k: s.count for k, s in t.items()} == {
         "cg.solve": 1, "cg.eager": 1, "cg.blocks": 1, "graphs.capture": 1,
-        "graphs.pool_bytes": 1}
+        "graphs.pool_bytes": 1, "cg.solvers.built": 1}
     assert 0 < t["graphs.capture"].seconds < t["cg.blocks"].seconds < t["cg.solve"].seconds
     assert t["graphs.pool_bytes"].total > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "ilu sweeps"])
+def test_cg_solve_keeps_its_graphs_on_card(cuda_device, monkeypatch, precond):
+    """A second cg_solve on the same matrix and preconditioner replays the
+    kept solver's graphs from the first iteration: no capture, no plain
+    iteration, and iterations and x bit for bit the eager loop's."""
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+    from spmv_acc_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(tri, "ILU_SWELL_MIN", 0)
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 8)
+    csr, b = _cg_system(cuda_device)
+    pre = cg.jacobi_preconditioner(csr) if precond == "jacobi" else tri.ilu0(csr, sweeps=3)
+    layout = swell.get_swell_plan(csr)
+    M = pre.solve if isinstance(pre, tri.ILU0) else pre
+    want = cg._cg_loop(lambda v: swell.swell_ax(layout, v), M, b, torch.zeros_like(b), 1e-10,
+                       2000)
+    assert want.iters > cg.CG_EAGER_ITERS + cg.CG_BLOCK
+    first = cg.cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=pre)
+    before = profiling.spans()
+    again = cg.cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=pre)
+    torch.cuda.synchronize()
+    t = profiling.since(before)
+    assert {k: s.count for k, s in t.items()} == {"cg.solve": 1, "cg.blocks": 1,
+                                                  "cg.solvers.hit": 1}
+    for got in (first, again):
+        assert got.iters == want.iters and torch.equal(got.x, want.x)
 
 
 @pytest.mark.cuda

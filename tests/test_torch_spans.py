@@ -139,15 +139,19 @@ def test_profiler_active_step_records_the_spans(tmp_path, monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "record_function", counted)
     csr, b = _system()
-    M = jacobi_preconditioner(csr)
-    cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=M)  # the plan
+
+    def solve():  # a new preconditioner object: a new solver, its plain start included
+        cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell",
+                 precond=jacobi_preconditioner(csr))
+
+    solve()  # the plan
     path = str(tmp_path / "trace.json")
     with profile(activities=[ProfilerActivity.CPU], schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
-        cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=M)
+        solve()
         warm = list(entered)
         prof.step()
-        cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=M)
+        solve()
         prof.step()
     assert warm == []
     assert entered == ["cg.solve", "cg.eager", "cg.blocks"]
@@ -170,7 +174,8 @@ def test_a_cpu_solve_leaves_one_span_of_each_phase():
     res = cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=M)
     assert res.iters > CG_EAGER_ITERS + 8  # several blocks: still one span of each
     t = profiling.spans()
-    assert {k: s.count for k, s in t.items()} == {"cg.solve": 1, "cg.eager": 1, "cg.blocks": 1}
+    assert {k: s.count for k, s in t.items()} == {"cg.solve": 1, "cg.eager": 1, "cg.blocks": 1,
+                                                  "cg.solvers.built": 1}
     assert "graphs.capture" not in t and "graphs.pool_bytes" not in t  # no capture on the CPU
     solve = t["cg.solve"]
     assert solve.self_seconds == pytest.approx(
