@@ -28,9 +28,13 @@ one that holds its graph runs in blocks from the first iteration.
 ``cg_solve`` keeps its last ``CG_SOLVERS`` solvers, by matrix,
 preconditioner, strategy and right-hand side's shape: against one matrix
 and preconditioner, only the first solve that runs past the plain start
-captures, and a short solve never does.  Once the solve has converged a
-masked iteration changes nothing, so the iterations and x are the plain
-loop's, bit for bit, wherever the blocks start.
+captures, and a short solve never does.  ``parallel.dist_swell``'s
+``dist_swell_cg_solve`` keeps its distributed solvers in the same cache,
+under keys that start with ``"dist"``; ``clear_dist_solver_cache`` drops
+them, and with them their graphs that hold NCCL collectives, before a group
+is destroyed.  Once the solve has converged a masked iteration changes
+nothing, so the iterations and x are the plain loop's, bit for bit,
+wherever the blocks start.
 ``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
 group (``parallel/``): each rank holds a row block of A and the same block of
 every vector, and F-2 runs as three phases, ``cg_dot`` (p·Ap), ``cg_xr`` (x
@@ -62,8 +66,8 @@ from ..ops.cg_update import Work
 from ..utils import profiling
 
 __all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CG_SOLVERS", "CGBlocks", "Jacobi",
-           "cg_solve", "clear_solver_cache", "dist_cg_solve", "dist_cg_blocks",
-           "jacobi_preconditioner"]
+           "cg_solve", "clear_solver_cache", "clear_dist_solver_cache", "dist_cg_solve",
+           "dist_cg_blocks", "jacobi_preconditioner"]
 
 # Masked CG iterations in one block: the host reads one flag a block.  A solve
 # runs whole blocks, so up to CG_BLOCK - 1 masked iterations after convergence
@@ -213,16 +217,21 @@ class CGBlocks:
     the same shapes (``tol`` and ``max_iters`` live in device buffers), which
     then run in blocks from their first iteration.  Where
     ``reduce`` sums over a mesh (``dist_cg_blocks``), every rank of its group
-    solves with the same arguments (``utils.graphs.Loop``)."""
+    solves with the same arguments (``utils.graphs.Loop``).  ``on_matvecs``,
+    where given, is called with ``n`` each time ``n`` more matvecs have run:
+    the start's one, the plain iterations, and each block's iterations, a
+    replayed block's too, which runs no Python."""
 
     def __init__(self, matvec: Callable, precond: Optional[Callable], b: torch.Tensor,
                  block: int = CG_BLOCK, reduce: Optional[Callable] = None,
-                 eager_iters: int = CG_EAGER_ITERS):
+                 eager_iters: int = CG_EAGER_ITERS,
+                 on_matvecs: Optional[Callable[[int], None]] = None):
         self.matvec = matvec
         self.M = precond if precond is not None else Jacobi(None)
         self.reduce = reduce
         self.block = block
         self.eager_iters = eager_iters
+        self.on_matvecs = on_matvecs or (lambda n: None)
         self.tol2 = torch.zeros((), dtype=b.dtype, device=b.device)
         self.max_iters = torch.zeros((), dtype=torch.int64, device=b.device)
         self.loop = None
@@ -239,11 +248,13 @@ class CGBlocks:
         from ..utils.graphs import Loop
 
         carry, tol2 = _cg_start(self.matvec, self.M, b, x0, tol, self.reduce)
+        self.on_matvecs(1)
         done = 0  # iterations run, masked ones included: never past max_iters
         if self.loop is None:  # no graph yet: the plain start
             limit = min(self.eager_iters, max_iters)
             with profiling.span("cg.eager"):
                 carry, done = _plain_steps(self.matvec, self.M, self.reduce, tol2, carry, limit)
+            self.on_matvecs(done)
             if done < limit:  # converged
                 x, _, _, _, rr, it = carry
                 return CGResult(x=x, iters=int(it), residual_norm=torch.sqrt(rr))
@@ -260,13 +271,14 @@ class CGBlocks:
                     self.loop = Loop(step, carry, unroll=self.block)
                 k = min(self.block, max_iters - done)
                 self.loop.advance(k)
+                self.on_matvecs(k)
                 done += k
                 carry = self.loop.carry
         x, _, _, _, rr, it = carry
         return CGResult(x=x.clone(), iters=int(it), residual_norm=torch.sqrt(rr))
 
 
-_SOLVERS: collections.OrderedDict = collections.OrderedDict()  # key -> (held, CGBlocks)
+_SOLVERS: collections.OrderedDict = collections.OrderedDict()  # key -> (held, solver)
 _SOLVERS_LOCK = threading.Lock()
 
 
@@ -274,6 +286,16 @@ def clear_solver_cache() -> None:
     """Drop every solver ``cg_solve`` keeps, and with them their graphs."""
     with _SOLVERS_LOCK:
         _SOLVERS.clear()
+
+
+def clear_dist_solver_cache() -> None:
+    """Drop every solver ``parallel.dist_swell.dist_swell_cg_solve`` keeps
+    (the keys that start with ``"dist"``), and with them their graphs that
+    hold NCCL collectives: before the group they were captured in is
+    destroyed (``parallel.multihost.shutdown_distributed``)."""
+    with _SOLVERS_LOCK:
+        for key in [k for k in _SOLVERS if k[0] == "dist"]:
+            del _SOLVERS[key]
 
 
 def _take_solver(key):
@@ -284,7 +306,7 @@ def _take_solver(key):
     return None if entry is None else entry[1]
 
 
-def _keep_solver(key, held: tuple, solver: CGBlocks) -> None:
+def _keep_solver(key, held: tuple, solver) -> None:
     """Keep ``solver`` under ``key`` (its ids' objects ``held``, so that no id
     is reused while it is kept), dropping the least recently used past
     ``CG_SOLVERS``."""
@@ -387,11 +409,12 @@ def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGR
                                                        max_iters)
 
 
-def dist_cg_blocks(matvec: Callable, b_local: torch.Tensor, mesh) -> CGBlocks:
+def dist_cg_blocks(matvec: Callable, b_local: torch.Tensor, mesh,
+                   on_matvecs: Optional[Callable[[int], None]] = None) -> CGBlocks:
     """The :class:`CGBlocks` of a distributed solve on this rank's block:
     unpreconditioned, F-2's sums all-reduced over ``mesh``, ``CG_EAGER_ITERS``
     plain iterations, collectives in the captured blocks."""
     from ..parallel.dist_spmv import all_reduced_sum
 
     return CGBlocks(matvec, None, b_local, block=CG_BLOCK, reduce=all_reduced_sum(mesh),
-                    eager_iters=CG_EAGER_ITERS)
+                    eager_iters=CG_EAGER_ITERS, on_matvecs=on_matvecs)

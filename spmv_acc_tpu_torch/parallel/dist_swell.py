@@ -26,6 +26,19 @@ by row blocks:
   the window test is made on the matrix's columns.
 * Each shard's product is ``swell_ax``: the swell kernel (K-a in float64,
   K-f in float32) on a CUDA tensor, its plain version on a CPU tensor.
+* ``dist_swell_cg_solve`` keeps its solvers across calls, in ``models.cg``'s
+  cache of ``CG_SOLVERS``: the plan, this rank's shard on its device, the halo
+  exchanger and a ``dist_cg_blocks`` solver, so a later solve on the same
+  operator runs its captured blocks from the first iteration.  The ranks
+  agree on hit or miss with one all-reduce a call.
+
+Spans and counters (``utils.profiling``): ``swell.plan`` around the global
+host layout, ``dist.shard`` around cutting the shards and their schedules
+and around this rank's device copy, ``dist.solvers.built`` and
+``dist.solvers.hit``, and ``dist.halo_bytes``: the bytes of the x blocks
+this rank receives from its neighbours in the halo exchange, counted on the
+host as matvecs times one exchange's bytes (the all-gather path counts
+none).
 
 The shard unit (a 128*r-row block, not the TPU out-window of ``tile_rb*128*r``
 rows) means ``rows_local``, ``padded_len`` and even ``halo_ok`` can differ
@@ -45,7 +58,7 @@ from ..config import LANES
 from ..ops.swell import DeviceSwellLayout, _host_layout, _plan_cache_on, _torch_dtype, swell_ax
 from ..ops.swell_plan import ChunkSchedule, SwellLayout, build_swell_schedule
 from ..utils import profiling
-from .dist_spmv import gather_mesh, halo_exchanger, mesh_device, mesh_rank
+from .dist_spmv import all_agree, gather_mesh, halo_exchanger, mesh_device, mesh_rank
 
 __all__ = ["DistSwellPlan", "build_dist_swell", "dist_swell_spmv_fn",
            "dist_swell_halo_spmv_fn", "dist_swell_serial_fn", "dist_swell_cg_solve",
@@ -175,22 +188,24 @@ def build_dist_swell(csr, num_shards: int, dtype=None, halo: bool | None = None,
         raise ValueError(f"build_dist_swell(dtype=float64) requires float64 CSR values, "
                          f"got {csr.values.dtype}")
     lay = _shared_host_layout(csr, tdtype, mesh)
-    D, r = num_shards, lay.r
-    K = max(1, -(-lay.mrb // D))
-    L = K * LANES * r
-    m, n = csr.shape
-    fits = n <= D * L
-    if fits and halo is not False:
-        rp, ci, _, _ = csr.to_numpy()
-        fits = _windows_fit(rp.astype(np.int64), ci, m, D, L)
-    if halo and not fits:
-        raise ValueError("halo=True, but a shard's columns reach past its neighbours' x blocks")
-    halo_ok = fits if halo is None else bool(halo)
-    shards = tuple(_shard(lay, d, K, L, halo_ok) for d in range(D))
-    return DistSwellPlan(
-        shards=shards, schedules=tuple(build_swell_schedule(s) for s in shards),
-        num_shards=D, blocks_per_shard=K, rows_local=L, shape=(m, n), r=r, dtype=tdtype,
-        halo_ok=halo_ok)
+    with profiling.span("dist.shard"):
+        D, r = num_shards, lay.r
+        K = max(1, -(-lay.mrb // D))
+        L = K * LANES * r
+        m, n = csr.shape
+        fits = n <= D * L
+        if fits and halo is not False:
+            rp, ci, _, _ = csr.to_numpy()
+            fits = _windows_fit(rp.astype(np.int64), ci, m, D, L)
+        if halo and not fits:
+            raise ValueError("halo=True, but a shard's columns reach past its neighbours' "
+                             "x blocks")
+        halo_ok = fits if halo is None else bool(halo)
+        shards = tuple(_shard(lay, d, K, L, halo_ok) for d in range(D))
+        return DistSwellPlan(
+            shards=shards, schedules=tuple(build_swell_schedule(s) for s in shards),
+            num_shards=D, blocks_per_shard=K, rows_local=L, shape=(m, n), r=r, dtype=tdtype,
+            halo_ok=halo_ok)
 
 
 def pad_global(dsp: DistSwellPlan, v) -> torch.Tensor:
@@ -269,6 +284,36 @@ def dist_swell_serial_fn(dsp: DistSwellPlan, device="cuda"):
     return run
 
 
+@dataclasses.dataclass
+class _DistSolver:
+    """What ``dist_swell_cg_solve`` keeps of an operator on this rank: the
+    plan, the matvec over this rank's device shard (its halo exchanger or
+    all-gather inside) and the solver whose graphs hold the collectives."""
+
+    dsp: DistSwellPlan
+    blocks: object  # models.cg.CGBlocks
+
+
+def _new_dist_solver(csr, b, mesh) -> _DistSolver:
+    from ..models.cg import dist_cg_blocks
+
+    dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
+    with profiling.span("dist.shard"):  # this rank's device copy
+        run = dist_swell_spmv_fn(dsp, mesh)
+    d, D, dtype = mesh_rank(mesh), mesh.size(), b.dtype
+    neighbours = (d > 0) + (d < D - 1) if dsp.halo_ok else 0
+    exchange_bytes = neighbours * dsp.rows_local * dsp.dtype.itemsize
+
+    def matvec(v):
+        return run(v.to(dsp.dtype)).to(dtype)
+
+    def exchanged(n):
+        profiling.count("dist.halo_bytes", n * exchange_bytes)
+
+    like = torch.empty(0, dtype=dtype, device=mesh_device(mesh))  # the solver's dtype, device
+    return _DistSolver(dsp, dist_cg_blocks(matvec, like, mesh, on_matvecs=exchanged))
+
+
 def dist_swell_cg_solve(csr, b, mesh, tol: float = 1e-8, max_iters: int = 200):
     """Mesh-distributed CG with the swell kernel as each shard's product
     (square SPD A), called by every rank of the 1-D ``mesh``.
@@ -279,17 +324,32 @@ def dist_swell_cg_solve(csr, b, mesh, tol: float = 1e-8, max_iters: int = 200):
     Dots are a local ``torch.dot`` and an ``all_reduce``, so every rank reads
     the same stop test and takes the same number of iterations.  Runs
     ``models.cg.dist_cg_blocks``: on the card captured blocks that hold the
-    halo exchange or all-gather and the all-reduces."""
-    from ..models.cg import dist_cg_blocks
+    halo exchange or all-gather and the all-reduces.
 
-    dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
-    run = dist_swell_spmv_fn(dsp, mesh)
+    The solver is kept across calls (in ``models.cg``'s cache, beside
+    ``cg_solve``'s, under a key that starts with ``"dist"``) by the ids of
+    ``csr``'s arrays, the mesh's process group, ``b``'s dtype, shape and
+    device, ``CG_BLOCK`` and ``CG_EAGER_ITERS``: a later solve on the same
+    operator loads no plan and runs its captured blocks from the
+    first iteration.  Ids are each rank's own, so the ranks agree on hit or
+    miss with one all-reduce, outside the graphs: where any rank misses,
+    every rank builds anew, and the next collective finds all ranks on the
+    same path.  Counters ``dist.solvers.built`` and ``dist.solvers.hit``."""
+    from ..models import cg
+
+    group = mesh.get_group()
+    held = (csr.row_ptr, csr.col_idx, csr.values, group)
+    key = ("dist",) + tuple(id(h) for h in held) + (b.dtype, tuple(b.shape), b.device,
+                                                    cg.CG_BLOCK, cg.CG_EAGER_ITERS)
+    solver = cg._take_solver(key)
+    if not all_agree(solver is not None, mesh):
+        solver = None
+    profiling.count("dist.solvers.built" if solver is None else "dist.solvers.hit")
+    if solver is None:
+        solver = _new_dist_solver(csr, b, mesh)
+    dsp = solver.dsp
     d, L = mesh_rank(mesh), dsp.rows_local
     b_local = pad_global(dsp, b)[d * L: (d + 1) * L].to(mesh_device(mesh)).contiguous()
-
-    def matvec(v):
-        return run(v.to(dsp.dtype)).to(b_local.dtype)
-
-    res = dist_cg_blocks(matvec, b_local, mesh).solve(b_local, torch.zeros_like(b_local), tol,
-                                                      max_iters)
+    res = solver.blocks.solve(b_local, torch.zeros_like(b_local), tol, max_iters)
+    cg._keep_solver(key, held, solver)
     return res, dsp

@@ -178,6 +178,39 @@ def _scaling_loop(csr, steps: int):
     return tuple(gather_padded(v, mesh)[: csr.rows].cpu().numpy() for v in (looped, chained))
 
 
+def _kept_swell_solves(csr, bs, tol, max_iters) -> dict:
+    """``dist_swell_cg_solve`` on one mesh for each of ``bs`` in turn (the
+    first builds its solver, the others find it kept), then each again on a
+    fresh solver: per solve x in global rows, the iterations, the counters'
+    growth and whether the plain start ran."""
+    from ..models import cg
+    from ..utils import profiling
+    from .dist_spmv import make_mesh
+    from .dist_swell import dist_swell_cg_solve
+
+    mesh = make_mesh(dist.get_world_size())
+    names = ("dist.solvers.built", "dist.solvers.hit", "dist.halo_bytes")
+    dsp = None
+
+    def solve(b):
+        nonlocal dsp
+        before = profiling.spans()
+        res, dsp = dist_swell_cg_solve(csr, torch.from_numpy(b), mesh, tol=tol,
+                                       max_iters=max_iters)
+        grown = profiling.since(before)
+        rec = {n: grown[n].total if n in grown else 0 for n in names}
+        rec.update(x=gather_padded(res.x, mesh)[: csr.rows].cpu().numpy(), iters=res.iters,
+                   eager="cg.eager" in grown)
+        return rec
+
+    kept = [solve(b) for b in bs]
+    fresh = []
+    for b in bs:
+        cg.clear_dist_solver_cache()
+        fresh.append(solve(b))
+    return {"kept": kept, "fresh": fresh, "halo_ok": dsp.halo_ok, "rows_local": dsp.rows_local}
+
+
 def _masked_step_without_host_reads(csr, b) -> list:
     from ..models.cg import Jacobi, _cg_start, _masked_step
     from .dist_spmv import all_reduced_sum, dist_spmv_fn, dist_spmv_halo_fn, make_mesh
@@ -242,6 +275,12 @@ def rank_cases(cases: list) -> list:
       build): (y[:m], halo_ok, tail nnz) of ``dist_swell_spmv_fn``;
     - ``swell_cg``: ``csr``, ``b``, ``tol``, ``max_iters``: (x[:m], iterations)
       of ``dist_swell_cg_solve``;
+    - ``swell_cg_kept``: ``csr``, ``bs`` (a list of b), ``tol``,
+      ``max_iters``, ``eager_iters``: ``_kept_swell_solves`` (the kept
+      solver, then fresh ones);
+    - ``shutdown`` (last: it leaves the group): the distributed solvers kept
+      before and after ``multihost.shutdown_distributed``, and whether a
+      group is still joined;
     - ``scaling_loop``: ``csr``, ``steps``: the weak-scaling step
       (``scaling_bench._renormalised`` around ``dist_swell_spmv_fn``) run
       ``steps`` times from ones by a ``utils.graphs.Loop`` and by a Python
@@ -310,6 +349,19 @@ def rank_cases(cases: list) -> list:
                                              tol=case["tol"], max_iters=case["max_iters"])
             x = gather_padded(res.x, mesh)[: csr.rows].cpu().numpy()
             out.append((x, res.iters) + (() if counts is None else (counts,)))
+        elif kind == "swell_cg_kept":
+            with _eager_iters(case.get("eager_iters")):
+                out.append(_kept_swell_solves(csr, case["bs"], case["tol"], case["max_iters"]))
+        elif kind == "shutdown":
+            from ..models import cg
+            from .multihost import shutdown_distributed
+
+            def kept():
+                return sum(key[0] == "dist" for key in cg._SOLVERS)
+
+            before = kept()
+            shutdown_distributed()
+            out.append((before, kept(), dist.is_initialized()))
         elif kind == "scaling_loop":
             out.append(_scaling_loop(csr, case["steps"]))
         elif kind == "masked_step":

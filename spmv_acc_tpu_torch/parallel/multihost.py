@@ -10,8 +10,9 @@ Counterpart of ``spmv_acc_tpu/parallel/multihost.py`` on ``torch.distributed``:
   one process.  The backend follows the device asked for: ``nccl`` and
   ``cuda:{LOCAL_RANK}`` for the card (the default), ``gloo`` for the CPU;
   it never switches quietly, and a rank that finds no card raises.
-* **Teardown**: :func:`shutdown_distributed` frees what is unreachable
-  (captured CUDA graphs among it) before it leaves the group.
+* **Teardown**: :func:`shutdown_distributed` drops the distributed solvers
+  kept across calls and frees what is unreachable (captured CUDA graphs
+  among it) before it leaves the group.
 * **Hybrid mesh**: :func:`hybrid_mesh` is a 2-D ``DeviceMesh`` named
   ``("dcn", "ici")`` whose outer axis spans hosts and inner axis each host's
   devices, ranks in process-major order, so the inner axis never crosses a
@@ -126,9 +127,14 @@ def init_distributed(
 
 
 def shutdown_distributed() -> None:
-    """Leave the joined process group, if any: first free what only reference
-    cycles keep (a captured CUDA graph that holds NCCL collectives among it,
+    """Leave the joined process group, if any: first drop every distributed
+    solver kept across calls (``models.cg.clear_dist_solver_cache``: a kept
+    solver is no garbage, and its graphs hold NCCL collectives), free what
+    only reference cycles keep (a captured CUDA graph among it,
     ``utils/graphs.py``) and wait for the card, then destroy the group."""
+    from ..models.cg import clear_dist_solver_cache
+
+    clear_dist_solver_cache()
     if not dist.is_initialized():
         return
     gc.collect()

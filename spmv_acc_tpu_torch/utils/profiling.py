@@ -12,9 +12,12 @@ exits, seconds and self seconds (less the spans nested in it on the same
 thread), and each counter's sum, in one table per process that ``spans``
 copies and ``reset`` clears.  The solver, the captured loops and the plans
 open spans where their work happens (``cg.solve``, ``cg.eager``,
-``cg.blocks``, ``graphs.capture``, ``swell.plan`` and its steps, ``ilu0``),
-never one an iteration; ``cg_solve`` counts the solvers it keeps and builds
-(``cg.solvers.hit``, ``cg.solvers.built``).  While a ``torch.profiler`` session records, a span
+``cg.blocks``, ``graphs.capture``, ``swell.plan`` and its steps, ``ilu0``,
+``dist.shard``), never one an iteration; ``cg_solve`` and
+``dist_swell_cg_solve`` count the solvers they keep and build
+(``cg.solvers.hit``, ``cg.solvers.built``, ``dist.solvers.hit``,
+``dist.solvers.built``), and the distributed solve the bytes its halo
+exchange receives (``dist.halo_bytes``).  While a ``torch.profiler`` session records, a span
 also enters ``record_function``, so the trace shows it on the kernels'
 clock; otherwise it does not (a bare ``record_function`` cost 6.1 µs on
 the H100 machine's host with no profiler running, a span 0.92 µs:
