@@ -6,7 +6,9 @@ on its own device, and a call returns block d of y.  Each step either
 all-gathers x over the mesh (``dist.all_gather_into_tensor``) or, when
 every shard's column span fits its own x block and its two neighbours',
 exchanges only the two neighbour blocks (``dist.batch_isend_irecv``; a rank
-without a neighbour reads zeros there, as ``ppermute`` gives).  The per-shard
+without a neighbour reads zeros there, as ``ppermute`` gives).
+``halo_exchanger`` can also send only the spans of the blocks a neighbour
+reads, as ``dist_swell`` does.  The per-shard
 product is the reference's gather and segment sum, plain PyTorch: a gather of
 x, then ``index_add_`` into ``local_rows + 1`` rows, the sentinel row dropped.
 On a CUDA tensor ``index_add_`` adds in a varying order, so results agree
@@ -82,30 +84,70 @@ def gather_mesh(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     return _all_gather(_all_gather(t, mesh.get_group(1)), mesh.get_group(0))
 
 
-def halo_exchanger(mesh: DeviceMesh):
+def halo_exchanger(mesh: DeviceMesh, spans=None, n: int | None = None,
+                   dtype: torch.dtype | None = None):
     """``exchange(x_local) -> window`` over a 1-D mesh: the left neighbour's
     block, this rank's and the right neighbour's, laid end to end (3 blocks);
-    zeros where shard d has no neighbour (d = 0, d = D - 1).  The neighbours'
-    blocks are received in place.  The peers are found once: a mesh
-    coordinate costs tens of µs of host time."""
+    zeros where shard d has no neighbour (d = 0, d = D - 1).  The peers are
+    found once: a mesh coordinate costs tens of µs of host time.
+
+    Without ``spans`` a call sends this rank's whole block to each neighbour
+    and receives theirs whole, into a new window.  With ``spans`` (shard d's
+    ``(left, right)`` for every shard of the mesh: how many trailing entries
+    of block d-1 and leading entries of block d+1 shard d reads), ``n`` (the
+    block length) and ``dtype``, the window is made here, zeroed, and kept:
+    a call copies ``x_local`` into its middle, sends each neighbour the span
+    of it that the neighbour reads, receives this rank's two spans in place
+    and returns the same window every time.  Entries outside the spans stay
+    zero.  A span of length 0 makes no point-to-point op, on either side: both
+    read the same spans.  The window is made before any call, so a call
+    inside a CUDA graph capture allocates nothing; a later call's receive is
+    ordered after the kernels issued before it, which read the window, as
+    every collective is ordered after the current stream's work."""
     group = mesh.get_group()
     ranks = dist.get_process_group_ranks(group)
     d = mesh_rank(mesh)
     left = ranks[d - 1] if d > 0 else None
     right = ranks[d + 1] if d < len(ranks) - 1 else None
 
+    if spans is None:
+        def exchange(x_local: torch.Tensor) -> torch.Tensor:
+            x_local = x_local.contiguous()
+            n = x_local.shape[0]
+            window = x_local.new_zeros(3 * n)
+            window[n: 2 * n] = x_local
+            ops = []
+            for peer, buf in ((left, window[:n]), (right, window[2 * n:])):
+                if peer is not None:
+                    ops += [dist.P2POp(dist.isend, x_local, peer, group),
+                            dist.P2POp(dist.irecv, buf, peer, group)]
+            if ops:
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
+            return window
+
+        return exchange
+
+    if len(spans) != len(ranks):
+        raise ValueError(f"{len(spans)} spans for a mesh of {len(ranks)} ranks")
+    window = torch.zeros(3 * n, dtype=dtype, device=mesh_device(mesh))
+    mid = window[n: 2 * n]
+    ops = []  # to each peer the span of this block it reads; from it, this rank's span
+    if left is not None:
+        ops += [(dist.isend, mid[: spans[d - 1][1]], left),
+                (dist.irecv, window[n - spans[d][0]: n], left)]
+    if right is not None:
+        ops += [(dist.isend, mid[n - spans[d + 1][0]:], right),
+                (dist.irecv, window[2 * n: 2 * n + spans[d][1]], right)]
+    p2p = [dist.P2POp(op, buf, peer, group) for op, buf, peer in ops if buf.numel()]
+
     def exchange(x_local: torch.Tensor) -> torch.Tensor:
-        x_local = x_local.contiguous()
-        n = x_local.shape[0]
-        window = x_local.new_zeros(3 * n)
-        window[n: 2 * n] = x_local
-        ops = []
-        for peer, buf in ((left, window[:n]), (right, window[2 * n:])):
-            if peer is not None:
-                ops += [dist.P2POp(dist.isend, x_local, peer, group),
-                        dist.P2POp(dist.irecv, buf, peer, group)]
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
+        if x_local.shape != mid.shape or x_local.dtype != dtype:
+            raise ValueError(f"the halo exchange takes a ({n},) {dtype} block, got "
+                             f"{tuple(x_local.shape)} {x_local.dtype}")
+        mid.copy_(x_local)
+        if p2p:
+            for work in dist.batch_isend_irecv(p2p):
                 work.wait()
         return window
 

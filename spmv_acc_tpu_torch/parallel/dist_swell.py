@@ -20,10 +20,16 @@ by row blocks:
 * **All-gather**: x is gathered over the mesh and cut to its n columns.
   **Halo**: when every shard's cells and tail entries lie in its own x block
   or its two neighbours', the shard's columns are rebased to that 3-block
-  window (``x_rows = 3*rows_local``) and a call exchanges only the neighbour
-  blocks.  The kernel skips node columns outside ``[0, x_rows)``, so padding
-  slots that fall outside the window read nothing; real cells never do, as
-  the window test is made on the matrix's columns.
+  window (``x_rows = 3*rows_local``), and a call receives from each
+  neighbour only the span of its block that the shard's rows read
+  (``halo_spans``, from the same scan of the matrix's columns: one
+  ``nx*ny`` plane each side for a z-slab of a 27-point stencil).  The window
+  is made once, zeroed; entries outside the spans are read only by padding
+  slots, whose values are zero, so the product is the whole-block
+  exchange's bit for bit.  The kernel skips node columns outside
+  ``[0, x_rows)``, so padding slots that fall outside the window read
+  nothing; real cells never do, as the window test is made on the matrix's
+  columns.
 * Each shard's product is ``swell_ax``: the swell kernel (K-a in float64,
   K-f in float32) on a CUDA tensor, its plain version on a CPU tensor.
 * ``dist_swell_cg_solve`` keeps its solvers across calls, in ``models.cg``'s
@@ -35,10 +41,10 @@ by row blocks:
 Spans and counters (``utils.profiling``): ``swell.plan`` around the global
 host layout, ``dist.shard`` around cutting the shards and their schedules
 and around this rank's device copy, ``dist.solvers.built`` and
-``dist.solvers.hit``, and ``dist.halo_bytes``: the bytes of the x blocks
-this rank receives from its neighbours in the halo exchange, counted on the
-host as matvecs times one exchange's bytes (the all-gather path counts
-none).
+``dist.solvers.hit``, and ``dist.halo_bytes``: the bytes of x this rank
+receives from its neighbours in the halo exchange (its two spans), counted
+on the host as matvecs times one exchange's bytes (the all-gather path
+counts none).
 
 The shard unit (a 128*r-row block, not the TPU out-window of ``tile_rb*128*r``
 rows) means ``rows_local``, ``padded_len`` and even ``halo_ok`` can differ
@@ -80,6 +86,9 @@ class DistSwellPlan:
     r: int
     dtype: torch.dtype
     halo_ok: bool                         # columns rebased to the 3-block window
+    # with halo_ok, shard d's (left, right): how many trailing entries of x
+    # block d-1 and leading entries of block d+1 its rows read; else ()
+    halo_spans: Tuple[Tuple[int, int], ...]
 
     @property
     def padded_len(self) -> int:
@@ -123,15 +132,37 @@ def _shared_host_layout(csr, tdtype: torch.dtype, mesh) -> SwellLayout:
     return lay
 
 
-def _windows_fit(rp: np.ndarray, ci: np.ndarray, m: int, D: int, L: int) -> bool:
-    """Every column of shard d's rows lies in [(d-1)*L, (d+2)*L)."""
+def _col_extents(rp: np.ndarray, ci: np.ndarray, m: int, D: int, L: int) -> list:
+    """Shard d's least and greatest column, (lo, hi), or None for a shard
+    whose rows hold no entry."""
+    out = []
     for d in range(D):
         a, b = int(rp[min(d * L, m)]), int(rp[min((d + 1) * L, m)])
-        if b > a:
-            c = ci[a:b]
-            if int(c.min()) < (d - 1) * L or int(c.max()) >= (d + 2) * L:
-                return False
-    return True
+        out.append((int(ci[a:b].min()), int(ci[a:b].max())) if b > a else None)
+    return out
+
+
+def _windows_fit(extents: list, L: int) -> bool:
+    """Every column of shard d's rows lies in [(d-1)*L, (d+2)*L)."""
+    return all(e is None or ((d - 1) * L <= e[0] and e[1] < (d + 2) * L)
+               for d, e in enumerate(extents))
+
+
+def _halo_spans(extents: list, L: int, r: int) -> Tuple[Tuple[int, int], ...]:
+    """Shard d's (left, right): the trailing entries of x block d-1 and the
+    leading entries of block d+1 that its rows read, widened to whole node
+    columns of r entries (a cell reads all r).  Block edges are multiples of
+    r, as L is."""
+    spans = []
+    for d, e in enumerate(extents):
+        if e is None:
+            spans.append((0, 0))
+            continue
+        lo, hi = e
+        left = d * L - lo // r * r if lo < d * L else 0
+        right = -(-(hi + 1) // r) * r - (d + 1) * L if hi >= (d + 1) * L else 0
+        spans.append((left, right))
+    return tuple(spans)
 
 
 def _kernel_cells(vals: np.ndarray, r: int) -> int:
@@ -193,10 +224,11 @@ def build_dist_swell(csr, num_shards: int, dtype=None, halo: bool | None = None,
         K = max(1, -(-lay.mrb // D))
         L = K * LANES * r
         m, n = csr.shape
-        fits = n <= D * L
+        fits, extents = n <= D * L, None
         if fits and halo is not False:
             rp, ci, _, _ = csr.to_numpy()
-            fits = _windows_fit(rp.astype(np.int64), ci, m, D, L)
+            extents = _col_extents(rp.astype(np.int64), ci, m, D, L)
+            fits = _windows_fit(extents, L)
         if halo and not fits:
             raise ValueError("halo=True, but a shard's columns reach past its neighbours' "
                              "x blocks")
@@ -205,7 +237,7 @@ def build_dist_swell(csr, num_shards: int, dtype=None, halo: bool | None = None,
         return DistSwellPlan(
             shards=shards, schedules=tuple(build_swell_schedule(s) for s in shards),
             num_shards=D, blocks_per_shard=K, rows_local=L, shape=(m, n), r=r, dtype=tdtype,
-            halo_ok=halo_ok)
+            halo_ok=halo_ok, halo_spans=_halo_spans(extents, L, r) if halo_ok else ())
 
 
 def pad_global(dsp: DistSwellPlan, v) -> torch.Tensor:
@@ -226,13 +258,14 @@ def _rank_layout(dsp: DistSwellPlan, mesh) -> DeviceSwellLayout:
 
 
 def dist_swell_halo_spmv_fn(dsp: DistSwellPlan, mesh):
-    """The 1-hop halo variant: each rank receives its two neighbours' x blocks
-    (zeros past the ends) and runs its shard over the 3-block window, O(3n/D)
-    exchanged per rank.  Requires ``dsp.halo_ok``."""
+    """The 1-hop halo variant: each rank receives from its two neighbours the
+    spans of their x blocks its rows read (``dsp.halo_spans``; zeros past the
+    ends and outside the spans) and runs its shard over the 3-block window it
+    keeps.  Requires ``dsp.halo_ok``."""
     if not dsp.halo_ok:
         raise ValueError("plan was not built halo-feasible")
     layout = _rank_layout(dsp, mesh)
-    exchange = halo_exchanger(mesh)
+    exchange = halo_exchanger(mesh, dsp.halo_spans, dsp.rows_local, dsp.dtype)
 
     def run(x_local):
         return swell_ax(layout, exchange(x_local))
@@ -300,9 +333,9 @@ def _new_dist_solver(csr, b, mesh) -> _DistSolver:
     dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
     with profiling.span("dist.shard"):  # this rank's device copy
         run = dist_swell_spmv_fn(dsp, mesh)
-    d, D, dtype = mesh_rank(mesh), mesh.size(), b.dtype
-    neighbours = (d > 0) + (d < D - 1) if dsp.halo_ok else 0
-    exchange_bytes = neighbours * dsp.rows_local * dsp.dtype.itemsize
+    dtype = b.dtype
+    spans = dsp.halo_spans[mesh_rank(mesh)] if dsp.halo_ok else ()
+    exchange_bytes = sum(spans) * dsp.dtype.itemsize
 
     def matvec(v):
         return run(v.to(dsp.dtype)).to(dtype)

@@ -125,6 +125,21 @@ def _csr(arrays):
 
 
 @contextlib.contextmanager
+def _env(variables):
+    """The environment ``variables`` (a dict, or None) set inside."""
+    saved = {k: os.environ.get(k) for k in variables or {}}
+    os.environ.update(variables or {})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
 def _eager_iters(n):
     """``models.cg.CG_EAGER_ITERS`` set to ``n`` inside (None: left alone)."""
     from ..models import cg
@@ -211,6 +226,77 @@ def _kept_swell_solves(csr, bs, tol, max_iters) -> dict:
     return {"kept": kept, "fresh": fresh, "halo_ok": dsp.halo_ok, "rows_local": dsp.rows_local}
 
 
+@contextlib.contextmanager
+def _counted_p2p():
+    """``torch.distributed.batch_isend_irecv`` counted inside: yields a list
+    that each call appends its number of point-to-point ops to."""
+    real, calls = dist.batch_isend_irecv, []
+
+    def counted(ops):
+        calls.append(len(ops))
+        return real(ops)
+
+    dist.batch_isend_irecv = counted
+    try:
+        yield calls
+    finally:
+        dist.batch_isend_irecv = real
+
+
+def _spans_against_whole_blocks(csr, xs) -> dict:
+    """``dist_swell_spmv_fn`` (its halo exchange sends only the spans each
+    shard reads, into one kept window) on each of ``xs`` in turn, and the
+    same plan's product over a whole-block ``halo_exchanger``: y of both in
+    global rows, the point-to-point ops each call issued, the plan's spans,
+    and how many windows a span exchanger returned over the calls."""
+    from ..ops.swell import swell_ax
+    from .dist_spmv import halo_exchanger, make_mesh, mesh_device
+    from .dist_swell import build_dist_swell, dist_swell_spmv_fn, pad_global
+
+    mesh = make_mesh(dist.get_world_size())
+    dsp = build_dist_swell(csr, mesh.size(), halo=True, mesh=mesh)
+    d, L, dev = dist.get_rank(), dsp.rows_local, mesh_device(mesh)
+    run = dist_swell_spmv_fn(dsp, mesh)
+    layout, whole = dsp.device_layout(d, dev), halo_exchanger(mesh)
+    blocks = [pad_global(dsp, torch.as_tensor(x).to(dev))[d * L: (d + 1) * L].contiguous()
+              for x in xs]
+    out = {"spans": dsp.halo_spans, "y": [], "whole": [], "ops": [], "whole_ops": []}
+    for x_local in blocks:
+        for key, matvec in (("y", run), ("whole", lambda v: swell_ax(layout, whole(v)))):
+            with _counted_p2p() as calls:
+                y = matvec(x_local)
+            out[key].append(gather_padded(y, mesh)[: csr.rows].cpu().numpy())
+            out["ops" if key == "y" else "whole_ops"].append(sum(calls))
+    exchange = halo_exchanger(mesh, dsp.halo_spans, L, dsp.dtype)
+    out["windows"] = len({exchange(x_local).data_ptr() for x_local in blocks})
+    return out
+
+
+def _span_solve_against_whole_blocks(csr, b, tol, max_iters) -> dict:
+    """``dist_swell_cg_solve`` (the span exchange) and a solver like the one
+    it builds, on the same plan, whose matvec exchanges whole blocks: x in
+    global rows and the iterations of each."""
+    from ..models.cg import dist_cg_blocks
+    from ..ops.swell import swell_ax
+    from .dist_spmv import halo_exchanger, make_mesh, mesh_device
+    from .dist_swell import dist_swell_cg_solve, pad_global
+
+    mesh = make_mesh(dist.get_world_size())
+    dev = mesh_device(mesh)
+    b = torch.from_numpy(b)
+    res, dsp = dist_swell_cg_solve(csr, b, mesh, tol=tol, max_iters=max_iters)
+    d, L = dist.get_rank(), dsp.rows_local
+    layout = dsp.device_layout(d, dev)
+    exchange = halo_exchanger(mesh)
+    blocks = dist_cg_blocks(lambda v: swell_ax(layout, exchange(v)),
+                            torch.empty(0, dtype=b.dtype, device=dev), mesh)
+    b_local = pad_global(dsp, b)[d * L: (d + 1) * L].to(dev).contiguous()
+    whole = blocks.solve(b_local, torch.zeros_like(b_local), tol, max_iters)
+    xs = [gather_padded(r.x, mesh)[: csr.rows].cpu().numpy() for r in (res, whole)]
+    del blocks  # its graphs hold NCCL collectives: freed before the group goes
+    return {"x": xs[0], "iters": res.iters, "whole_x": xs[1], "whole_iters": whole.iters}
+
+
 def _masked_step_without_host_reads(csr, b) -> list:
     from ..models.cg import Jacobi, _cg_start, _masked_step
     from .dist_spmv import all_reduced_sum, dist_spmv_fn, dist_spmv_halo_fn, make_mesh
@@ -275,6 +361,10 @@ def rank_cases(cases: list) -> list:
       build): (y[:m], halo_ok, tail nnz) of ``dist_swell_spmv_fn``;
     - ``swell_cg``: ``csr``, ``b``, ``tol``, ``max_iters``: (x[:m], iterations)
       of ``dist_swell_cg_solve``;
+    - ``swell_spans``: ``csr`` (its halo window must hold), ``xs`` (a list of
+      x), ``env``: ``_spans_against_whole_blocks``;
+    - ``swell_cg_spans``: ``csr``, ``b``, ``tol``, ``max_iters``,
+      ``eager_iters``: ``_span_solve_against_whole_blocks``;
     - ``swell_cg_kept``: ``csr``, ``bs`` (a list of b), ``tol``,
       ``max_iters``, ``eager_iters``: ``_kept_swell_solves`` (the kept
       solver, then fresh ones);
@@ -326,16 +416,8 @@ def rank_cases(cases: list) -> list:
             out.append((x, res.iters) + (() if counts is None else (counts,)))
         elif kind == "swell":
             mesh = make_mesh(world)
-            saved = {k: os.environ.get(k) for k in case.get("env", {})}
-            os.environ.update(case.get("env", {}))
-            try:
+            with _env(case.get("env")):
                 dsp = build_dist_swell(csr, world, halo=case.get("halo"), mesh=mesh)
-            finally:
-                for k, v in saved.items():
-                    if v is None:
-                        os.environ.pop(k, None)
-                    else:
-                        os.environ[k] = v
             run = dist_swell_spmv_fn(dsp, mesh, halo=case.get("halo"))
             d, L = dist.get_rank(), dsp.rows_local
             xp = pad_global(dsp, torch.from_numpy(case["x"]))
@@ -349,6 +431,13 @@ def rank_cases(cases: list) -> list:
                                              tol=case["tol"], max_iters=case["max_iters"])
             x = gather_padded(res.x, mesh)[: csr.rows].cpu().numpy()
             out.append((x, res.iters) + (() if counts is None else (counts,)))
+        elif kind == "swell_spans":
+            with _env(case.get("env")):
+                out.append(_spans_against_whole_blocks(csr, case["xs"]))
+        elif kind == "swell_cg_spans":
+            with _eager_iters(case.get("eager_iters")):
+                out.append(_span_solve_against_whole_blocks(csr, case["b"], case["tol"],
+                                                            case["max_iters"]))
         elif kind == "swell_cg_kept":
             with _eager_iters(case.get("eager_iters")):
                 out.append(_kept_swell_solves(csr, case["bs"], case["tol"], case["max_iters"]))

@@ -11,7 +11,7 @@ blocks from the first iteration), then each again on a fresh solver.
 The kept solves are held against the benchmark's plain reference
 (``perfbench/reference.py::pcg`` with M = I on ``matrices/hpcg27.Operator``),
 against the fresh ones bit for bit, and the halo counter against the bytes
-each rank receives; ``shutdown_distributed`` leaves no kept solver."""
+each rank receives (one plane from each neighbour); ``shutdown_distributed`` leaves no kept solver."""
 
 import math
 
@@ -27,6 +27,7 @@ from spmv_acc_tpu_torch.parallel.launch import rank_cases, spawn
 
 GRID = {"nx": 8, "ny": 8, "nz": 32}
 D, L, M = 4, 512, 2048
+PLANE = GRID["nx"] * GRID["ny"]  # the entries of a neighbour's block a slab reads
 TOL, MAX_ITERS, EAGER = 1e-10, 500, 4
 SEEDS = [2 ** 33 + 17, 5, 2 ** 31 + 12345]
 # x_gap = max|x - x_ref| / max|x_ref| is the cell's own limit, 1e-10: the
@@ -102,11 +103,13 @@ def _matvecs(iters, eager):
 
 @pytest.mark.parametrize("rank", range(D))
 def test_halo_bytes_are_the_neighbour_blocks_received(rank):
+    """What the halo exchange receives of the neighbour blocks a matvec: the
+    spans the slab reads, one nx*ny plane of float64 from each neighbour."""
     res = _kept()[rank]
     neighbours = 1 if rank in (0, D - 1) else 2
     for i, (kept, fresh) in enumerate(zip(res["kept"], res["fresh"])):
         for got, eager in ((kept, EAGER if i == 0 else 0), (fresh, EAGER)):
-            want = _matvecs(got["iters"], eager) * neighbours * L * 8
+            want = _matvecs(got["iters"], eager) * neighbours * PLANE * 8
             assert got["dist.halo_bytes"] == want
 
 

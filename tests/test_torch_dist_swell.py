@@ -11,7 +11,14 @@ equals ``swell_ax_plain`` over the whole layout bit for bit without a tail
 (the same slots summed in the same order), within the float64 gate with one;
 every distributed SpMV passes the float64 gate (``verify_y``) against JAX's
 output and against ``host_spmv``; the swell CG reaches 1e-7 of x_true and the
-JAX package's iteration count."""
+JAX package's iteration count.
+
+The halo exchange sends each shard only the spans of its neighbours' x blocks
+that its rows read (``DistSwellPlan.halo_spans``): the spans on the host
+against what each shard's columns reach, and in the gloo ranks the product and
+the CG solve over spans against the same plan over whole neighbour blocks,
+byte for byte (entries outside the spans are read only by zero-valued padding
+slots)."""
 
 import os
 
@@ -21,6 +28,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from perfbench.matrices import hpcg27
 from spmv_acc_tpu.formats.containers import CSR as RefCSR
 from spmv_acc_tpu.formats.convert import coo_to_csr_arrays
 from spmv_acc_tpu.formats.generate import banded_csr as ref_banded
@@ -78,6 +86,86 @@ def _spd(m, seed):
         np.concatenate([rr, ci, np.arange(m)]), np.concatenate([ci, rr, np.arange(m)]),
         np.concatenate([0.5 * v, 0.5 * v, diag + 1.0]), (m, m))
     return rp, ci, v, (m, m)
+
+
+def _hpcg(nx, ny, nz):
+    return hpcg27.build({"nx": nx, "ny": ny, "nz": nz})
+
+
+def _irregular(m, seed):
+    """A banded matrix whose rows reach left and right by amounts drawn per
+    row, below a cap that grows every 256 rows, so each shard boundary's
+    spans differ by side and by rank: the diagonal (dominant), the two
+    reaches' ends and three columns between."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(m)
+    cap = 30 + 37 * (i // 256)
+    left, right = rng.integers(0, cap), rng.integers(0, cap)
+    cols = np.stack([i, i - left, i + right] + [rng.integers(i - left, i + right + 1)
+                                                 for _ in range(3)], axis=1)
+    rows = np.repeat(i, cols.shape[1])
+    cols = np.clip(cols.reshape(-1), 0, m - 1)
+    vals = np.where(rows == cols, 10.0, rng.uniform(-1, 1, size=len(cols)))
+    rp, ci, v = coo_to_csr_arrays(rows, cols, vals, (m, m))
+    return rp, ci, v, (m, m)
+
+
+def _block_diagonal(m, b=8):
+    """Dense b x b blocks on the diagonal: no shard reads a neighbour's x."""
+    rng = np.random.default_rng(b)
+    rows = np.repeat(np.arange(m), b)
+    cols = (rows // b * b) + np.tile(np.arange(b), m)
+    rp, ci, v = coo_to_csr_arrays(rows, cols, rng.uniform(-1, 1, size=len(rows)), (m, m))
+    return rp, ci, v, (m, m)
+
+
+SPANS = {
+    "hpcg": lambda: _hpcg(8, 8, 32),
+    "hpcg_16x8": lambda: _hpcg(16, 8, 8),
+    "irregular": lambda: _irregular(4096, 41),
+    "block_diagonal": lambda: _block_diagonal(2048),
+}
+
+
+def _read_spans(arrays, D, L, r):
+    """Shard d's (left, right) found from the entries of x each of its
+    nonzero cells reads (r of them a node column), marked in its window."""
+    rp, ci, _, (m, _) = arrays
+    spans = []
+    for d in range(D):
+        c = ci[rp[min(d * L, m)]: rp[min((d + 1) * L, m)]].astype(np.int64)
+        read = np.zeros(3 * L, dtype=bool)
+        for k in range(r):
+            read[np.unique(c // r) * r + k - (d - 1) * L] = True
+        left = L - int(np.flatnonzero(read[:L])[0]) if read[:L].any() else 0
+        right = int(np.flatnonzero(read[2 * L:])[-1]) + 1 if read[2 * L:].any() else 0
+        spans.append((left, right))
+    return tuple(spans)
+
+
+@pytest.mark.parametrize("name", sorted(SPANS))
+def test_halo_spans_are_what_each_shard_reads(name):
+    """Over 4 shards: a z-slab of the 27-point stencil reads one nx*ny plane
+    of each neighbour (a row at x = 0, y = 0 has no neighbour at x - 1 or
+    y - 1, so the lowest column is the first entry of the plane below); a
+    block-diagonal matrix reads none; an irregular band reads spans that
+    differ by side and by rank."""
+    arrays = SPANS[name]()
+    csr = CSR.from_numpy(*arrays)
+    dsp = build_dist_swell(csr, 4)
+    assert dsp.halo_ok
+    assert dsp.halo_spans == _read_spans(arrays, 4, dsp.rows_local, dsp.r)
+    assert dsp.halo_spans[0][0] == dsp.halo_spans[-1][1] == 0
+    if name.startswith("hpcg"):
+        plane = {"hpcg": 8 * 8, "hpcg_16x8": 16 * 8}[name]
+        assert dsp.rows_local == {"hpcg": 512, "hpcg_16x8": 256}[name]
+        assert dsp.halo_spans == ((0, plane), (plane, plane), (plane, plane), (plane, 0))
+    elif name == "block_diagonal":
+        assert dsp.halo_spans == ((0, 0),) * 4
+    else:
+        inner = [s for pair in dsp.halo_spans for s in pair][1:-1]
+        assert len(set(inner)) == len(inner) and min(inner) > 0
+    assert build_dist_swell(csr, 4, halo=False).halo_spans == ()
 
 
 LOCAL = {
@@ -177,23 +265,48 @@ def _rank_inputs():
     return fem, x, spd, b, x_true
 
 
+SPAN_CASES = ["hpcg", "irregular", "block_diagonal", "tailed"]
+
+
+def _span_inputs(name, D):
+    """(csr arrays, two x, env) of a span-against-whole-blocks case."""
+    arrays = _tailed(D) if name == "tailed" else SPANS[name]()
+    rng = np.random.default_rng(len(name) + D)
+    xs = [rng.uniform(-1, 1, size=arrays[3][1]) for _ in range(2)]
+    return arrays, xs, TAIL_ENV if name == "tailed" else None
+
+
+def _hpcg_b():
+    return np.random.default_rng(43).uniform(-1, 1, size=8 * 8 * 32)
+
+
 def _rank_cases(D):
     fem, x, spd, b, _ = _rank_inputs()
     tailed = _tailed(D)
     xt = np.random.default_rng(D).uniform(-1, 1, size=tailed[3][0])
+    spans = []
+    for name in SPAN_CASES:
+        arrays, xs, env = _span_inputs(name, D)
+        spans.append(dict(kind="swell_spans", csr=arrays, xs=xs, env=env))
     return [dict(kind="swell", csr=fem, x=x, halo=None),
             dict(kind="swell", csr=fem, x=x, halo=False),
             dict(kind="swell", csr=tailed, x=xt, halo=None, env=TAIL_ENV),
-            dict(kind="swell_cg", csr=spd, b=b, tol=1e-10, max_iters=300)]
+            dict(kind="swell_cg", csr=spd, b=b, tol=1e-10, max_iters=300),
+            dict(kind="swell_cg_spans", csr=SPANS["hpcg"](), b=_hpcg_b(), tol=1e-10,
+                 max_iters=500, eager_iters=4)] + spans
 
 
 _RESULTS = {}
 
 
-def _results(D):
+def _all_ranks(D):
     if D not in _RESULTS:
-        _RESULTS[D] = spawn(rank_cases, D, "cpu", _rank_cases(D))[0]
+        _RESULTS[D] = spawn(rank_cases, D, "cpu", _rank_cases(D))
     return _RESULTS[D]
+
+
+def _results(D):
+    return _all_ranks(D)[0]
 
 
 def _ref_y(csr_arrays, x, D, env=None):
@@ -247,3 +360,44 @@ def test_dist_swell_cg_solve_matches_reference(D):
                                      tol=1e-10, max_iters=300)
     assert iters == int(res.iters) and 0 < iters < 300
     assert np.linalg.norm(x - np.asarray(res.x)[:8192]) <= 1e-8 * np.linalg.norm(x_true)
+
+
+@pytest.mark.parametrize("name", SPAN_CASES)
+@pytest.mark.parametrize("D", [2, 4])
+def test_span_exchange_equals_whole_blocks(D, name):
+    """``dist_swell_spmv_fn``'s y over the spans equals, byte for byte, the
+    same plan's y over whole neighbour blocks, for two x in turn through the
+    one kept window; each rank issues one op for each nonzero span it sends
+    or receives (none on the block-diagonal matrix), where the whole blocks
+    take two a neighbour; the tailed plan's spans hold its COO tail's
+    columns."""
+    arrays, xs, _ = _span_inputs(name, D)
+    golden = [host_spmv_plain(*arrays[:3], x) for x in xs]
+    for d, res in enumerate(r[5 + SPAN_CASES.index(name)] for r in _all_ranks(D)):
+        spans = res["spans"]
+        sends = (spans[d - 1][1] if d > 0 else 0, spans[d + 1][0] if d < D - 1 else 0)
+        ops = sum(n > 0 for n in sends + spans[d])
+        assert res["ops"] == [ops] * len(xs) and res["windows"] == 1
+        assert res["whole_ops"] == [2 * ((d > 0) + (d < D - 1))] * len(xs)
+        for y, whole, want in zip(res["y"], res["whole"], golden):
+            assert y.tobytes() == whole.tobytes()
+            assert verify_y(y, want, np.float64).failed_count == 0
+        if name == "block_diagonal":
+            assert ops == 0 and spans == ((0, 0),) * D
+        else:
+            assert all(pair != (0, 0) for pair in spans)
+    if name == "tailed":
+        assert res["spans"][0][1] > 4000  # the tail's outliers, a block to the right
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_span_solve_equals_whole_blocks(D):
+    """On the 27-point operator, ``dist_swell_cg_solve`` over the spans takes
+    the iterations of a solver whose matvec exchanges whole blocks, and gives
+    its x byte for byte (plain start of 4 iterations, then masked blocks)."""
+    for res in (r[4] for r in _all_ranks(D)):
+        assert res["iters"] == res["whole_iters"] and 4 < res["iters"] < 500
+        assert res["x"].tobytes() == res["whole_x"].tobytes()
+    op = hpcg27.Operator({"nx": 8, "ny": 8, "nz": 32}, None, "cpu")
+    resid = op(torch.from_numpy(res["x"])) - torch.from_numpy(_hpcg_b())
+    assert float(resid.norm() / np.linalg.norm(_hpcg_b())) <= 1e-10

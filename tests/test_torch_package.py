@@ -589,6 +589,42 @@ def test_dist_swell_cg_on_card(nccl_group):
 
 
 @pytest.mark.cuda
+def test_span_halo_equals_whole_blocks_on_four_cards(cuda_device):
+    """Over NCCL on four cards, HPCG's 27-point operator in z-slabs (32 x 32
+    x 32 a rank): the halo exchange of the spans each slab reads (one 32 x 32
+    plane a neighbour, into a kept window) against the same plan over whole
+    neighbour blocks.  ``dist_swell_spmv_fn``'s y for two x in turn, and
+    ``dist_swell_cg_solve``'s x and iterations (4 plain iterations, then
+    captured blocks that hold the exchange) against a whole-block solver's,
+    byte for byte."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    from perfbench.matrices import hpcg27
+    from spmv_acc_tpu_torch.parallel import spawn
+    from spmv_acc_tpu_torch.parallel.launch import rank_cases
+
+    arrays = hpcg27.build({"nx": 32, "ny": 32, "nz": 128})
+    m, plane = arrays[3][0], 32 * 32
+    rng = np.random.default_rng(2 ** 33 + 5)
+    xs = [rng.uniform(-1, 1, size=m) for _ in range(2)]
+    b = rng.uniform(-1, 1, size=m)
+    cases = [dict(kind="swell_spans", csr=arrays, xs=xs),
+             dict(kind="swell_cg_spans", csr=arrays, b=b, tol=1e-10, max_iters=1000,
+                  eager_iters=4)]
+    for d, (spans, solve) in enumerate(spawn(rank_cases, 4, "cuda", cases)):
+        assert spans["spans"] == ((0, plane), (plane, plane), (plane, plane), (plane, 0))
+        neighbours = (d > 0) + (d < 3)
+        assert spans["ops"] == [2 * neighbours] * 2 and spans["windows"] == 1
+        for y, whole in zip(spans["y"], spans["whole"]):
+            assert y.tobytes() == whole.tobytes()
+        assert solve["iters"] == solve["whole_iters"] and 4 < solve["iters"] < 1000
+        assert solve["x"].tobytes() == solve["whole_x"].tobytes()
+    op = hpcg27.Operator({"nx": 32, "ny": 32, "nz": 128}, None, "cpu")
+    resid = op(torch.from_numpy(solve["x"])) - torch.from_numpy(b)
+    assert float(resid.norm() / np.linalg.norm(b)) <= 1e-10
+
+
+@pytest.mark.cuda
 def test_dryrun_one_card(cuda_device):
     """The dry run in a spawned rank on the card (NCCL at world size 1)."""
     from spmv_acc_tpu_torch.dryrun import dryrun_multichip
