@@ -25,14 +25,13 @@ eagerly.  A solver that has no block graph yet first runs up to
 ``CG_EAGER_ITERS`` iterations as the plain loop (``_cg_loop``'s, the stop
 test read on the host before each) and captures only if the solve goes on;
 one that holds its graph runs in blocks from the first iteration.
-``cg_solve`` keeps its last ``CG_SOLVERS`` solvers, by matrix,
-preconditioner, strategy and right-hand side's shape: against one matrix
-and preconditioner, only the first solve that runs past the plain start
-captures, and a short solve never does.  ``parallel.dist_swell``'s
-``dist_swell_cg_solve`` keeps its distributed solvers in the same cache,
-under keys that start with ``"dist"``; ``clear_dist_solver_cache`` drops
-them, and with them their graphs that hold NCCL collectives, before a group
-is destroyed.  Once the solve has converged a masked iteration changes
+``cg_solve``, ``dist_cg_solve`` and ``parallel.dist_swell``'s
+``dist_swell_cg_solve`` keep their last ``CG_SOLVERS`` solvers in one cache,
+each through ``kept_solver``: against one operator and right-hand side's
+shape, only the first solve that runs past the plain start captures, and a
+short solve never does.  ``clear_dist_solver_cache`` drops the distributed
+solvers, and with them their graphs that hold NCCL collectives, before a
+group is destroyed.  Once the solve has converged a masked iteration changes
 nothing, so the iterations and x are the plain loop's, bit for bit,
 wherever the blocks start.
 ``dist_cg_solve`` is the mesh-distributed variant over the ranks of a process
@@ -41,8 +40,8 @@ every vector, and F-2 runs as three phases, ``cg_dot`` (p·Ap), ``cg_xr`` (x
 and r, then r·z and r·r) and ``cg_p`` (p, rz, rr, the count), its sums each
 rank's block and one ``all_reduce`` each time they are needed (``p·Ap`` after
 ``cg_dot``; ``[r·z, r·r]`` together before ``cg_p``, as XLA's all-reduce
-combiner merges the JAX loop's psums), and
-the matvec takes the 1-hop halo exchange or the all-gather of x.  It runs the
+combiner merges the JAX loop's psums), and the matvec takes the 1-hop halo
+exchange of the spans each shard reads or the all-gather of x.  It runs the
 same ``CGBlocks`` (the JAX package jits its ``while_loop`` with the
 collectives inside): on the card each block is a captured graph that holds
 its NCCL collectives, and the flag the host reads after a block is the
@@ -53,6 +52,7 @@ same graphs in the same order.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import threading
 from typing import Callable, NamedTuple, Optional
@@ -66,8 +66,8 @@ from ..ops.cg_update import Work
 from ..utils import profiling
 
 __all__ = ["CGResult", "CG_BLOCK", "CG_EAGER_ITERS", "CG_SOLVERS", "CGBlocks", "Jacobi",
-           "cg_solve", "clear_solver_cache", "clear_dist_solver_cache", "dist_cg_solve",
-           "dist_cg_blocks", "jacobi_preconditioner"]
+           "cg_solve", "clear_solver_cache", "clear_dist_solver_cache", "dist_solvers_kept",
+           "dist_cg_solve", "dist_cg_blocks", "jacobi_preconditioner"]
 
 # Masked CG iterations in one block: the host reads one flag a block.  A solve
 # runs whole blocks, so up to CG_BLOCK - 1 masked iterations after convergence
@@ -88,7 +88,7 @@ CG_BLOCK = 8
 # graph runs in blocks from the first iteration.
 CG_EAGER_ITERS = 64
 
-# Solvers cg_solve keeps, least recently used first out.  Each holds its
+# Solvers kept across calls, least recently used first out.  Each holds its
 # block graphs and their memory pool (21 and 63 MB on hpcg104 under Jacobi
 # and ILU(0), PERF.md), so that a caller solving against one matrix and
 # preconditioner captures once, not once a solve.
@@ -283,33 +283,48 @@ _SOLVERS_LOCK = threading.Lock()
 
 
 def clear_solver_cache() -> None:
-    """Drop every solver ``cg_solve`` keeps, and with them their graphs."""
+    """Drop every kept solver, and with them their graphs."""
     with _SOLVERS_LOCK:
         _SOLVERS.clear()
 
 
 def clear_dist_solver_cache() -> None:
-    """Drop every solver ``parallel.dist_swell.dist_swell_cg_solve`` keeps
-    (the keys that start with ``"dist"``), and with them their graphs that
-    hold NCCL collectives: before the group they were captured in is
-    destroyed (``parallel.multihost.shutdown_distributed``)."""
+    """Drop every distributed solver kept (``kept_solver`` with a mesh), and
+    with them their graphs that hold NCCL collectives: before the group they
+    were captured in is destroyed (``parallel.multihost.shutdown_distributed``)."""
     with _SOLVERS_LOCK:
-        for key in [k for k in _SOLVERS if k[0] == "dist"]:
+        for key in [k for k in _SOLVERS if k[0]]:
             del _SOLVERS[key]
 
 
-def _take_solver(key):
-    """The kept solver of ``key``, taken out of the cache while it solves (a
-    second caller of the same key builds its own), or None."""
+def dist_solvers_kept() -> int:
+    """How many distributed solvers are kept."""
+    with _SOLVERS_LOCK:
+        return sum(bool(k[0]) for k in _SOLVERS)
+
+
+@contextlib.contextmanager
+def kept_solver(held: tuple, spec: tuple, build: Callable, mesh=None):
+    """The solver kept under the ids of ``held`` (held by the entry, so no id
+    is reused), ``spec``, ``CG_BLOCK`` and ``CG_EAGER_ITERS``, else
+    ``build()``'s: out of the cache while the ``with`` block runs, kept after
+    it, least recently used out past ``CG_SOLVERS``.  With ``mesh``, keyed
+    and held with its group, the ranks agree on hit or miss (``all_agree``:
+    ids are each rank's own).  Counts ``dist.solvers.hit`` / ``.built`` (with
+    ``mesh``) or ``cg.solvers.hit`` / ``.built``."""
+    if mesh is not None:
+        held = held + (mesh.get_group(),)
+    key = (mesh is not None,) + tuple(id(h) for h in held) + spec + (CG_BLOCK, CG_EAGER_ITERS)
     with _SOLVERS_LOCK:
         entry = _SOLVERS.pop(key, None)
-    return None if entry is None else entry[1]
+    hit = entry is not None
+    if mesh is not None:
+        from ..parallel.dist_spmv import all_agree
 
-
-def _keep_solver(key, held: tuple, solver) -> None:
-    """Keep ``solver`` under ``key`` (its ids' objects ``held``, so that no id
-    is reused while it is kept), dropping the least recently used past
-    ``CG_SOLVERS``."""
+        hit = all_agree(hit, mesh)
+    profiling.count(f"{'cg' if mesh is None else 'dist'}.solvers.{'hit' if hit else 'built'}")
+    solver = entry[1] if hit else build()
+    yield solver
     with _SOLVERS_LOCK:
         _SOLVERS[key] = (held, solver)
         _SOLVERS.move_to_end(key)
@@ -358,16 +373,10 @@ def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: 
     if x0 is None:
         x0 = torch.zeros_like(b)
     chosen = pick_strategy(get_plan(csr), csr) if strategy == "adaptive" else strategy
-    held = (csr.row_ptr, csr.col_idx, csr.values, precond)
-    key = tuple(id(h) for h in held) + (chosen, b.dtype, tuple(b.shape), b.device, CG_BLOCK,
-                                        CG_EAGER_ITERS)
-    solver = _take_solver(key)
-    profiling.count("cg.solvers.built" if solver is None else "cg.solvers.hit")
-    if solver is None:
-        solver = _new_solver(csr, chosen, precond, b)
-    res = solver.solve(b, x0, tol, max_iters)
-    _keep_solver(key, held, solver)
-    return res
+    with kept_solver((csr.row_ptr, csr.col_idx, csr.values, precond),
+                     (chosen, b.dtype, tuple(b.shape), b.device),
+                     lambda: _new_solver(csr, chosen, precond, b)) as solver:
+        return solver.solve(b, x0, tol, max_iters)
 
 
 def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGResult:
@@ -388,25 +397,30 @@ def dist_cg_solve(part, b, mesh, tol: float = 1e-8, max_iters: int = 200) -> CGR
     iterations, then blocks of ``CG_BLOCK`` masked ones, on the card captured
     graphs with the collectives inside.  Every rank takes the same number of
     iterations, or the next collective would wait forever: the stop test
-    reads the all-reduced ``r·r``, which is the same value on every
-    rank."""
+    reads the all-reduced ``r·r``, which is the same value on every rank.
+    The solver is kept (``kept_solver``) by ``part``'s arrays, the mesh and
+    ``b``'s dtype, shape and device: a later solve on the operator builds
+    nothing and runs its captured blocks from the first iteration."""
     from ..parallel.dist_spmv import (dist_spmv_fn, dist_spmv_halo_fn, halo_feasible,
-                                      mesh_device, shard_partitioned)
+                                      mesh_device, mesh_rank, shard_partitioned)
 
-    part = shard_partitioned(part, mesh)
-    d, lr, D = part.shard, part.local_rows, part.num_shards
-    build = dist_spmv_halo_fn if halo_feasible(part, mesh, padded=True) else dist_spmv_fn
-    run, _ = build(mesh, part, padded=True)
-
-    def matvec(v):
-        return run(part.values, part.col_idx_padded, part.row_ids, v)
-
+    D, lr = part.num_shards, part.local_rows
     b = torch.as_tensor(b)
     if tuple(b.shape) != (D * lr,):
         raise ValueError(f"b must be the padded ({D * lr},) right-hand side, got {tuple(b.shape)}")
+    d = mesh_rank(mesh)
     b_local = b[d * lr: (d + 1) * lr].to(mesh_device(mesh)).contiguous()
-    return dist_cg_blocks(matvec, b_local, mesh).solve(b_local, torch.zeros_like(b_local), tol,
-                                                       max_iters)
+
+    def build():
+        shard = shard_partitioned(part, mesh)
+        halo = halo_feasible(shard, mesh, padded=True)
+        run, _ = (dist_spmv_halo_fn if halo else dist_spmv_fn)(mesh, shard, padded=True)
+        return dist_cg_blocks(functools.partial(run, shard.values, shard.col_idx_padded,
+                                                shard.row_ids), b_local, mesh)
+
+    with kept_solver((part.values, part.col_idx_padded, part.row_ids),
+                     ("dist_cg", b.dtype, tuple(b.shape), b.device), build, mesh) as solver:
+        return solver.solve(b_local, torch.zeros_like(b_local), tol, max_iters)
 
 
 def dist_cg_blocks(matvec: Callable, b_local: torch.Tensor, mesh,

@@ -5,10 +5,11 @@ device: rank d holds row block d of A (``PartitionedCSR``) and block d of x
 on its own device, and a call returns block d of y.  Each step either
 all-gathers x over the mesh (``dist.all_gather_into_tensor``) or, when
 every shard's column span fits its own x block and its two neighbours',
-exchanges only the two neighbour blocks (``dist.batch_isend_irecv``; a rank
-without a neighbour reads zeros there, as ``ppermute`` gives).
-``halo_exchanger`` can also send only the spans of the blocks a neighbour
-reads, as ``dist_swell`` does.  The per-shard
+receives from each neighbour only the span of its block that the shard
+reads (``halo_exchanger``, ``dist.batch_isend_irecv``; a rank without a
+neighbour reads zeros there, as ``ppermute`` gives).  ``col_extents`` and
+``halo_spans`` decide that window and its spans, here and in
+``dist_swell``.  The per-shard
 product is the reference's gather and segment sum, plain PyTorch: a gather of
 x, then ``index_add_`` into ``local_rows + 1`` rows, the sentinel row dropped.
 On a CUDA tensor ``index_add_`` adds in a varying order, so results agree
@@ -24,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -33,7 +33,7 @@ from .partition import PartitionedCSR, unpad_vector
 
 __all__ = ["dist_spmv", "make_mesh", "shard_partitioned", "dist_spmv_fn",
            "dist_spmv_halo_fn", "halo_feasible", "unpad_y", "mesh_rank", "mesh_device",
-           "gather_mesh", "halo_exchanger", "all_reduced_sum"]
+           "gather_mesh", "col_extents", "halo_spans", "halo_exchanger", "all_reduced_sum"]
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "x") -> DeviceMesh:
@@ -84,50 +84,59 @@ def gather_mesh(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     return _all_gather(_all_gather(t, mesh.get_group(1)), mesh.get_group(0))
 
 
-def halo_exchanger(mesh: DeviceMesh, spans=None, n: int | None = None,
-                   dtype: torch.dtype | None = None):
-    """``exchange(x_local) -> window`` over a 1-D mesh: the left neighbour's
-    block, this rank's and the right neighbour's, laid end to end (3 blocks);
-    zeros where shard d has no neighbour (d = 0, d = D - 1).  The peers are
-    found once: a mesh coordinate costs tens of µs of host time.
+def col_extents(cols, mesh: DeviceMesh | None = None) -> list:
+    """Each shard's least and greatest column, ``(lo, hi)``, or None for a
+    shard that reads none.  ``cols`` yields every shard's live columns (numpy
+    arrays), or with ``mesh`` this rank's alone: the ranks then all-gather
+    their two numbers (one small collective, outside any graph)."""
+    ext = [(int(c.min()), int(c.max())) if len(c) else None for c in cols]
+    if mesh is None:
+        return ext
+    mine = torch.tensor(ext[0] or (1, 0), dtype=torch.int64, device=mesh_device(mesh))
+    return [(lo, hi) if lo <= hi else None
+            for lo, hi in gather_mesh(mine, mesh).view(-1, 2).tolist()]
 
-    Without ``spans`` a call sends this rank's whole block to each neighbour
-    and receives theirs whole, into a new window.  With ``spans`` (shard d's
-    ``(left, right)`` for every shard of the mesh: how many trailing entries
-    of block d-1 and leading entries of block d+1 shard d reads), ``n`` (the
-    block length) and ``dtype``, the window is made here, zeroed, and kept:
-    a call copies ``x_local`` into its middle, sends each neighbour the span
-    of it that the neighbour reads, receives this rank's two spans in place
-    and returns the same window every time.  Entries outside the spans stay
-    zero.  A span of length 0 makes no point-to-point op, on either side: both
-    read the same spans.  The window is made before any call, so a call
-    inside a CUDA graph capture allocates nothing; a later call's receive is
-    ordered after the kernels issued before it, which read the window, as
-    every collective is ordered after the current stream's work."""
+
+def halo_spans(extents: list, block: int, unit: int = 1):
+    """Shard d's ``(left, right)`` for every shard: the trailing entries of
+    x block d-1 and the leading entries of block d+1 that its columns
+    (``col_extents``) reach, widened to whole units of ``unit`` entries (a
+    swell cell reads all r of a node column; block edges are multiples of
+    it).  None when a shard reads past its neighbours' blocks, where the
+    1-hop halo cannot run."""
+    spans = []
+    for d, e in enumerate(extents):
+        if e is None:
+            spans.append((0, 0))
+            continue
+        lo, hi = e
+        if lo < (d - 1) * block or hi >= (d + 2) * block:
+            return None
+        left = d * block - lo // unit * unit if lo < d * block else 0
+        right = -(-(hi + 1) // unit) * unit - (d + 1) * block if hi >= (d + 1) * block else 0
+        spans.append((left, right))
+    return tuple(spans)
+
+
+def halo_exchanger(mesh: DeviceMesh, spans, n: int, dtype: torch.dtype):
+    """``exchange(x_local) -> window`` over a 1-D mesh: the left neighbour's
+    block, this rank's and the right neighbour's (``n`` entries of ``dtype``
+    each) laid end to end, in a window made here, zeroed, and kept.  A call
+    copies ``x_local`` into its middle, sends each neighbour the span of it
+    that the neighbour reads, receives this rank's two spans in place and
+    returns the same window every time: ``spans`` holds shard d's ``(left,
+    right)`` for every shard (``halo_spans``), and entries outside them, and
+    a missing neighbour's (d = 0, d = D - 1), stay zero.  A span of length 0
+    makes no point-to-point op, on either side.  The peers are found once (a
+    mesh coordinate costs tens of µs of host time), and a call inside a CUDA
+    graph capture allocates nothing; its receive is ordered after the kernels
+    issued before it, which read the window, as every collective is ordered
+    after the current stream's work."""
     group = mesh.get_group()
     ranks = dist.get_process_group_ranks(group)
     d = mesh_rank(mesh)
     left = ranks[d - 1] if d > 0 else None
     right = ranks[d + 1] if d < len(ranks) - 1 else None
-
-    if spans is None:
-        def exchange(x_local: torch.Tensor) -> torch.Tensor:
-            x_local = x_local.contiguous()
-            n = x_local.shape[0]
-            window = x_local.new_zeros(3 * n)
-            window[n: 2 * n] = x_local
-            ops = []
-            for peer, buf in ((left, window[:n]), (right, window[2 * n:])):
-                if peer is not None:
-                    ops += [dist.P2POp(dist.isend, x_local, peer, group),
-                            dist.P2POp(dist.irecv, buf, peer, group)]
-            if ops:
-                for work in dist.batch_isend_irecv(ops):
-                    work.wait()
-            return window
-
-        return exchange
-
     if len(spans) != len(ranks):
         raise ValueError(f"{len(spans)} spans for a mesh of {len(ranks)} ranks")
     window = torch.zeros(3 * n, dtype=dtype, device=mesh_device(mesh))
@@ -188,15 +197,6 @@ def _local_spmv(values, col_idx, row_ids, x_full, local_rows):
     return out.index_add_(0, row_ids.long(), prod)[:local_rows]
 
 
-def _span_ok(cols: np.ndarray, rows: np.ndarray, local_rows: int, s: int, block: int) -> bool:
-    """Shard s's live columns lie in blocks s-1 .. s+1 of ``block`` entries."""
-    live = rows < local_rows
-    if not live.any():
-        return True
-    lo, hi = int(cols[live].min()), int(cols[live].max())
-    return (s - 1) * block <= lo and hi < (s + 2) * block
-
-
 def _coords(part: PartitionedCSR, padded: bool):
     """(columns, x block length, x length): ``col_idx`` over the global n
     columns in blocks of ``ceil(n / D)``, or with ``padded`` ``col_idx_padded``
@@ -207,23 +207,26 @@ def _coords(part: PartitionedCSR, padded: bool):
     return part.col_idx, -(-n // part.num_shards), n
 
 
+def _part_spans(part: PartitionedCSR, mesh: DeviceMesh | None, padded: bool):
+    """``halo_spans`` of ``part``'s shards in ``_coords``' blocks (None: the
+    halo cannot run), from every shard of the host partition, or from a
+    rank's shard and its peers' over ``mesh``."""
+    cols, block, _ = _coords(part, padded)
+    if part.shard is not None and mesh is None:
+        raise ValueError("a rank's shard needs the mesh to decide the halo path")
+    rows = part.row_ids.cpu().numpy()
+    live = (c[r < part.local_rows] for c, r in zip(cols.cpu().numpy(), rows))
+    return halo_spans(col_extents(live, None if part.shard is None else mesh), block)
+
+
 def halo_feasible(part: PartitionedCSR, mesh: DeviceMesh | None = None,
                   padded: bool = False) -> bool:
     """True iff every shard's column span fits its own x block plus the two
     neighbour blocks: the condition for the 1-hop halo exchange (``padded``:
     in the padded coordinates of a square system, as CG runs).  On the host
-    partition it is decided from every shard; on a rank's shard each rank
-    decides its own and the answer is and-ed over ``mesh``, so every rank
-    takes the same path."""
-    cols, block, _ = _coords(part, padded)
-    rows = part.row_ids.cpu().numpy()
-    cols = cols.cpu().numpy()
-    if part.shard is None:
-        return all(_span_ok(cols[s], rows[s], part.local_rows, s, block)
-                   for s in range(part.num_shards))
-    if mesh is None:
-        raise ValueError("a rank's shard needs the mesh to decide the halo path")
-    return all_agree(_span_ok(cols[0], rows[0], part.local_rows, part.shard, block), mesh)
+    partition it is decided from every shard; on a rank's shard the ranks
+    share their extents over ``mesh``, so every rank takes the same path."""
+    return _part_spans(part, mesh, padded) is not None
 
 
 def dist_spmv_fn(mesh: DeviceMesh, part: PartitionedCSR, padded: bool = False):
@@ -243,16 +246,21 @@ def dist_spmv_fn(mesh: DeviceMesh, part: PartitionedCSR, padded: bool = False):
 
 
 def dist_spmv_halo_fn(mesh: DeviceMesh, part: PartitionedCSR, padded: bool = False):
-    """The 1-hop halo variant of :func:`dist_spmv_fn`: each rank receives only
-    its two neighbour x blocks and gathers from the 3-block window, O(3 n / D)
-    exchanged per rank instead of O(n).  Requires :func:`halo_feasible`."""
-    local_rows = part.local_rows
+    """The 1-hop halo variant of :func:`dist_spmv_fn`: each rank receives from
+    its two neighbours only the spans of their x blocks that its rows read
+    (``halo_spans``) into a 3-block window it keeps, and gathers from it.
+    The window and x are in ``part``'s dtype.  Requires
+    :func:`halo_feasible`."""
+    local_rows, dtype = part.local_rows, part.values.dtype
     _, x_pad, _ = _coords(part, padded)
-    exchange = halo_exchanger(mesh)
+    spans = _part_spans(part, mesh, padded)
+    if spans is None:
+        raise ValueError("a shard's columns reach past its neighbours' x blocks")
+    exchange = halo_exchanger(mesh, spans, x_pad, dtype)
     base = (mesh_rank(mesh) - 1) * x_pad
 
     def run(values, col_idx, row_ids, x_local):
-        x_halo = exchange(x_local)
+        x_halo = exchange(x_local.to(dtype))
         # padding lanes (column 0) may fall outside the window: clamp them in,
         # their value is 0 and their row the dropped sentinel
         cols = (col_idx[0].long() - base).clamp_(0, 3 * x_pad - 1)

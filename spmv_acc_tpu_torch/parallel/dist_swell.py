@@ -22,8 +22,9 @@ by row blocks:
   or its two neighbours', the shard's columns are rebased to that 3-block
   window (``x_rows = 3*rows_local``), and a call receives from each
   neighbour only the span of its block that the shard's rows read
-  (``halo_spans``, from the same scan of the matrix's columns: one
-  ``nx*ny`` plane each side for a z-slab of a 27-point stencil).  The window
+  (``dist_spmv.halo_spans`` of the same ``col_extents`` scan of the matrix's
+  columns: one ``nx*ny`` plane each side for a z-slab of a 27-point
+  stencil).  The window
   is made once, zeroed; entries outside the spans are read only by padding
   slots, whose values are zero, so the product is the whole-block
   exchange's bit for bit.  The kernel skips node columns outside
@@ -32,11 +33,10 @@ by row blocks:
   columns.
 * Each shard's product is ``swell_ax``: the swell kernel (K-a in float64,
   K-f in float32) on a CUDA tensor, its plain version on a CPU tensor.
-* ``dist_swell_cg_solve`` keeps its solvers across calls, in ``models.cg``'s
-  cache of ``CG_SOLVERS``: the plan, this rank's shard on its device, the halo
-  exchanger and a ``dist_cg_blocks`` solver, so a later solve on the same
-  operator runs its captured blocks from the first iteration.  The ranks
-  agree on hit or miss with one all-reduce a call.
+* ``dist_swell_cg_solve`` keeps its solvers across calls
+  (``models.cg.kept_solver``): the plan, this rank's shard on its device, the
+  halo exchanger and a ``dist_cg_blocks`` solver, so a later solve on the
+  same operator runs its captured blocks from the first iteration.
 
 Spans and counters (``utils.profiling``): ``swell.plan`` around the global
 host layout, ``dist.shard`` around cutting the shards and their schedules
@@ -64,7 +64,8 @@ from ..config import LANES
 from ..ops.swell import DeviceSwellLayout, _host_layout, _plan_cache_on, _torch_dtype, swell_ax
 from ..ops.swell_plan import ChunkSchedule, SwellLayout, build_swell_schedule
 from ..utils import profiling
-from .dist_spmv import all_agree, gather_mesh, halo_exchanger, mesh_device, mesh_rank
+from .dist_spmv import (col_extents, gather_mesh, halo_exchanger, halo_spans, mesh_device,
+                        mesh_rank)
 
 __all__ = ["DistSwellPlan", "build_dist_swell", "dist_swell_spmv_fn",
            "dist_swell_halo_spmv_fn", "dist_swell_serial_fn", "dist_swell_cg_solve",
@@ -132,39 +133,6 @@ def _shared_host_layout(csr, tdtype: torch.dtype, mesh) -> SwellLayout:
     return lay
 
 
-def _col_extents(rp: np.ndarray, ci: np.ndarray, m: int, D: int, L: int) -> list:
-    """Shard d's least and greatest column, (lo, hi), or None for a shard
-    whose rows hold no entry."""
-    out = []
-    for d in range(D):
-        a, b = int(rp[min(d * L, m)]), int(rp[min((d + 1) * L, m)])
-        out.append((int(ci[a:b].min()), int(ci[a:b].max())) if b > a else None)
-    return out
-
-
-def _windows_fit(extents: list, L: int) -> bool:
-    """Every column of shard d's rows lies in [(d-1)*L, (d+2)*L)."""
-    return all(e is None or ((d - 1) * L <= e[0] and e[1] < (d + 2) * L)
-               for d, e in enumerate(extents))
-
-
-def _halo_spans(extents: list, L: int, r: int) -> Tuple[Tuple[int, int], ...]:
-    """Shard d's (left, right): the trailing entries of x block d-1 and the
-    leading entries of block d+1 that its rows read, widened to whole node
-    columns of r entries (a cell reads all r).  Block edges are multiples of
-    r, as L is."""
-    spans = []
-    for d, e in enumerate(extents):
-        if e is None:
-            spans.append((0, 0))
-            continue
-        lo, hi = e
-        left = d * L - lo // r * r if lo < d * L else 0
-        right = -(-(hi + 1) // r) * r - (d + 1) * L if hi >= (d + 1) * L else 0
-        spans.append((left, right))
-    return tuple(spans)
-
-
 def _kernel_cells(vals: np.ndarray, r: int) -> int:
     """Slots holding a nonzero cell (each 128-slot row stores r*r lane planes)."""
     if r == 1:
@@ -224,20 +192,20 @@ def build_dist_swell(csr, num_shards: int, dtype=None, halo: bool | None = None,
         K = max(1, -(-lay.mrb // D))
         L = K * LANES * r
         m, n = csr.shape
-        fits, extents = n <= D * L, None
-        if fits and halo is not False:
+        spans = None
+        if n <= D * L and halo is not False:
             rp, ci, _, _ = csr.to_numpy()
-            extents = _col_extents(rp.astype(np.int64), ci, m, D, L)
-            fits = _windows_fit(extents, L)
-        if halo and not fits:
+            rp = rp.astype(np.int64)
+            spans = halo_spans(col_extents(ci[rp[min(d * L, m)]: rp[min((d + 1) * L, m)]]
+                                           for d in range(D)), L, r)
+        if halo and spans is None:
             raise ValueError("halo=True, but a shard's columns reach past its neighbours' "
                              "x blocks")
-        halo_ok = fits if halo is None else bool(halo)
-        shards = tuple(_shard(lay, d, K, L, halo_ok) for d in range(D))
+        shards = tuple(_shard(lay, d, K, L, spans is not None) for d in range(D))
         return DistSwellPlan(
             shards=shards, schedules=tuple(build_swell_schedule(s) for s in shards),
             num_shards=D, blocks_per_shard=K, rows_local=L, shape=(m, n), r=r, dtype=tdtype,
-            halo_ok=halo_ok, halo_spans=_halo_spans(extents, L, r) if halo_ok else ())
+            halo_ok=spans is not None, halo_spans=spans or ())
 
 
 def pad_global(dsp: DistSwellPlan, v) -> torch.Tensor:
@@ -317,36 +285,6 @@ def dist_swell_serial_fn(dsp: DistSwellPlan, device="cuda"):
     return run
 
 
-@dataclasses.dataclass
-class _DistSolver:
-    """What ``dist_swell_cg_solve`` keeps of an operator on this rank: the
-    plan, the matvec over this rank's device shard (its halo exchanger or
-    all-gather inside) and the solver whose graphs hold the collectives."""
-
-    dsp: DistSwellPlan
-    blocks: object  # models.cg.CGBlocks
-
-
-def _new_dist_solver(csr, b, mesh) -> _DistSolver:
-    from ..models.cg import dist_cg_blocks
-
-    dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
-    with profiling.span("dist.shard"):  # this rank's device copy
-        run = dist_swell_spmv_fn(dsp, mesh)
-    dtype = b.dtype
-    spans = dsp.halo_spans[mesh_rank(mesh)] if dsp.halo_ok else ()
-    exchange_bytes = sum(spans) * dsp.dtype.itemsize
-
-    def matvec(v):
-        return run(v.to(dsp.dtype)).to(dtype)
-
-    def exchanged(n):
-        profiling.count("dist.halo_bytes", n * exchange_bytes)
-
-    like = torch.empty(0, dtype=dtype, device=mesh_device(mesh))  # the solver's dtype, device
-    return _DistSolver(dsp, dist_cg_blocks(matvec, like, mesh, on_matvecs=exchanged))
-
-
 def dist_swell_cg_solve(csr, b, mesh, tol: float = 1e-8, max_iters: int = 200):
     """Mesh-distributed CG with the swell kernel as each shard's product
     (square SPD A), called by every rank of the 1-D ``mesh``.
@@ -359,30 +297,33 @@ def dist_swell_cg_solve(csr, b, mesh, tol: float = 1e-8, max_iters: int = 200):
     ``models.cg.dist_cg_blocks``: on the card captured blocks that hold the
     halo exchange or all-gather and the all-reduces.
 
-    The solver is kept across calls (in ``models.cg``'s cache, beside
-    ``cg_solve``'s, under a key that starts with ``"dist"``) by the ids of
-    ``csr``'s arrays, the mesh's process group, ``b``'s dtype, shape and
-    device, ``CG_BLOCK`` and ``CG_EAGER_ITERS``: a later solve on the same
-    operator loads no plan and runs its captured blocks from the
-    first iteration.  Ids are each rank's own, so the ranks agree on hit or
-    miss with one all-reduce, outside the graphs: where any rank misses,
-    every rank builds anew, and the next collective finds all ranks on the
-    same path.  Counters ``dist.solvers.built`` and ``dist.solvers.hit``."""
-    from ..models import cg
+    The solver is kept across calls (``models.cg.kept_solver`` with the mesh)
+    by the ids of ``csr``'s arrays, the mesh's process group, ``b``'s dtype,
+    shape and device, ``CG_BLOCK`` and ``CG_EAGER_ITERS``: a later solve on
+    the same operator loads no plan and runs its captured blocks from the
+    first iteration.  Counters ``dist.solvers.built`` and
+    ``dist.solvers.hit``."""
+    from ..models.cg import dist_cg_blocks, kept_solver
 
-    group = mesh.get_group()
-    held = (csr.row_ptr, csr.col_idx, csr.values, group)
-    key = ("dist",) + tuple(id(h) for h in held) + (b.dtype, tuple(b.shape), b.device,
-                                                    cg.CG_BLOCK, cg.CG_EAGER_ITERS)
-    solver = cg._take_solver(key)
-    if not all_agree(solver is not None, mesh):
-        solver = None
-    profiling.count("dist.solvers.built" if solver is None else "dist.solvers.hit")
-    if solver is None:
-        solver = _new_dist_solver(csr, b, mesh)
-    dsp = solver.dsp
-    d, L = mesh_rank(mesh), dsp.rows_local
-    b_local = pad_global(dsp, b)[d * L: (d + 1) * L].to(mesh_device(mesh)).contiguous()
-    res = solver.blocks.solve(b_local, torch.zeros_like(b_local), tol, max_iters)
-    cg._keep_solver(key, held, solver)
-    return res, dsp
+    def build():  # the plan, and the solver over this rank's device shard
+        dsp = build_dist_swell(csr, mesh.size(), mesh=mesh)
+        with profiling.span("dist.shard"):  # this rank's device copy
+            run = dist_swell_spmv_fn(dsp, mesh)
+        spans = dsp.halo_spans[mesh_rank(mesh)] if dsp.halo_ok else ()
+        exchange_bytes = sum(spans) * dsp.dtype.itemsize
+
+        def matvec(v):
+            return run(v.to(dsp.dtype)).to(b.dtype)
+
+        def exchanged(n):
+            profiling.count("dist.halo_bytes", n * exchange_bytes)
+
+        like = torch.empty(0, dtype=b.dtype, device=mesh_device(mesh))  # the solver's dtype
+        return dsp, dist_cg_blocks(matvec, like, mesh, on_matvecs=exchanged)
+
+    with kept_solver((csr.row_ptr, csr.col_idx, csr.values),
+                     ("dist_swell", b.dtype, tuple(b.shape), b.device), build,
+                     mesh) as (dsp, blocks):
+        d, L = mesh_rank(mesh), dsp.rows_local
+        b_local = pad_global(dsp, b)[d * L: (d + 1) * L].to(mesh_device(mesh)).contiguous()
+        return blocks.solve(b_local, torch.zeros_like(b_local), tol, max_iters), dsp

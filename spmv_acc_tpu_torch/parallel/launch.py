@@ -25,6 +25,7 @@ import sys
 import tempfile
 import time
 import traceback
+from unittest import mock
 
 import torch
 import torch.distributed as dist
@@ -125,32 +126,18 @@ def _csr(arrays):
 
 
 @contextlib.contextmanager
-def _env(variables):
-    """The environment ``variables`` (a dict, or None) set inside."""
-    saved = {k: os.environ.get(k) for k in variables or {}}
-    os.environ.update(variables or {})
+def _patched(*changes):
+    """Each ``(obj, name, value)`` of ``changes`` set inside and restored
+    after; a None value leaves its attribute alone."""
+    changes = [c for c in changes if c[2] is not None]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in changes]
+    for obj, name, value in changes:
+        setattr(obj, name, value)
     try:
         yield
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
-@contextlib.contextmanager
-def _eager_iters(n):
-    """``models.cg.CG_EAGER_ITERS`` set to ``n`` inside (None: left alone)."""
-    from ..models import cg
-
-    saved = cg.CG_EAGER_ITERS
-    if n is not None:
-        cg.CG_EAGER_ITERS = n
-    try:
-        yield
-    finally:
-        cg.CG_EAGER_ITERS = saved
+        for obj, name, value in saved:
+            setattr(obj, name, value)
 
 
 @contextlib.contextmanager
@@ -158,9 +145,6 @@ def _counted_all_reduces(on):
     """With ``on``, ``torch.distributed.all_reduce`` counted inside, by the
     number of elements of the floating-point tensors it sums: yields the
     counts (a dict), else None and nothing is replaced."""
-    if not on:
-        yield None
-        return
     real, counts = dist.all_reduce, {}
 
     def counted(t, *args, **kwargs):
@@ -168,11 +152,8 @@ def _counted_all_reduces(on):
             counts[t.numel()] = counts.get(t.numel(), 0) + 1
         return real(t, *args, **kwargs)
 
-    dist.all_reduce = counted
-    try:
-        yield counts
-    finally:
-        dist.all_reduce = real
+    with _patched((dist, "all_reduce", counted if on else None)):
+        yield counts if on else None
 
 
 def _scaling_loop(csr, steps: int):
@@ -193,108 +174,164 @@ def _scaling_loop(csr, steps: int):
     return tuple(gather_padded(v, mesh)[: csr.rows].cpu().numpy() for v in (looped, chained))
 
 
-def _kept_swell_solves(csr, bs, tol, max_iters) -> dict:
-    """``dist_swell_cg_solve`` on one mesh for each of ``bs`` in turn (the
-    first builds its solver, the others find it kept), then each again on a
-    fresh solver: per solve x in global rows, the iterations, the counters'
-    growth and whether the plain start ran."""
+def _kept_solves(csr, bs, tol, max_iters, solver) -> dict:
+    """``solver`` (``"dist_swell_cg_solve"`` or ``"dist_cg_solve"``) on one
+    mesh for each of ``bs`` in turn (the first builds its solver, the others
+    find it kept), then each again on a fresh solver: per solve x in global
+    rows, the iterations, the counters' growth and whether the plain start
+    ran; with the halo path's choice and the rows of a shard."""
     from ..models import cg
     from ..utils import profiling
-    from .dist_spmv import make_mesh
+    from .dist_spmv import halo_feasible, make_mesh
     from .dist_swell import dist_swell_cg_solve
+    from .partition import pad_vector, partition_rows, unpad_vector
 
     mesh = make_mesh(dist.get_world_size())
-    names = ("dist.solvers.built", "dist.solvers.hit", "dist.halo_bytes")
-    dsp = None
+    part = partition_rows(csr, mesh.size(), balance=False)
+    out = {"kept": [], "fresh": []}
 
     def solve(b):
-        nonlocal dsp
         before = profiling.spans()
-        res, dsp = dist_swell_cg_solve(csr, torch.from_numpy(b), mesh, tol=tol,
-                                       max_iters=max_iters)
+        if solver == "dist_cg_solve":
+            res = cg.dist_cg_solve(part, pad_vector(part, b), mesh, tol=tol, max_iters=max_iters)
+            x = unpad_vector(part, gather_padded(res.x, mesh))
+            out.update(halo_ok=halo_feasible(part, padded=True), rows_local=part.local_rows)
+        else:
+            res, dsp = dist_swell_cg_solve(csr, torch.from_numpy(b), mesh, tol=tol,
+                                           max_iters=max_iters)
+            x = gather_padded(res.x, mesh)[: csr.rows]
+            out.update(halo_ok=dsp.halo_ok, rows_local=dsp.rows_local)
         grown = profiling.since(before)
-        rec = {n: grown[n].total if n in grown else 0 for n in names}
-        rec.update(x=gather_padded(res.x, mesh)[: csr.rows].cpu().numpy(), iters=res.iters,
-                   eager="cg.eager" in grown)
+        rec = {n: grown[n].total if n in grown else 0
+               for n in ("dist.solvers.built", "dist.solvers.hit", "dist.halo_bytes")}
+        rec.update(x=x.cpu().numpy(), iters=res.iters, eager="cg.eager" in grown)
         return rec
 
-    kept = [solve(b) for b in bs]
-    fresh = []
-    for b in bs:
-        cg.clear_dist_solver_cache()
-        fresh.append(solve(b))
-    return {"kept": kept, "fresh": fresh, "halo_ok": dsp.halo_ok, "rows_local": dsp.rows_local}
+    for key in ("kept", "fresh"):
+        for b in bs:
+            if key == "fresh":
+                cg.clear_dist_solver_cache()
+            out[key].append(solve(b))
+    return out
 
 
 @contextlib.contextmanager
 def _counted_p2p():
     """``torch.distributed.batch_isend_irecv`` counted inside: yields a list
-    that each call appends its number of point-to-point ops to."""
+    that each call appends its (point-to-point ops, elements they move) to."""
     real, calls = dist.batch_isend_irecv, []
 
     def counted(ops):
-        calls.append(len(ops))
+        calls.append((len(ops), sum(op.tensor.numel() for op in ops)))
         return real(ops)
 
-    dist.batch_isend_irecv = counted
-    try:
+    with _patched((dist, "batch_isend_irecv", counted)):
         yield calls
-    finally:
-        dist.batch_isend_irecv = real
+
+
+def _whole_block_exchanger(mesh, *_):
+    """The tests' reference halo exchange, called as ``halo_exchanger``:
+    ``exchange(x_local) -> window`` sends this rank's whole block to each
+    neighbour and receives theirs whole, into a new 3-block window (zeros
+    where there is no neighbour)."""
+    from .dist_spmv import mesh_rank
+
+    group = mesh.get_group()
+    ranks = dist.get_process_group_ranks(group)
+    d = mesh_rank(mesh)
+    peers = (ranks[d - 1] if d > 0 else None, ranks[d + 1] if d < len(ranks) - 1 else None)
+
+    def exchange(x_local):
+        n = x_local.shape[0]
+        window = x_local.new_zeros(3 * n)
+        window[n: 2 * n] = x_local
+        ops = [dist.P2POp(op, buf, peer, group)
+               for peer, far in zip(peers, (window[:n], window[2 * n:])) if peer is not None
+               for op, buf in ((dist.isend, window[n: 2 * n]), (dist.irecv, far))]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return window
+
+    return exchange
+
+
+def _whole_blocks():
+    """Every halo matvec built inside exchanges whole neighbour blocks
+    (``_whole_block_exchanger``) in place of the spans its shard reads."""
+    from . import dist_swell
+
+    return _patched(*((mod, "halo_exchanger", _whole_block_exchanger)
+                      for mod in (sys.modules[__package__ + ".dist_spmv"], dist_swell)))
 
 
 def _spans_against_whole_blocks(csr, xs) -> dict:
-    """``dist_swell_spmv_fn`` (its halo exchange sends only the spans each
-    shard reads, into one kept window) on each of ``xs`` in turn, and the
-    same plan's product over a whole-block ``halo_exchanger``: y of both in
-    global rows, the point-to-point ops each call issued, the plan's spans,
-    and how many windows a span exchanger returned over the calls."""
-    from ..ops.swell import swell_ax
-    from .dist_spmv import halo_exchanger, make_mesh, mesh_device
+    """Both halo matvecs on each of ``xs`` in turn, built as the program
+    builds them (each shard receives only the spans it reads, into one kept
+    window) and under ``_whole_blocks``: ``dist_swell_spmv_fn`` (``span``,
+    ``whole``) and ``dist_spmv_halo_fn`` in the square partition's padded
+    coordinates, as ``dist_cg_solve`` runs it (``gather_span``,
+    ``gather_whole``).  Of each, per call: y in global rows (``y``), the
+    point-to-point ops issued (``ops``) and the elements they moved
+    (``elems``); with the swell plan's spans, and how many windows its span
+    exchanger returned over the calls."""
+    from .dist_spmv import (dist_spmv_halo_fn, halo_exchanger, make_mesh, mesh_device,
+                            shard_partitioned)
     from .dist_swell import build_dist_swell, dist_swell_spmv_fn, pad_global
+    from .partition import pad_vector, partition_rows, unpad_vector
 
     mesh = make_mesh(dist.get_world_size())
     dsp = build_dist_swell(csr, mesh.size(), halo=True, mesh=mesh)
-    d, L, dev = dist.get_rank(), dsp.rows_local, mesh_device(mesh)
-    run = dist_swell_spmv_fn(dsp, mesh)
-    layout, whole = dsp.device_layout(d, dev), halo_exchanger(mesh)
-    blocks = [pad_global(dsp, torch.as_tensor(x).to(dev))[d * L: (d + 1) * L].contiguous()
-              for x in xs]
-    out = {"spans": dsp.halo_spans, "y": [], "whole": [], "ops": [], "whole_ops": []}
-    for x_local in blocks:
-        for key, matvec in (("y", run), ("whole", lambda v: swell_ax(layout, whole(v)))):
+    part = shard_partitioned(partition_rows(csr, mesh.size(), balance=False), mesh)
+    d, L, lr, dev = dist.get_rank(), dsp.rows_local, part.local_rows, mesh_device(mesh)
+    xs = [torch.as_tensor(x) for x in xs]
+    swell = ([pad_global(dsp, x.to(dev))[d * L: (d + 1) * L].contiguous() for x in xs],
+             lambda y: gather_padded(y, mesh)[: csr.rows])
+    gather = ([pad_vector(part, x)[d * lr: (d + 1) * lr].to(dev) for x in xs],
+              lambda y: unpad_vector(part, gather_padded(y, mesh)))
+
+    def gather_matvec():
+        run, _ = dist_spmv_halo_fn(mesh, part, padded=True)
+        return functools.partial(run, part.values, part.col_idx_padded, part.row_ids)
+
+    runs = {}
+    for name, build, io in (("", lambda: dist_swell_spmv_fn(dsp, mesh), swell),
+                            ("gather_", gather_matvec, gather)):
+        runs[name + "span"] = build(), io
+        with _whole_blocks():
+            runs[name + "whole"] = build(), io
+    out = {"spans": dsp.halo_spans}
+    for name, (matvec, (x_locals, unpad)) in runs.items():
+        rec = out[name] = {"y": [], "ops": [], "elems": []}
+        for x_local in x_locals:
             with _counted_p2p() as calls:
                 y = matvec(x_local)
-            out[key].append(gather_padded(y, mesh)[: csr.rows].cpu().numpy())
-            out["ops" if key == "y" else "whole_ops"].append(sum(calls))
+            rec["y"].append(unpad(y).cpu().numpy())
+            rec["ops"].append(sum(n for n, _ in calls))
+            rec["elems"].append(sum(e for _, e in calls))
     exchange = halo_exchanger(mesh, dsp.halo_spans, L, dsp.dtype)
-    out["windows"] = len({exchange(x_local).data_ptr() for x_local in blocks})
+    out["windows"] = len({exchange(x).data_ptr() for x in swell[0]})
     return out
 
 
 def _span_solve_against_whole_blocks(csr, b, tol, max_iters) -> dict:
-    """``dist_swell_cg_solve`` (the span exchange) and a solver like the one
-    it builds, on the same plan, whose matvec exchanges whole blocks: x in
-    global rows and the iterations of each."""
-    from ..models.cg import dist_cg_blocks
-    from ..ops.swell import swell_ax
-    from .dist_spmv import halo_exchanger, make_mesh, mesh_device
-    from .dist_swell import dist_swell_cg_solve, pad_global
+    """``dist_swell_cg_solve`` (the span exchange), then a fresh one built
+    under ``_whole_blocks`` on the same matrix: x in global rows and the
+    iterations of each."""
+    from ..models import cg
+    from .dist_spmv import make_mesh
+    from .dist_swell import dist_swell_cg_solve
 
     mesh = make_mesh(dist.get_world_size())
-    dev = mesh_device(mesh)
-    b = torch.from_numpy(b)
-    res, dsp = dist_swell_cg_solve(csr, b, mesh, tol=tol, max_iters=max_iters)
-    d, L = dist.get_rank(), dsp.rows_local
-    layout = dsp.device_layout(d, dev)
-    exchange = halo_exchanger(mesh)
-    blocks = dist_cg_blocks(lambda v: swell_ax(layout, exchange(v)),
-                            torch.empty(0, dtype=b.dtype, device=dev), mesh)
-    b_local = pad_global(dsp, b)[d * L: (d + 1) * L].to(dev).contiguous()
-    whole = blocks.solve(b_local, torch.zeros_like(b_local), tol, max_iters)
-    xs = [gather_padded(r.x, mesh)[: csr.rows].cpu().numpy() for r in (res, whole)]
-    del blocks  # its graphs hold NCCL collectives: freed before the group goes
-    return {"x": xs[0], "iters": res.iters, "whole_x": xs[1], "whole_iters": whole.iters}
+    res = []
+    for whole in (False, True):
+        cg.clear_dist_solver_cache()
+        with _whole_blocks() if whole else contextlib.nullcontext():
+            res.append(dist_swell_cg_solve(csr, torch.from_numpy(b), mesh, tol=tol,
+                                           max_iters=max_iters)[0])
+    cg.clear_dist_solver_cache()  # the graphs hold NCCL collectives: freed before the group goes
+    xs = [gather_padded(r.x, mesh)[: csr.rows].cpu().numpy() for r in res]
+    return {"x": xs[0], "iters": res[0].iters, "whole_x": xs[1], "whole_iters": res[1].iters}
 
 
 def _masked_step_without_host_reads(csr, b) -> list:
@@ -332,12 +369,8 @@ def _masked_step_without_host_reads(csr, b) -> list:
                 carry, tol2 = _cg_start(matvec, M, b_local, torch.zeros_like(b_local), 1e-12,
                                         red)
                 max_iters = torch.tensor(10)
-                saved = torch.Tensor.item, torch.Tensor.__bool__
-                torch.Tensor.item = torch.Tensor.__bool__ = refuse
-                try:
+                with _patched((torch.Tensor, "item", refuse), (torch.Tensor, "__bool__", refuse)):
                     _masked_step(matvec, M, red, tol2, max_iters, carry)
-                finally:
-                    torch.Tensor.item, torch.Tensor.__bool__ = saved
         clean.append(name)
     return clean
 
@@ -365,9 +398,10 @@ def rank_cases(cases: list) -> list:
       x), ``env``: ``_spans_against_whole_blocks``;
     - ``swell_cg_spans``: ``csr``, ``b``, ``tol``, ``max_iters``,
       ``eager_iters``: ``_span_solve_against_whole_blocks``;
-    - ``swell_cg_kept``: ``csr``, ``bs`` (a list of b), ``tol``,
-      ``max_iters``, ``eager_iters``: ``_kept_swell_solves`` (the kept
-      solver, then fresh ones);
+    - ``cg_kept``: ``csr``, ``bs`` (a list of b), ``tol``, ``max_iters``,
+      ``eager_iters``, ``solver`` (``"dist_swell_cg_solve"`` or
+      ``"dist_cg_solve"``): ``_kept_solves`` (the kept solver, then fresh
+      ones);
     - ``shutdown`` (last: it leaves the group): the distributed solvers kept
       before and after ``multihost.shutdown_distributed``, and whether a
       group is still joined;
@@ -388,7 +422,7 @@ def rank_cases(cases: list) -> list:
     from .dist_swell import build_dist_swell, dist_swell_cg_solve, dist_swell_spmv_fn, pad_global
     from .multihost import dist_spmv_hier, hybrid_mesh, init_distributed
     from .partition import pad_vector, partition_rows, unpad_vector
-    from ..models.cg import dist_cg_solve
+    from ..models import cg
 
     world = dist.get_world_size()
     out = []
@@ -408,15 +442,15 @@ def rank_cases(cases: list) -> list:
         elif kind == "cg":
             mesh = make_mesh(world)
             part = partition_rows(csr, world, balance=False)
-            with _eager_iters(case.get("eager_iters")), \
+            with _patched((cg, "CG_EAGER_ITERS", case.get("eager_iters"))), \
                     _counted_all_reduces(case.get("count_reduces")) as counts:
-                res = dist_cg_solve(part, pad_vector(part, case["b"]), mesh, tol=case["tol"],
-                                    max_iters=case["max_iters"])
+                res = cg.dist_cg_solve(part, pad_vector(part, case["b"]), mesh, tol=case["tol"],
+                                       max_iters=case["max_iters"])
             x = unpad_vector(part, gather_padded(res.x, mesh)).cpu().numpy()
             out.append((x, res.iters) + (() if counts is None else (counts,)))
         elif kind == "swell":
             mesh = make_mesh(world)
-            with _env(case.get("env")):
+            with mock.patch.dict(os.environ, case.get("env") or {}):
                 dsp = build_dist_swell(csr, world, halo=case.get("halo"), mesh=mesh)
             run = dist_swell_spmv_fn(dsp, mesh, halo=case.get("halo"))
             d, L = dist.get_rank(), dsp.rows_local
@@ -425,32 +459,29 @@ def rank_cases(cases: list) -> list:
             out.append((y[: csr.rows].cpu().numpy(), dsp.halo_ok, dsp.tail_nnz))
         elif kind == "swell_cg":
             mesh = make_mesh(world)
-            with _eager_iters(case.get("eager_iters")), \
+            with _patched((cg, "CG_EAGER_ITERS", case.get("eager_iters"))), \
                     _counted_all_reduces(case.get("count_reduces")) as counts:
                 res, _ = dist_swell_cg_solve(csr, torch.from_numpy(case["b"]), mesh,
                                              tol=case["tol"], max_iters=case["max_iters"])
             x = gather_padded(res.x, mesh)[: csr.rows].cpu().numpy()
             out.append((x, res.iters) + (() if counts is None else (counts,)))
         elif kind == "swell_spans":
-            with _env(case.get("env")):
+            with mock.patch.dict(os.environ, case.get("env") or {}):
                 out.append(_spans_against_whole_blocks(csr, case["xs"]))
         elif kind == "swell_cg_spans":
-            with _eager_iters(case.get("eager_iters")):
+            with _patched((cg, "CG_EAGER_ITERS", case.get("eager_iters"))):
                 out.append(_span_solve_against_whole_blocks(csr, case["b"], case["tol"],
                                                             case["max_iters"]))
-        elif kind == "swell_cg_kept":
-            with _eager_iters(case.get("eager_iters")):
-                out.append(_kept_swell_solves(csr, case["bs"], case["tol"], case["max_iters"]))
+        elif kind == "cg_kept":
+            with _patched((cg, "CG_EAGER_ITERS", case.get("eager_iters"))):
+                out.append(_kept_solves(csr, case["bs"], case["tol"], case["max_iters"],
+                                        case["solver"]))
         elif kind == "shutdown":
-            from ..models import cg
             from .multihost import shutdown_distributed
 
-            def kept():
-                return sum(key[0] == "dist" for key in cg._SOLVERS)
-
-            before = kept()
+            before = cg.dist_solvers_kept()
             shutdown_distributed()
-            out.append((before, kept(), dist.is_initialized()))
+            out.append((before, cg.dist_solvers_kept(), dist.is_initialized()))
         elif kind == "scaling_loop":
             out.append(_scaling_loop(csr, case["steps"]))
         elif kind == "masked_step":

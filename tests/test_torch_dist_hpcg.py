@@ -4,16 +4,22 @@ swell layout's 16 row blocks of 128 give K = 4 blocks and L = 512 rows a
 shard, so each shard's columns lie in its own and its neighbours' x blocks
 and the 1-hop halo exchange runs).
 
-``dist_swell_cg_solve`` keeps its solver across calls: three seeded b solved
-in turn on one mesh (the first builds, the others find it kept and run their
-blocks from the first iteration), then each again on a fresh solver.
-``CG_EAGER_ITERS`` is 4 inside the ranks, so that the masked blocks run.
-The kept solves are held against the benchmark's plain reference
-(``perfbench/reference.py::pcg`` with M = I on ``matrices/hpcg27.Operator``),
-against the fresh ones bit for bit, and the halo counter against the bytes
-each rank receives (one plane from each neighbour); ``shutdown_distributed`` leaves no kept solver."""
+Both distributed solvers, ``dist_swell_cg_solve`` and ``dist_cg_solve`` (its
+matvec the gather product over the square partition, the halo of spans
+here), keep their solvers across calls: three seeded b solved in turn on one
+mesh (the first builds, the others find it kept and run their blocks from the
+first iteration), then each again on a fresh solver.  ``CG_EAGER_ITERS`` is 4
+inside the ranks, so that the masked blocks run.  The kept solves are held
+against the benchmark's plain reference (``perfbench/reference.py::pcg`` with
+M = I on ``matrices/hpcg27.Operator``), against the fresh ones bit for bit,
+and the swell solver's halo counter against the bytes each rank receives (one
+plane from each neighbour); ``shutdown_distributed`` leaves no kept solver.
+The cache they share (``models.cg.kept_solver``) is checked with fake solvers
+in this process."""
 
+import importlib
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,12 +30,14 @@ from perfbench.matrices import hpcg27
 from spmv_acc_tpu_torch.models import cg
 from spmv_acc_tpu_torch.models.cg import CG_BLOCK
 from spmv_acc_tpu_torch.parallel.launch import rank_cases, spawn
+from spmv_acc_tpu_torch.utils import profiling
 
 GRID = {"nx": 8, "ny": 8, "nz": 32}
 D, L, M = 4, 512, 2048
 PLANE = GRID["nx"] * GRID["ny"]  # the entries of a neighbour's block a slab reads
 TOL, MAX_ITERS, EAGER = 1e-10, 500, 4
 SEEDS = [2 ** 33 + 17, 5, 2 ** 31 + 12345]
+SOLVERS = ["dist_swell_cg_solve", "dist_cg_solve"]
 # x_gap = max|x - x_ref| / max|x_ref| is the cell's own limit, 1e-10: the
 # program and the reference run the same algorithm and stop rule in float64,
 # and differ only in the order of each dot's sum (four ranks' partial sums
@@ -49,28 +57,30 @@ def _results():
     """Every rank's results of one spawn of four gloo ranks."""
     if not _RESULTS:
         csr = hpcg27.build(GRID)
-        cases = [dict(kind="swell_cg_kept", csr=csr, bs=[_b(s) for s in SEEDS], tol=TOL,
-                      max_iters=MAX_ITERS, eager_iters=EAGER),
-                 dict(kind="shutdown")]
+        cases = [dict(kind="cg_kept", csr=csr, bs=[_b(s) for s in SEEDS], tol=TOL,
+                      max_iters=MAX_ITERS, eager_iters=EAGER, solver=solver)
+                 for solver in SOLVERS] + [dict(kind="shutdown")]
         _RESULTS["ranks"] = spawn(rank_cases, D, "cpu", cases)
     return _RESULTS["ranks"]
 
 
-def _kept():
-    return [r[0] for r in _results()]
+def _kept(solver="dist_swell_cg_solve"):
+    return [r[SOLVERS.index(solver)] for r in _results()]
 
 
-def test_each_rank_holds_one_slab_and_the_halo_runs():
-    for res in _kept():
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_each_rank_holds_one_slab_and_the_halo_runs(solver):
+    for res in _kept(solver):
         assert res["halo_ok"] and res["rows_local"] == L == GRID["nx"] * GRID["ny"] * 8
 
 
+@pytest.mark.parametrize("solver", SOLVERS)
 @pytest.mark.parametrize("i", range(len(SEEDS)))
-def test_kept_solve_matches_the_reference(i):
+def test_kept_solve_matches_the_reference(i, solver):
     op = hpcg27.Operator(GRID, None, "cpu")
     b = torch.from_numpy(_b(SEEDS[i]))
     x_ref, it_ref = reference.pcg(op, lambda r: r, b, TOL, MAX_ITERS)
-    for res in _kept():
+    for res in _kept(solver):
         got = res["kept"][i]
         # gloo's all-reduce sums the dots in another order than one torch.dot
         assert abs(got["iters"] - it_ref) <= 1 and 0 < got["iters"] < MAX_ITERS
@@ -79,13 +89,14 @@ def test_kept_solve_matches_the_reference(i):
         assert reference.relative_residual(op, torch.from_numpy(got["x"]), b) <= TOL
 
 
+@pytest.mark.parametrize("solver", SOLVERS)
 @pytest.mark.parametrize("i", range(len(SEEDS)))
-def test_kept_solver_equals_a_fresh_one_bit_for_bit(i):
+def test_kept_solver_equals_a_fresh_one_bit_for_bit(i, solver):
     """The first call builds and runs the plain start; the second and third
     find the solver kept and run blocks from the first iteration.  Masked
     iterations past convergence change nothing, so x and the iterations are
     a fresh solver's."""
-    for res in _kept():
+    for res in _kept(solver):
         kept, fresh = res["kept"][i], res["fresh"][i]
         assert kept["dist.solvers.built"] == (i == 0) and kept["dist.solvers.hit"] == (i > 0)
         assert kept["eager"] == (i == 0) and fresh["eager"]
@@ -115,27 +126,54 @@ def test_halo_bytes_are_the_neighbour_blocks_received(rank):
 
 def test_shutdown_drops_every_kept_solver():
     for r in _results():
-        kept, after, joined = r[1]
+        kept, after, joined = r[len(SOLVERS)]
         assert kept == 1 and after == 0 and not joined
 
 
-def test_kept_dist_solvers_share_the_bound_and_clear_alone():
+def test_kept_dist_solvers_share_the_bound_and_clear_alone(monkeypatch):
     """Distributed solvers are kept in ``cg_solve``'s cache under its one
     bound, least recently used out, each entry holding the objects its key's
-    ids were taken from; ``clear_dist_solver_cache`` drops the distributed
-    ones and leaves ``cg_solve``'s."""
-    cg.clear_solver_cache()
+    ids were taken from and the mesh's group; a solver is out of the cache
+    while it is lent (a second caller of its key builds its own) and kept
+    again after; ``clear_dist_solver_cache`` drops the distributed ones and
+    leaves ``cg_solve``'s.  The ranks' agreement is this process's own
+    answer here."""
+    monkeypatch.setattr(importlib.import_module("spmv_acc_tpu_torch.parallel.dist_spmv"),
+                        "all_agree", lambda hit, mesh: hit)
+    group = object()
+    mesh = SimpleNamespace(get_group=lambda: group)
     objs = [object() for _ in range(cg.CG_SOLVERS + 2)]
+
+    def solve(o, build=None, mesh=mesh):
+        with cg.kept_solver((o,), ("spec",), build or (lambda: f"solver {id(o)}"),
+                            mesh) as solver:
+            return solver
+
+    def counts(before):
+        grown = profiling.since(before)
+        return [int(grown[k].total) if k in grown else 0 for k in
+                ("dist.solvers.built", "dist.solvers.hit", "cg.solvers.built", "cg.solvers.hit")]
+
+    cg.clear_solver_cache()
     try:
+        before = profiling.spans()
         for o in objs[:-1]:
-            cg._keep_solver(("dist", id(o)), (o,), f"solver {id(o)}")
-        cg._keep_solver((id(objs[-1]),), (objs[-1],), "one card")
-        assert [held[0] for held, _ in cg._SOLVERS.values()] == objs[-cg.CG_SOLVERS:]
-        assert cg._take_solver(("dist", id(objs[-2]))) == f"solver {id(objs[-2])}"
-        assert cg._take_solver(("dist", id(objs[-2]))) is None  # taken out while it solves
-        assert cg._take_solver(("dist", id(objs[0]))) is None
+            solve(o)
+        solve(objs[-1], mesh=None)
+        assert counts(before) == [len(objs) - 1, 0, 1, 0]
+        assert [held for held, _ in cg._SOLVERS.values()] == (
+            [(o, group) for o in objs[-cg.CG_SOLVERS:-1]] + [(objs[-1],)])
+        assert cg.dist_solvers_kept() == cg.CG_SOLVERS - 1
+        before = profiling.spans()
+        with cg.kept_solver((objs[-2],), ("spec",), lambda: "unused", mesh) as lent:
+            assert lent == f"solver {id(objs[-2])}"
+            assert solve(objs[-2], lambda: "its own") == "its own"  # lent out: built anew
+        assert solve(objs[-2]) == f"solver {id(objs[-2])}"  # kept again after the block
+        assert solve(objs[0]) == f"solver {id(objs[0])}"  # dropped past the bound: built
+        assert counts(before) == [2, 2, 0, 0]
         cg.clear_dist_solver_cache()
-        assert list(cg._SOLVERS) == [(id(objs[-1]),)]
+        assert [held for held, _ in cg._SOLVERS.values()] == [(objs[-1],)]
+        assert cg.dist_solvers_kept() == 0
     finally:
         cg.clear_solver_cache()
     assert not cg._SOLVERS

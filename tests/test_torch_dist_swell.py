@@ -18,8 +18,11 @@ that its rows read (``DistSwellPlan.halo_spans``): the spans on the host
 against what each shard's columns reach, and in the gloo ranks the product and
 the CG solve over spans against the same plan over whole neighbour blocks,
 byte for byte (entries outside the spans are read only by zero-valued padding
-slots)."""
+slots).  ``dist_spmv_halo_fn``, the gather product that ``dist_cg_solve``
+runs, takes its spans from the same scan: its spans on the host, and in the
+ranks its product over spans against its product over whole blocks."""
 
+import importlib
 import os
 
 import jax.numpy as jnp
@@ -48,6 +51,9 @@ from spmv_acc_tpu_torch.ops import swell
 from spmv_acc_tpu_torch.parallel.dist_swell import (build_dist_swell, dist_swell_serial_fn,
                                                     dist_swell_spmv_fn, pad_global)
 from spmv_acc_tpu_torch.parallel.launch import rank_cases, spawn
+from spmv_acc_tpu_torch.parallel.partition import partition_rows
+
+_DIST_SPMV = importlib.import_module("spmv_acc_tpu_torch.parallel.dist_spmv")
 
 TAIL_ENV = {"SPMV_TPU_SPILL": "16", "SPMV_TPU_NO_PLAN_CACHE": "1"}
 
@@ -143,29 +149,38 @@ def _read_spans(arrays, D, L, r):
     return tuple(spans)
 
 
+@pytest.mark.parametrize("path", ["swell", "gather"])
 @pytest.mark.parametrize("name", sorted(SPANS))
-def test_halo_spans_are_what_each_shard_reads(name):
-    """Over 4 shards: a z-slab of the 27-point stencil reads one nx*ny plane
-    of each neighbour (a row at x = 0, y = 0 has no neighbour at x - 1 or
-    y - 1, so the lowest column is the first entry of the plane below); a
-    block-diagonal matrix reads none; an irregular band reads spans that
-    differ by side and by rank."""
+def test_halo_spans_are_what_each_shard_reads(name, path):
+    """Over 4 shards, in ``build_dist_swell``'s plan and in the square
+    partition that ``dist_spmv_halo_fn`` reads (``partition_rows``, its
+    padded coordinates the global ones here): a z-slab of the 27-point
+    stencil reads one nx*ny plane of each neighbour (a row at x = 0, y = 0
+    has no neighbour at x - 1 or y - 1, so the lowest column is the first
+    entry of the plane below); a block-diagonal matrix reads none; an
+    irregular band reads spans that differ by side and by rank."""
     arrays = SPANS[name]()
     csr = CSR.from_numpy(*arrays)
-    dsp = build_dist_swell(csr, 4)
-    assert dsp.halo_ok
-    assert dsp.halo_spans == _read_spans(arrays, 4, dsp.rows_local, dsp.r)
-    assert dsp.halo_spans[0][0] == dsp.halo_spans[-1][1] == 0
+    if path == "swell":
+        dsp = build_dist_swell(csr, 4)
+        assert dsp.halo_ok
+        rows_local, spans = dsp.rows_local, dsp.halo_spans
+        assert spans == _read_spans(arrays, 4, rows_local, dsp.r)
+        assert build_dist_swell(csr, 4, halo=False).halo_spans == ()
+    else:
+        part = partition_rows(csr, 4, balance=False)
+        rows_local, spans = part.local_rows, _DIST_SPMV._part_spans(part, None, True)
+        assert 4 * rows_local == csr.rows and spans == _read_spans(arrays, 4, rows_local, 1)
+    assert spans[0][0] == spans[-1][1] == 0
     if name.startswith("hpcg"):
         plane = {"hpcg": 8 * 8, "hpcg_16x8": 16 * 8}[name]
-        assert dsp.rows_local == {"hpcg": 512, "hpcg_16x8": 256}[name]
-        assert dsp.halo_spans == ((0, plane), (plane, plane), (plane, plane), (plane, 0))
+        assert rows_local == {"hpcg": 512, "hpcg_16x8": 256}[name]
+        assert spans == ((0, plane), (plane, plane), (plane, plane), (plane, 0))
     elif name == "block_diagonal":
-        assert dsp.halo_spans == ((0, 0),) * 4
+        assert spans == ((0, 0),) * 4
     else:
-        inner = [s for pair in dsp.halo_spans for s in pair][1:-1]
+        inner = [s for pair in spans for s in pair][1:-1]
         assert len(set(inner)) == len(inner) and min(inner) > 0
-    assert build_dist_swell(csr, 4, halo=False).halo_spans == ()
 
 
 LOCAL = {
@@ -370,22 +385,34 @@ def test_span_exchange_equals_whole_blocks(D, name):
     one kept window; each rank issues one op for each nonzero span it sends
     or receives (none on the block-diagonal matrix), where the whole blocks
     take two a neighbour; the tailed plan's spans hold its COO tail's
-    columns."""
+    columns.  ``dist_spmv_halo_fn`` (the gather product in the square
+    partition's padded coordinates, as ``dist_cg_solve`` runs it) over its
+    spans equals its product over whole blocks byte for byte, and moves fewer
+    elements."""
     arrays, xs, _ = _span_inputs(name, D)
     golden = [host_spmv_plain(*arrays[:3], x) for x in xs]
     for d, res in enumerate(r[5 + SPAN_CASES.index(name)] for r in _all_ranks(D)):
         spans = res["spans"]
         sends = (spans[d - 1][1] if d > 0 else 0, spans[d + 1][0] if d < D - 1 else 0)
         ops = sum(n > 0 for n in sends + spans[d])
-        assert res["ops"] == [ops] * len(xs) and res["windows"] == 1
-        assert res["whole_ops"] == [2 * ((d > 0) + (d < D - 1))] * len(xs)
-        for y, whole, want in zip(res["y"], res["whole"], golden):
+        assert res["span"]["ops"] == [ops] * len(xs) and res["windows"] == 1
+        assert res["whole"]["ops"] == [2 * ((d > 0) + (d < D - 1))] * len(xs)
+        for y, whole, want in zip(res["span"]["y"], res["whole"]["y"], golden):
             assert y.tobytes() == whole.tobytes()
             assert verify_y(y, want, np.float64).failed_count == 0
+        gather, gather_whole = res["gather_span"], res["gather_whole"]
+        assert gather_whole["ops"] == res["whole"]["ops"]
+        for y, whole, want in zip(gather["y"], gather_whole["y"], golden):
+            assert y.tobytes() == whole.tobytes()
+            assert verify_y(y, want, np.float64).failed_count == 0
+        for got, full in zip(gather["elems"], gather_whole["elems"]):
+            assert got < full
         if name == "block_diagonal":
             assert ops == 0 and spans == ((0, 0),) * D
+            assert gather["ops"] == gather["elems"] == [0] * len(xs)
         else:
             assert all(pair != (0, 0) for pair in spans)
+            assert all(n > 0 for n in gather["ops"])
     if name == "tailed":
         assert res["spans"][0][1] > 4000  # the tail's outliers, a block to the right
 
