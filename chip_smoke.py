@@ -33,7 +33,13 @@ seconds and graph memory, the launches of every replay counted) and F-1
 (``csrc/feedback.cu``) against its plain version, beside its bound; the
 ``solver`` phase holds ``cg_solve``'s captured blocks against the eager loop
 (the recorded iterations 10 / 4 on Ga41As41H72-SPD and 1347 / 417 on aniso,
-Jacobi / ILU; x bit for bit; µs an iteration), captures a CG block over
+Jacobi / ILU; x bit for bit; µs an iteration), holds the sweep store
+(``swell_sweep``, one launch a sweep of the ILU apply) byte for byte against
+``swell_ax`` and PyTorch's subtract and multiply on both ILU factors' strict
+L and U (as ``ilu0`` built them and laid out again at r = 1 and 2, each
+unsplit and cut to one-slot-row chunks: the fix-up's store), within the row
+gate of its plain version, times it on aniso's U and counts its launches in
+the aniso ILU solve, captures a CG block over
 the exact ILU apply (two F-3 launches an apply; x bit for bit the eager
 loop's), holds F-2 (``csrc/cg_update.cu``, the
 CG update around the matvec: the fused single-device form and the three
@@ -249,9 +255,11 @@ def _dk(dtype) -> str:
     return "f64" if str(dtype).endswith("float64") else "f32"
 
 
-def launches_of(swell, dtype=None, r=None, k=None) -> int:
-    """Launches of the swell kernel's direct form, keyed (dtype, r, k)."""
-    return sum(n for key, n in swell.LAUNCHES.items() if len(key) == 3
+def launches_of(swell, dtype=None, r=None, k=None, tag=None) -> int:
+    """Launches of the swell kernel's direct form, keyed (dtype, r, k), or
+    with ``tag`` those keyed (dtype, r, k, tag), e.g. the sweep store's."""
+    return sum(n for key, n in swell.LAUNCHES.items()
+               if (len(key) == 3 if tag is None else len(key) == 4 and key[3] == tag)
                and (dtype is None or key[0] == dtype) and (r is None or key[1] == r)
                and (k is None or key[2] == k))
 
@@ -2330,6 +2338,74 @@ def smoke(plan_dir: str) -> int:
         rp_ = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=plan.m))])
         return port.CSR.from_numpy(rp_, cols[order], vals[order], (plan.m, plan.m), device=dev)
 
+    def sweep_store(name, fact, seed):
+        """The sweep store (``swell_sweep``: one launch a sweep of the ILU
+        apply) on ``fact``'s strict L (c - N v) and U ((c - N v) * d, d the
+        apply's 1 / diag(U)): the layouts ilu0 built and the strict parts laid
+        out again at r = 1 and 2, each on its own schedule and cut to chunks of
+        one slot row (every row block split: the fix-up's store).  Byte for
+        byte ``swell_ax`` and PyTorch's subtract and multiply, within the row
+        gate of ``swell_sweep_plain`` (its ``index_add_`` sums in another
+        order), one sweep launch a call and one fix-up where a row block is
+        split.  A layout with a COO tail must be refused (the apply keeps the
+        separate ops there).  Returns max|kernel - plain| over the cases."""
+        rng = np.random.default_rng(seed)
+        worst, done, refused = 0.0, 0, []
+        for part, plan, built, d in (("L", fact.l_plan, fact.swell.layout_l, None),
+                                     ("U", fact.u_plan, fact.swell.layout_u,
+                                      fact.swell.inv_diag)):
+            mat = strict_csr(plan)
+            x_np, c_np = rng.uniform(-1, 1, plan.m), rng.uniform(-1, 1, plan.m)
+            x, c = (torch.from_numpy(v).to(dev) for v in (x_np, c_np))
+            scale = ROW_TOL * (row_bound(mat, x_np)[:, 0] + np.abs(c_np))
+            if d is not None:
+                scale = scale * np.abs(d.cpu().numpy())
+            for label, lay0 in (("as ilu0 built", built), *(
+                    ("laid out again", swell.get_swell_plan(mat, r=r)) for r in (1, 2))):
+                for cut in (None, 1):
+                    lay = lay0 if cut is None else swell.rescheduled(lay0, cut)
+                    case = f"{name} {part} {label} r={lay.r} {'cut=1' if cut else 'own'}"
+                    if lay.tail_v.numel():
+                        try:
+                            swell.swell_sweep(lay, x, c, d)
+                        except ValueError:
+                            refused.append(case)
+                            continue
+                        fail(f"{case}: swell_sweep took a layout with a COO tail")
+                    if cut and not lay.schedule.nsplit:
+                        fail(f"{case}: cut to one slot row, yet no row block is split")
+                    key = ("f64", lay.r, 1)
+                    before = (swell.LAUNCHES[(*key, "sweep")],
+                              swell.LAUNCHES[(*key, "sweep_fixup")])
+                    got = swell.swell_sweep(lay, x, c, d)
+                    want = c - swell.swell_ax(lay, x)
+                    if d is not None:
+                        want = want * d
+                    plain = swell.swell_sweep_plain(lay, x, c, d)
+                    torch.cuda.synchronize()
+                    counted = (swell.LAUNCHES[(*key, "sweep")] - before[0],
+                               swell.LAUNCHES[(*key, "sweep_fixup")] - before[1])
+                    same = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+                    gap = np.abs(got.cpu().numpy() - plain.cpu().numpy())
+                    within = bool(np.isfinite(gap).all() and (gap <= scale).all())
+                    worst = max(worst, float(gap.max()))
+                    phase("solver", f"sweep store {case}: {lay.slots} slots, "
+                          f"{sched_text(lay.schedule)}; byte for byte swell_ax and the "
+                          f"ops: {same}; max|kernel - plain| {float(gap.max())!r} within "
+                          f"{ROW_TOL}*(|N||v| + |c|)" + ("*|d|" if d is not None else "")
+                          + f": {within}; launches (sweep, fix-up) {counted}")
+                    if not same or not within:
+                        fail(f"{case}: the sweep store differs from the product and the "
+                             f"ops or from its plain version")
+                    if counted != (1, int(bool(lay.schedule.nsplit))):
+                        fail(f"{case}: counted {counted} launches (sweep, fix-up)")
+                    done += 1
+        phase("solver", f"sweep store {name}: {done} tail-free cases passed; layouts with a "
+              f"COO tail refused: {refused}")
+        if not done:
+            fail(f"sweep store {name}: no tail-free layout to check")
+        return worst
+
     gx = torch.from_numpy(np.random.default_rng(6).uniform(-1, 1, gm)).to(dev)
     solver_err = 0.0
     for name, lay, mat in (("Ga41As41H72-SPD", glay, gcsr),
@@ -2341,6 +2417,7 @@ def smoke(plan_dir: str) -> int:
         torch.cuda.synchronize()
         solver_err = max(solver_err, compare(f"{name} r={lay.r} slots={lay.slots}", mat,
                                              gx.cpu().numpy(), a, p, "solver"))
+    sweep_err = sweep_store("Ga41As41H72-SPD", gfact, 7)
     t_p1, t_k1, t_k2, t_p2 = (cuda_time_us(lambda: swell.swell_ax_plain(glay, gx)),
                               cuda_time_us(lambda: swell.swell_ax(glay, gx)),
                               cuda_time_us(lambda: swell.swell_ax(glay, gx)),
@@ -2417,7 +2494,9 @@ def smoke(plan_dir: str) -> int:
         secs, mem = first_call(lambda: box.append(cg_solve(
             gcsr, dgb, tol=1e-8, max_iters=300, strategy="swell", precond=pre)))
         res = box[0]
-        launches = g_launches[label] = launches_of(swell, "f64")
+        launches = launches_of(swell, "f64")
+        # the record of the solver path: the matvec and the ILU apply's sweeps
+        g_launches[label] = launches + launches_of(swell, "f64", tag="sweep")
         solved(f"Ga41As41H72-SPD cg[{label}] ({secs!r} s, any capture included, graph memory "
                f"{mem} B; swell launches {dict(swell.LAUNCHES)})", res, x_true, gb_norm, 1e-8,
                300, gate=1e-6)
@@ -2451,6 +2530,9 @@ def smoke(plan_dir: str) -> int:
     torch.cuda.synchronize()
     compare(f"aniso {nx}^2 r={alay.r} slots={alay.slots}", acsr, axs.cpu().numpy(), a, p,
             "solver")
+    sweep_err = max(sweep_err, sweep_store(f"aniso {nx}^2", afact, 8))
+    a_tail_free = not (afact.swell.layout_l.tail_v.numel() or afact.swell.layout_u.tail_v.numel())
+    a_sweeps = 0
     aiters, aper = {}, {}
     f2_main = 0
     for label, pre in (("jacobi", ajac), ("ilu", afact)):
@@ -2465,6 +2547,15 @@ def smoke(plan_dir: str) -> int:
                f"{dict(swell.LAUNCHES)})", res, ax_true, ab_norm, 1e-8, 4000)
         if launches_of(swell, "f64") < res.iters:
             fail(f"aniso cg[{label}] launched the swell kernel fewer times than it iterated")
+        if label == "ilu":
+            # launched from the cleared count: the eager start's applies and,
+            # once each, the captured blocks' (a replay launches nothing new)
+            a_sweeps = launches_of(swell, "f64", tag="sweep")
+            phase("solver", f"aniso cg[ilu]: sweep store launches {a_sweeps}, fix-ups "
+                  f"{launches_of(swell, 'f64', tag='sweep_fixup')}; factor layouts tail-free: "
+                  f"{a_tail_free}")
+            if a_tail_free and (a_sweeps < 6 or a_sweeps % 6):
+                fail(f"aniso cg[ilu] launched the sweep store {a_sweeps} times, not 6 an apply")
         f2 = f2_launches(cg_update, f"aniso cg[{label}]", res.iters,
                          "general" if label == "ilu" else "step")
         phase("solver", f"aniso cg[{label}]: F-2 launches {f2} in {res.iters} iterations")
@@ -2472,6 +2563,27 @@ def smoke(plan_dir: str) -> int:
             f2_main = sum(f2.values())
         aiters[label] = res.iters
         aper[label] = captured_vs_eager(f"aniso {nx}^2", label, alay, pre, ab, 4000, res)
+
+    # the sweep store's record: aniso's U sweep ((c - N u) * d) as the ILU
+    # apply launches it, beside its plain version and its bound (the product's
+    # bytes, c and d read besides); its launches the ILU solve's
+    alu, ainv = afact.swell.layout_u, afact.swell.inv_diag
+    aucsr = strict_csr(afact.u_plan)
+    t_p1, t_k1, t_k2, t_p2 = (cuda_time_us(lambda: swell.swell_sweep_plain(alu, axs, ab, ainv)),
+                              cuda_time_us(lambda: swell.swell_sweep(alu, axs, ab, ainv)),
+                              cuda_time_us(lambda: swell.swell_sweep(alu, axs, ab, ainv)),
+                              cuda_time_us(lambda: swell.swell_sweep_plain(alu, axs, ab, ainv)))
+    t_ops = cuda_time_us(lambda: (ab - swell.swell_ax(alu, axs)) * ainv)
+    phase("solver", f"aniso {nx}^2 ILU U sweep store f64 r={alu.r}: kernel {t_k1!r} / {t_k2!r} "
+          f"us, plain {t_p1!r} / {t_p2!r} us, swell_ax and the two ops {t_ops!r} us per call "
+          f"(median of 3 after 10 warmups); card: {card}")
+    records["swell_sweep_f64"] = {"launches": a_sweeps, "max_abs_err": sweep_err,
+                                  "ms": (t_k1 + t_k2) / 2e3, "plain_ms": (t_p1 + t_p2) / 2e3}
+    finish("swell_sweep_f64", f"aniso {nx}^2 ILU U sweep store f64 r={alu.r}",
+           spmv_bytes(aucsr) + 2 * 8 * am_, 2 * aucsr.nnz + 2 * am_, FP64_TFLOPS, (None, None),
+           tensor_bytes(alu.vals, alu.lidx, alu.slab_off, alu.slab_log2d, alu.slab_col_base,
+                        alu.rb_slab_ptr, axs, ab, ainv, axs))
+    del alu, ainv, aucsr
 
     f2_phase(dev, card, records, ajac.inv, bound_of, loop_us, f2_main, flush_buf)
     # the bench's solver section as the bench runs it (its timed_cg on F-2)
@@ -2931,6 +3043,8 @@ def smoke(plan_dir: str) -> int:
                            ("swell_bsr_r4_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_spmm_k8_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_solver_f64", "spmv_acc_tpu/ops/swell.py:455"),
+                           # the ILU apply's sweep: swell_ax and XLA's subtract and scale
+                           ("swell_sweep_f64", "spmv_acc_tpu/ops/trisolve.py:309"),
                            ("swell_dist_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_rect_f64", "spmv_acc_tpu/ops/swell.py:455"),
                            ("swell_bsr_r3_f64", "spmv_acc_tpu/ops/swell.py:455"),

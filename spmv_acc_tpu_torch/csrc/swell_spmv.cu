@@ -54,6 +54,24 @@
 // used, and the result is the same from run to run.  Padded slots hold value 0
 // and their X rows are masked to [0, n), so they never read out of range.  All
 // index arithmetic is int64.
+//
+// The sweep store (entry swell_sweep; one column, any r, the default form):
+// a Jacobi sweep of the ILU(0) preconditioner (ops/trisolve.py,
+// sweep_apply_swell) is y = c - N v (the unit-lower factor) or
+// y = (c - N v) * d (the upper one, d = 1 / diag), where N v is this kernel's
+// product.  Stored as separate ops, each sweep was a swell launch, then a
+// subtract and often a multiply, each a full pass over the vectors.  The
+// sweep kernels walk exactly as swell_kernel and fixup_kernel do (walk_chunk,
+// fixup_rows, each with a store policy) and store c[row] - T(sum), times
+// d[row], where those store T(sum); c and d are loaded before the walk.  The
+// subtract and multiply are __dsub_rn / __dmul_rn (__fsub_rn / __fmul_rn):
+// each rounds once, as PyTorch's elementwise ops do, and the compiler may not
+// contract them into an FMA, which would round once for both; so a sweep's y
+// is, bit for bit, what the product and the two separate ops give.  The
+// sweep is its own kernel pair and C entry, not a template flag of
+// swell_kernel: the instantiations that swell_spmm and swell_spmv_planes
+// launch keep their template arguments and names, and their store policy
+// (RowsStore) compiles to the store they had.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -168,21 +186,69 @@ __device__ __forceinline__ void walk_slab(double (&acc)[R][G], const T* __restri
   }
 }
 
-template <typename T, int R, int G, bool P>
-__global__ void __launch_bounds__(kLanes)
-swell_kernel(const T* __restrict__ vals,
-             const uint8_t* __restrict__ lidx,
-             const int64_t* __restrict__ slab_off,
-             const int8_t* __restrict__ slab_log2d,
-             const int32_t* __restrict__ slab_col_base,
-             Sched sc,
-             const T* __restrict__ x,
-             const uint16_t* __restrict__ planes,
-             int64_t delta,
-             T* __restrict__ y,
-             double* __restrict__ part,
-             int64_t m, int64_t n, int64_t k) {
-  static_assert(!P || (R == 1 && G == 1), "the plane form runs r = k = 1");
+// The store of the plain product: y[row] = T(sum) (store_rows)
+template <typename T, int R, int G>
+struct RowsStore {
+  __device__ __forceinline__ void put(T* __restrict__ y, const double (&acc)[R][G], int64_t node,
+                                      int64_t m, int64_t ks, int64_t c0, int gn) const {
+    store_rows<T, R, G>(y, acc, node, m, ks, c0, gn);
+  }
+};
+
+// The sweep store (one column): y[row] = c[row] - T(sum), times d[row] where
+// d is given, each step rounded once as PyTorch's separate subtract and
+// multiply round it; no contraction into an FMA.  The kernels load c and d
+// (1 without d) at the thread's rows before the walk, so that their latency
+// hides behind it.
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+
+template <typename T, int R>
+struct SweepStore {
+  const T* cv;
+  const T* d;  // null: no scale
+  T cr[R], dr[R];
+
+  __device__ __forceinline__ void load(int64_t node, int64_t m) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int64_t row = node * R + i;
+      cr[i] = row < m ? cv[row] : T(0);
+      dr[i] = row < m && d != nullptr ? d[row] : T(1);
+    }
+  }
+  __device__ __forceinline__ void put(T* __restrict__ y, const double (&acc)[R][1], int64_t node,
+                                      int64_t m, int64_t, int64_t, int) const {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int64_t row = node * R + i;
+      if (row < m) {
+        const T v = sub_rn(cr[i], T(acc[i][0]));
+        y[row] = d != nullptr ? mul_rn(v, dr[i]) : v;
+      }
+    }
+  }
+};
+
+// One chunk's walk, blockIdx.x, over column group blockIdx.y: a row-block's
+// only chunk stores its rows through `store`, a chunk of a split row-block
+// its partials
+template <typename T, int R, int G, bool P, class Store>
+__device__ __forceinline__ void walk_chunk(Store& store,
+                                           const T* __restrict__ vals,
+                                           const uint8_t* __restrict__ lidx,
+                                           const int64_t* __restrict__ slab_off,
+                                           const int8_t* __restrict__ slab_log2d,
+                                           const int32_t* __restrict__ slab_col_base,
+                                           const Sched& sc,
+                                           const T* __restrict__ x,
+                                           const uint16_t* __restrict__ planes,
+                                           int64_t delta,
+                                           T* __restrict__ y,
+                                           double* __restrict__ part,
+                                           int64_t m, int64_t n, int64_t k) {
   // G == 1 only for k == 1 (the launcher enforces it), so the SpMV
   // instantiations index x and y with compile-time stride 1
   const int64_t ks = G == 1 ? 1 : k;
@@ -205,7 +271,7 @@ swell_kernel(const T* __restrict__ vals,
     for (int64_t s = sc.slab[c]; s < s1; ++s)
       walk_slab<T, R, G, P>(acc, vals, lidx, slab_off[s], slab_col_base[s], 0,
                             int64_t(1) << slab_log2d[s], lane, x, planes, delta, n, ks, c0, gn);
-    store_rows<T, R, G>(y, acc, sc.rb[c] * kLanes + lane, m, ks, c0, gn);
+    store.put(y, acc, sc.rb[c] * kLanes + lane, m, ks, c0, gn);
     return;
   }
   // one chunk of a split row-block: slot rows ptr[c] .. ptr[c+1] - 1 from
@@ -230,12 +296,33 @@ swell_kernel(const T* __restrict__ vals,
       if (j == 0 || j < gn) dst[(i * ks + c0 + j) * kLanes] = acc[i][j];
 }
 
-// The fix-up pass: blockIdx.x is a split row-block, blockIdx.y a column group;
-// each thread adds its node row's partials in chunk order, in FP64, and stores
-template <typename T, int R, int G>
+template <typename T, int R, int G, bool P>
 __global__ void __launch_bounds__(kLanes)
-fixup_kernel(const double* __restrict__ part, Sched sc, T* __restrict__ y, int64_t m,
-             int64_t k) {
+swell_kernel(const T* __restrict__ vals,
+             const uint8_t* __restrict__ lidx,
+             const int64_t* __restrict__ slab_off,
+             const int8_t* __restrict__ slab_log2d,
+             const int32_t* __restrict__ slab_col_base,
+             Sched sc,
+             const T* __restrict__ x,
+             const uint16_t* __restrict__ planes,
+             int64_t delta,
+             T* __restrict__ y,
+             double* __restrict__ part,
+             int64_t m, int64_t n, int64_t k) {
+  static_assert(!P || (R == 1 && G == 1), "the plane form runs r = k = 1");
+  RowsStore<T, R, G> store;
+  walk_chunk<T, R, G, P>(store, vals, lidx, slab_off, slab_log2d, slab_col_base, sc, x, planes,
+                         delta, y, part, m, n, k);
+}
+
+// The fix-up of split row-block blockIdx.x, column group blockIdx.y: each
+// thread adds its node row's partials in chunk order, in FP64, and stores
+// them through `store`
+template <typename T, int R, int G, class Store>
+__device__ __forceinline__ void fixup_rows(Store& store, const double* __restrict__ part,
+                                           const Sched& sc, T* __restrict__ y, int64_t m,
+                                           int64_t k) {
   const int64_t ks = G == 1 ? 1 : k;
   const int64_t b = blockIdx.x;
   const int lane = threadIdx.x;
@@ -258,7 +345,49 @@ fixup_kernel(const double* __restrict__ part, Sched sc, T* __restrict__ y, int64
       for (int j = 0; j < G; ++j)
         if (j == 0 || j < gn) acc[i][j] += src[(i * ks + c0 + j) * kLanes];
   }
-  store_rows<T, R, G>(y, acc, sc.split_rb[b] * kLanes + lane, m, ks, c0, gn);
+  store.put(y, acc, sc.split_rb[b] * kLanes + lane, m, ks, c0, gn);
+}
+
+// The fix-up pass of the plain product
+template <typename T, int R, int G>
+__global__ void __launch_bounds__(kLanes)
+fixup_kernel(const double* __restrict__ part, Sched sc, T* __restrict__ y, int64_t m,
+             int64_t k) {
+  RowsStore<T, R, G> store;
+  fixup_rows<T, R, G>(store, part, sc, y, m, k);
+}
+
+// swell_kernel's walk for one column (G = 1, the default form) with the sweep
+// store; c and d are loaded by a row-block's only chunk (a split row-block's
+// rows are stored by the fix-up)
+template <typename T, int R>
+__global__ void __launch_bounds__(kLanes)
+sweep_kernel(const T* __restrict__ vals,
+             const uint8_t* __restrict__ lidx,
+             const int64_t* __restrict__ slab_off,
+             const int8_t* __restrict__ slab_log2d,
+             const int32_t* __restrict__ slab_col_base,
+             Sched sc,
+             const T* __restrict__ x,
+             const T* __restrict__ cv,
+             const T* __restrict__ d,
+             T* __restrict__ y,
+             double* __restrict__ part,
+             int64_t m, int64_t n) {
+  SweepStore<T, R> store{cv, d};
+  if (sc.part[blockIdx.x] < 0) store.load(sc.rb[blockIdx.x] * kLanes + threadIdx.x, m);
+  walk_chunk<T, R, 1, false>(store, vals, lidx, slab_off, slab_log2d, slab_col_base, sc, x,
+                             nullptr, 0, y, part, m, n, 1);
+}
+
+// fixup_kernel with the sweep store
+template <typename T, int R>
+__global__ void __launch_bounds__(kLanes)
+sweep_fixup_kernel(const double* __restrict__ part, Sched sc, const T* __restrict__ cv,
+                   const T* __restrict__ d, T* __restrict__ y, int64_t m) {
+  SweepStore<T, R> store{cv, d};
+  store.load(sc.split_rb[blockIdx.x] * kLanes + threadIdx.x, m);
+  fixup_rows<T, R, 1>(store, part, sc, y, m, 1);
 }
 
 struct Args {
@@ -310,6 +439,37 @@ int dispatch(int r, int g, const Args& a) {
   }
 }
 
+// Both passes of the sweep on the stream: the chunks, then (when a row-block
+// is split) the fix-up, each with the sweep store.
+template <typename T, int R>
+int launch_sweep(const Args& a, const void* c, const void* d) {
+  const Sched sc = unpack(a.sched, a.nchunks, a.nsplit);
+  const T* cv = static_cast<const T*>(c);
+  const T* dv = static_cast<const T*>(d);
+  T* y = static_cast<T*>(a.y);
+  sweep_kernel<T, R><<<dim3(unsigned(a.nchunks)), dim3(kLanes), 0, a.stream>>>(
+      static_cast<const T*>(a.vals), static_cast<const uint8_t*>(a.lidx),
+      static_cast<const int64_t*>(a.slab_off), static_cast<const int8_t*>(a.slab_log2d),
+      static_cast<const int32_t*>(a.slab_col_base), sc, static_cast<const T*>(a.x), cv, dv, y,
+      static_cast<double*>(a.part), a.m, a.n);
+  const int rc = int(cudaGetLastError());
+  if (rc != 0 || a.nsplit == 0) return rc;
+  sweep_fixup_kernel<T, R><<<dim3(unsigned(a.nsplit)), dim3(kLanes), 0, a.stream>>>(
+      static_cast<const double*>(a.part), sc, cv, dv, y, a.m);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_sweep(int r, const Args& a, const void* c, const void* d) {
+  switch (r) {
+    case 1: return launch_sweep<T, 1>(a, c, d);
+    case 2: return launch_sweep<T, 2>(a, c, d);
+    case 3: return launch_sweep<T, 3>(a, c, d);
+    case 4: return launch_sweep<T, 4>(a, c, d);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 bool bad_grid(int64_t nchunks, int64_t nsplit, const void* part) {
   return nchunks <= 0 || nchunks > 0x7fffffff || nsplit < 0 || nsplit > 0x7fffffff ||
          (nsplit > 0 && part == nullptr);
@@ -352,4 +512,24 @@ extern "C" int swell_spmv_planes(int is_f64, const void* vals, const void* lidx,
   const Args a{vals, lidx, slab_off, slab_log2d, slab_col_base, sched, nullptr, planes,
                nchunks, nsplit, delta, y, part, m, n, 1, static_cast<cudaStream_t>(stream)};
   return is_f64 ? launch<double, 1, 1, true>(a) : launch<float, 1, 1, true>(a);
+}
+
+// Launches one Jacobi sweep's product on `stream` (one column, micro-block
+// size r = 1..4): y (m,) = c - A @ x, or (c - A @ x) * d where d is not null,
+// with c, d and y (m,) and x (n,) in the layout's dtype; the schedule and
+// partials as for swell_spmm.  Each row's FP64 sum is rounded to the dtype,
+// then subtracted from c and multiplied by d, each step rounded once: the
+// bits of swell_spmm followed by the two separate elementwise ops.  A layout
+// with a COO tail is not taken (its cells are added after the kernel).  Does
+// not synchronise.  Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue.
+extern "C" int swell_sweep(int is_f64, int r, const void* vals, const void* lidx,
+                           const void* slab_off, const void* slab_log2d,
+                           const void* slab_col_base, const void* sched, int64_t nchunks,
+                           int64_t nsplit, void* part, const void* x, const void* c,
+                           const void* d, void* y, int64_t m, int64_t n, void* stream) {
+  if (bad_grid(nchunks, nsplit, part) || c == nullptr) return int(cudaErrorInvalidValue);
+  const Args a{vals, lidx, slab_off, slab_log2d, slab_col_base, sched, x, nullptr,
+               nchunks, nsplit, 0, y, part, m, n, 1, static_cast<cudaStream_t>(stream)};
+  return is_f64 ? dispatch_sweep<double>(r, a, c, d) : dispatch_sweep<float>(r, a, c, d);
 }

@@ -42,6 +42,8 @@ SOURCES = {
                        _I64, _I64, _I64, _P],
         "swell_spmv_planes": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P,
                               _I64, _I64, _I64, _P],
+        "swell_sweep": [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
+                        _I64, _I64, _P],
     },
     TILE_SRC: {"tile_spmv": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _I64, _I64,
                              _P]},

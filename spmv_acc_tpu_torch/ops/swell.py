@@ -46,7 +46,8 @@ from .xla import axpby_finish
 
 __all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan", "plan_steps",
            "swell_plan_within_cap", "clear_swell_cache", "kernel_group",
-           "rescheduled", "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain", "prep_x",
+           "rescheduled", "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain",
+           "swell_sweep", "swell_sweep_plain", "prep_x",
            "prep_x_plain", "swell_ax_planes", "swell_ax_planes_plain", "spmv_swell",
            "make_swell_run", "make_swell_amx_run"]
 
@@ -57,10 +58,11 @@ __all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan",
 SWELL_MAX_SLOTS = 1 << 30
 
 # Kernel launches in this process: the swell kernel by (dtype, r, k), its plane
-# form by (dtype, 1, 1, "planes"), their fix-up pass (a launch whose schedule
-# splits a row-block) by (dtype, r, k, "fixup") and (dtype, 1, 1,
-# "planes_fixup"), the plane split by (dtype, "plane_split"); set to 0
-# (``.clear()``) to count a run.  Only the kernels' launch sites add to it.
+# form by (dtype, 1, 1, "planes"), its sweep store by (dtype, r, 1, "sweep"),
+# their fix-up pass (a launch whose schedule splits a row-block) by (dtype, r,
+# k, "fixup"), (dtype, 1, 1, "planes_fixup") and (dtype, r, 1, "sweep_fixup"),
+# the plane split by (dtype, "plane_split"); set to 0 (``.clear()``) to count
+# a run.  Only the kernels' launch sites add to it.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
@@ -355,18 +357,24 @@ def kernel_group(r: int, k: int) -> int:
 
 
 def _check(layout: DeviceSwellLayout, x, ndim: int) -> None:
-    name = "swell_ax" if ndim == 1 else "swell_amx"
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} takes a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != layout.dtype:
-        raise ValueError(f"{name}: x is {x.dtype}, the plan {layout.dtype}")
-    if x.dim() != ndim or x.shape[0] != layout.x_rows or (ndim == 2 and x.shape[1] < 1):
-        raise ValueError(f"{name}: x has shape {tuple(x.shape)}, the matrix has "
-                         f"{layout.x_rows} columns")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: x must be contiguous")
-    if x.device != layout.device:
-        raise ValueError(f"{name}: x is on {x.device}, the plan on {layout.device}")
+    _check_vector(layout, "swell_ax" if ndim == 1 else "swell_amx", "x", x, layout.x_rows, ndim)
+
+
+def _check_vector(layout: DeviceSwellLayout, name: str, what: str, v, rows: int,
+                  ndim: int = 1) -> None:
+    """``v`` (``rows``,) or (``rows``, k >= 1) as ``ndim`` says, a contiguous
+    tensor of the plan's dtype on its device; raises naming ``name``'s ``what``."""
+    if not isinstance(v, torch.Tensor):
+        raise TypeError(f"{name}: {what} must be a torch.Tensor, got {type(v).__name__}")
+    if v.dtype != layout.dtype:
+        raise ValueError(f"{name}: {what} is {v.dtype}, the plan {layout.dtype}")
+    if v.dim() != ndim or v.shape[0] != rows or (ndim == 2 and v.shape[1] < 1):
+        raise ValueError(f"{name}: {what} has shape {tuple(v.shape)}, the plan takes {rows} "
+                         f"rows")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+    if v.device != layout.device:
+        raise ValueError(f"{name}: {what} is on {v.device}, the plan on {layout.device}")
 
 
 def _layout_args(layout: DeviceSwellLayout, k: int, device) -> tuple:
@@ -489,6 +497,76 @@ def swell_ax(layout: DeviceSwellLayout, x: torch.Tensor) -> torch.Tensor:
     one column."""
     _check(layout, x, 1)
     return _amx(layout, x[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------- the sweep store
+#
+# One Jacobi sweep of the ILU(0) preconditioner (ops/trisolve.py): y = c - A x,
+# or (c - A x) * d, in one launch where the product, a subtract and a multiply
+# were three passes.
+
+
+def _check_sweep(layout: DeviceSwellLayout, x, c, d) -> None:
+    _check_vector(layout, "swell_sweep", "x", x, layout.x_rows)
+    _check_vector(layout, "swell_sweep", "c", c, layout.out_rows)
+    if d is not None:
+        _check_vector(layout, "swell_sweep", "d", d, layout.out_rows)
+    if layout.tail_v.numel():
+        raise ValueError("swell_sweep takes no layout with a COO tail: its cells are added "
+                         "after the kernel, before the subtraction")
+
+
+def _sweep_plain(layout: DeviceSwellLayout, x, c, d):
+    y = c - _amx_plain(layout, x[:, None])[:, 0]
+    return y if d is None else y * d
+
+
+def swell_sweep_plain(layout: DeviceSwellLayout, x: torch.Tensor, c: torch.Tensor,
+                      d: torch.Tensor | None = None) -> torch.Tensor:
+    """``(c - swell_ax_plain(layout, x)) * d``, or ``c - swell_ax_plain(layout,
+    x)`` without ``d``: the sweep store's plain version, as PyTorch ops.  The
+    CPU path of :func:`swell_sweep` and its kernel's reference."""
+    _check_sweep(layout, x, c, d)
+    return _sweep_plain(layout, x, c, d)
+
+
+def _launch_sweep(layout: DeviceSwellLayout, x, c, d) -> torch.Tensor:
+    from ._build import SWELL_SRC, load_lib
+
+    lib = load_lib(SWELL_SRC)
+    y = torch.empty_like(c)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args, _part = _layout_args(layout, 1, x.device)
+        rc = lib.swell_sweep(
+            int(layout.dtype == torch.float64), layout.r, *args, ptr(x.data_ptr()),
+            ptr(c.data_ptr()), None if d is None else ptr(d.data_ptr()), ptr(y.data_ptr()),
+            layout.out_rows, layout.x_rows, ptr(stream))
+    if rc != 0:
+        raise RuntimeError(f"swell sweep kernel launch failed: CUDA error {rc}")
+    key = (_DTYPES[layout.dtype], layout.r, 1)
+    LAUNCHES[(*key, "sweep")] += 1
+    if layout.schedule.nsplit:
+        LAUNCHES[(*key, "sweep_fixup")] += 1
+    return y
+
+
+def swell_sweep(layout: DeviceSwellLayout, x: torch.Tensor, c: torch.Tensor,
+                d: torch.Tensor | None = None) -> torch.Tensor:
+    """One sweep's ``(c - A x) * d``, or ``c - A x`` without ``d``, (m,) in the
+    plan's dtype, with ``c`` and ``d`` (m,) in that dtype: bit for bit
+    :func:`swell_ax` followed by the subtract and the multiply.  A CUDA ``x``
+    launches the swell kernel's sweep store (``csrc/swell_spmv.cu``, entry
+    ``swell_sweep``: one launch, and a fix-up where the schedule splits a
+    row-block), a CPU ``x`` runs :func:`swell_sweep_plain`.  A layout with a
+    COO tail raises: the tail has to be added before the subtraction."""
+    _check_sweep(layout, x, c, d)
+    if x.device.type == "cuda":
+        return _launch_sweep(layout, x, c, d)
+    if x.device.type == "cpu":
+        return _sweep_plain(layout, x, c, d)
+    raise NotImplementedError(f"swell_sweep has no kernel for device {x.device}")
 
 
 # ---------------------------------------------------------------- x as bf16 planes

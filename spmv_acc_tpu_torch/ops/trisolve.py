@@ -29,7 +29,9 @@ Counterpart of ``spmv_acc_tpu/ops/trisolve.py``, with the same results:
   gather and one ``index_add_`` a sweep, on the CPU.
 * **Swell backing** (:class:`SweepSwell`): on factors with at least
   ``ILU_SWELL_MIN`` off-diagonal nnz, each sweep's N @ y runs on the swell
-  kernel (``ops/swell.py``) over the strict L and U parts.
+  kernel (``ops/swell.py``) over the strict L and U parts, with the sweep's
+  subtract and diagonal scale in the kernel's store (``swell_sweep``, one
+  launch a sweep) where the factor's layout has no COO tail.
 
 Both kernels sum a row's products in plan order from 0 and round each
 multiply, add, subtract and divide as the plain version does (no contracted
@@ -397,25 +399,33 @@ class SweepSwell:
 def sweep_apply_swell(swell: SweepSwell, sweeps: int, r: torch.Tensor) -> torch.Tensor:
     """M^{-1} r by ``sweeps`` Jacobi sweeps per factor, N @ y on the swell
     kernel: the semantics of :func:`trisolve_sweeps` (unit-lower L from z = r,
-    then U from u = z / D)."""
-    from .swell import swell_ax
-
-    dtype = r.dtype
-    inv = swell.inv_diag.to(dtype)
-
-    def nl(v):
-        return swell_ax(swell.layout_l, v.to(swell.layout_l.dtype)).to(dtype)
-
-    def nu(v):
-        return swell_ax(swell.layout_u, v.to(swell.layout_u.dtype)).to(dtype)
-
+    then U from u = z / D).  Each sweep is one :func:`_sweep`; u = z / D
+    between the factors stays a separate multiply."""
+    inv = swell.inv_diag.to(r.dtype)
     z = r
     for _ in range(sweeps):
-        z = r - nl(z)
+        z = _sweep(swell.layout_l, z, r, None)
     u = z * inv
     for _ in range(sweeps):
-        u = (z - nu(u)) * inv
+        u = _sweep(swell.layout_u, u, z, inv)
     return u
+
+
+def _sweep(layout, v: torch.Tensor, c: torch.Tensor, d: Optional[torch.Tensor]) -> torch.Tensor:
+    """One sweep, ``(c - N v) * d`` (``c - N v`` without ``d``): the swell
+    kernel's sweep store (``swell_sweep``: one launch, the same bits) where the
+    factor's layout has no COO tail and holds c's dtype; else ``swell_ax`` and
+    the separate subtract and multiply.  Counted when the host runs it (in
+    a captured block, at capture) as ``ilu.sweeps.fused`` or
+    ``ilu.sweeps.unfused``."""
+    from .swell import swell_ax, swell_sweep
+
+    if layout.tail_v.numel() == 0 and layout.dtype == c.dtype:
+        profiling.count("ilu.sweeps.fused")
+        return swell_sweep(layout, v, c, d)
+    profiling.count("ilu.sweeps.unfused")
+    y = c - swell_ax(layout, v.to(layout.dtype)).to(c.dtype)
+    return y if d is None else y * d
 
 
 @dataclasses.dataclass(frozen=True)

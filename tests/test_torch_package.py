@@ -982,7 +982,9 @@ def test_cg_solve_spans_on_card(cuda_device):
 def test_cg_solve_keeps_its_graphs_on_card(cuda_device, monkeypatch, precond):
     """A second cg_solve on the same matrix and preconditioner replays the
     kept solver's graphs from the first iteration: no capture, no plain
-    iteration, and iterations and x bit for bit the eager loop's."""
+    iteration (the ILU sweeps the host runs are the start's one apply, six
+    through the sweep store), and iterations and x bit for bit the eager
+    loop's."""
     from spmv_acc_tpu_torch.models import cg
     from spmv_acc_tpu_torch.ops import swell
     from spmv_acc_tpu_torch.ops import trisolve as tri
@@ -1002,8 +1004,9 @@ def test_cg_solve_keeps_its_graphs_on_card(cuda_device, monkeypatch, precond):
     again = cg.cg_solve(csr, b, tol=1e-10, max_iters=2000, strategy="swell", precond=pre)
     torch.cuda.synchronize()
     t = profiling.since(before)
+    sweeps = {} if precond == "jacobi" else {"ilu.sweeps.fused": 6}
     assert {k: s.count for k, s in t.items()} == {"cg.solve": 1, "cg.blocks": 1,
-                                                  "cg.solvers.hit": 1}
+                                                  "cg.solvers.hit": 1, **sweeps}
     for got in (first, again):
         assert got.iters == want.iters and torch.equal(got.x, want.x)
 
@@ -1588,3 +1591,100 @@ def test_cg_solve_launches_f3_on_card(cuda_device, monkeypatch, precond):
         runs[eager_iters] = got
     assert runs[0].iters == runs[10 ** 9].iters and torch.equal(runs[0].x, runs[10 ** 9].x)
 
+
+
+def _same_bytes(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("max_rows", [None, 1])
+@pytest.mark.parametrize("n,r", [(32, 1), (32, 2), (31, 2)])
+def test_sweep_store_equals_product_and_ops_on_card(cuda_device, n, r, max_rows, dtype):
+    """The swell kernel's sweep store against swell_ax and PyTorch's subtract
+    and multiply, byte for byte, on the strict L (c - N x) and U ((c - N x) * d)
+    of the ILU(0) of an n^3 27-point matrix: on the plan's own schedule (no
+    split row-block) and on one cut to chunks of one slot row (partials, the
+    fix-up's sweep store), at r = 1 and 2 (31^3: an odd row count, the last
+    node row half masked), in both dtypes."""
+    from perfbench.matrices import hpcg27
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    rp, ci, v, shape = hpcg27.build({"nx": n, "ny": n, "nz": n})
+    rp, ci = rp.astype(np.int64), ci.astype(np.int64)
+    lu = tri.ilu0_host(rp, ci, v, shape).astype(np.float64 if dtype == torch.float64
+                                                  else np.float32)
+    rng = np.random.default_rng(n + r)
+    key = ("f64" if dtype == torch.float64 else "f32", r, 1)
+    for lower in (True, False):
+        layout = swell.get_swell_plan(tri._strict_part_csr(rp, ci, lu, shape, lower, cuda_device),
+                                      r=r)
+        assert layout.r == r and layout.tail_v.numel() == 0 and layout.schedule.nsplit == 0
+        if max_rows is not None:
+            layout = swell.rescheduled(layout, max_rows)
+            assert layout.schedule.nsplit > 0
+        x, c, d = (torch.from_numpy(rng.standard_normal(shape[0])).to(cuda_device, dtype)
+                   for _ in range(3))
+        d = None if lower else d
+        before = (swell.LAUNCHES[(*key, "sweep")], swell.LAUNCHES[(*key, "sweep_fixup")])
+        got = swell.swell_sweep(layout, x, c, d)
+        want = c - swell.swell_ax(layout, x)
+        if d is not None:
+            want = want * d
+        torch.cuda.synchronize()
+        assert _same_bytes(got, want), (lower, int((got != want).sum()))
+        split = int(max_rows is not None)
+        assert (swell.LAUNCHES[(*key, "sweep")], swell.LAUNCHES[(*key, "sweep_fixup")]) == (
+            before[0] + 1, before[1] + split)
+
+
+@pytest.mark.cuda
+def test_captured_ilu_cg_with_the_sweep_store_on_card(cuda_device, monkeypatch):
+    """cg_solve with ilu0(sweeps=3) on a 32^3 27-point matrix, every block
+    captured from the first iteration: the sweeps through the sweep store
+    (six an apply, counted ``ilu.sweeps.fused`` at capture) give the
+    iterations and x of the same solve whose preconditioner is swell_ax with
+    the separate subtract and multiply, bit for bit."""
+    from perfbench.matrices import hpcg27
+    from spmv_acc_tpu_torch import CSR
+    from spmv_acc_tpu_torch.models import cg
+    from spmv_acc_tpu_torch.ops import swell
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+    from spmv_acc_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(cg, "CG_EAGER_ITERS", 0)
+    rp, ci, v, shape = hpcg27.build({"nx": 32, "ny": 32, "nz": 32})
+    csr = CSR.from_numpy(rp, ci, v, shape, device=cuda_device)
+    fact = tri.ilu0(csr, sweeps=3)
+    sw = fact.swell
+    assert sw is not None and sw.layout_l.tail_v.numel() == sw.layout_u.tail_v.numel() == 0
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(shape[0])).to(cuda_device)
+
+    def former(r):
+        def n(layout, x):
+            return swell.swell_ax(layout, x)
+
+        z = r
+        for _ in range(3):
+            z = r - n(sw.layout_l, z)
+        u = z * sw.inv_diag
+        for _ in range(3):
+            u = (z - n(sw.layout_u, u)) * sw.inv_diag
+        return u
+
+    swell.LAUNCHES.clear()
+    before = profiling.spans()
+    got = cg.cg_solve(csr, b, tol=1e-10, max_iters=500, strategy="swell", precond=fact)
+    torch.cuda.synchronize()
+    counted = profiling.since(before)
+    sweeps = swell.LAUNCHES[("f64", 1, 1, "sweep")]
+    assert counted["ilu.sweeps.fused"].total >= 6 and "ilu.sweeps.unfused" not in counted
+    assert sweeps >= 6 * (got.iters + 1)
+    swell.LAUNCHES.clear()
+    want = cg.cg_solve(csr, b, tol=1e-10, max_iters=500, strategy="swell", precond=former)
+    torch.cuda.synchronize()
+    assert swell.LAUNCHES[("f64", 1, 1, "sweep")] == 0
+    assert 0 < got.iters == want.iters < 500 and _same_bytes(got.x, want.x)

@@ -23,7 +23,9 @@ from spmv_acc_tpu.ops import trisolve as ref_tri
 from spmv_acc_tpu_torch.dispatch import clear_caches
 from spmv_acc_tpu_torch.formats.containers import CSR
 from spmv_acc_tpu_torch.io import native
+from spmv_acc_tpu_torch.ops import swell as swell_ops
 from spmv_acc_tpu_torch.ops import trisolve as tri
+from spmv_acc_tpu_torch.utils import profiling
 from spmv_acc_tpu_torch.utils.verify import verify_y
 
 
@@ -216,3 +218,129 @@ def test_swell_backing_starts_at_the_threshold(monkeypatch):
     assert tri.ilu0(CSR.from_numpy(rp, ci, v, shape), sweeps=2).swell is not None
     monkeypatch.setattr(tri, "ILU_SWELL_MIN", n_off + 1)
     assert tri.ilu0(CSR.from_numpy(rp, ci, v, shape), sweeps=2).swell is None
+
+
+# ---------------------------------------------------------------- the sweep store
+#
+# ``sweep_apply_swell`` runs each sweep as ``swell_sweep`` (the swell kernel's
+# sweep store on the card, its plain version here) where the factor's layout
+# has no COO tail, else as swell_ax and two separate ops.  Both are held bit
+# for bit to the composition written out below, as the module ran it before
+# the sweep store.
+
+
+def _former_apply(swell, sweeps, r):
+    """M^{-1} r as swell_ax and the separate subtract and multiply."""
+    inv = swell.inv_diag.to(r.dtype)
+
+    def n(layout, v):
+        return swell_ops.swell_ax(layout, v.to(layout.dtype)).to(r.dtype)
+
+    z = r
+    for _ in range(sweeps):
+        z = r - n(swell.layout_l, z)
+    u = z * inv
+    for _ in range(sweeps):
+        u = (z - n(swell.layout_u, u)) * inv
+    return u
+
+
+def _sweep_counts(before):
+    got = profiling.since(before)
+    return tuple(int(got[k].total) if k in got else 0
+                 for k in ("ilu.sweeps.fused", "ilu.sweeps.unfused"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("r", [1, 2])
+def test_sweep_store_plain_is_c_minus_ax(r, scaled, dtype):
+    rp, ci, v, shape = MATRICES["spd300"]()
+    csr = CSR.from_numpy(rp, ci, torch.from_numpy(v).to(dtype).numpy(), shape)
+    layout = swell_ops.get_swell_plan(csr, r=r)
+    assert layout.r == r and layout.dtype == dtype and layout.tail_v.numel() == 0
+    rng = np.random.default_rng(40 + r)
+    x, c, d = (torch.from_numpy(rng.standard_normal(shape[0])).to(dtype) for _ in range(3))
+    want = c - swell_ops.swell_ax_plain(layout, x)
+    if scaled:
+        want = want * d
+    dd = d if scaled else None
+    launches = sum(swell_ops.LAUNCHES.values())
+    assert torch.equal(swell_ops.swell_sweep_plain(layout, x, c, dd), want)
+    assert torch.equal(swell_ops.swell_sweep(layout, x, c, dd), want)
+    assert sum(swell_ops.LAUNCHES.values()) == launches  # the CPU never launches
+
+
+@pytest.mark.parametrize("name", ["spd300", "aniso16"])
+def test_sweep_apply_swell_is_the_former_composition(name, monkeypatch):
+    ours, _ = _ilu_pair(name, 3, monkeypatch, swell_min=0)
+    assert ours.swell.layout_l.tail_v.numel() == ours.swell.layout_u.tail_v.numel() == 0
+    r = torch.from_numpy(np.random.default_rng(35).standard_normal(ours.l_plan.m))
+    before = profiling.spans()
+    got = tri.sweep_apply_swell(ours.swell, 3, r)
+    assert _sweep_counts(before) == (6, 0)
+    assert torch.equal(got, _former_apply(ours.swell, 3, r))
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+def test_tail_free_layouts_count_fused_sweeps(sweeps, monkeypatch):
+    monkeypatch.setattr(tri, "ILU_SWELL_MIN", 0)
+    rp, ci, v, shape = MATRICES["spd80"]()
+    fact = tri.ilu0(CSR.from_numpy(rp, ci, v, shape), sweeps=sweeps)
+    r = torch.from_numpy(np.random.default_rng(36).standard_normal(80))
+    before = profiling.spans()
+    for _ in range(3):
+        got = fact.solve(r)
+    assert _sweep_counts(before) == (3 * 2 * sweeps, 0)
+    assert torch.equal(got, _former_apply(fact.swell, sweeps, r))
+
+
+def _spilled_spd(m=40_000, far=60, seed=12):
+    """A diagonally dominant tridiagonal matrix with ``far`` symmetric pairs
+    half the matrix away: under SPMV_TPU_SPILL=16 both factors' layouts
+    spill those cells to a COO tail."""
+    rng = np.random.default_rng(seed)
+    ro = rng.integers(0, m, size=far)
+    co = (ro + m // 2) % m
+    off = np.arange(m - 1)
+    rows = np.concatenate([np.arange(m), off, off + 1, ro, co])
+    cols = np.concatenate([np.arange(m), off + 1, off, co, ro])
+    vals = np.concatenate([np.full(m, 4.0), np.full(2 * (m - 1), -1.0), np.full(2 * far, -0.5)])
+    return coo_to_csr_arrays(rows, cols, vals, (m, m)) + ((m, m),)
+
+
+def test_layout_with_a_tail_keeps_the_separate_ops(monkeypatch):
+    monkeypatch.setenv("SPMV_TPU_SPILL", "16")
+    monkeypatch.setattr(tri, "ILU_SWELL_MIN", 0)
+    rp, ci, v, shape = _spilled_spd()
+    fact = tri.ilu0(CSR.from_numpy(rp, ci, v, shape), sweeps=2)
+    assert fact.swell.layout_l.tail_v.numel() > 0 and fact.swell.layout_u.tail_v.numel() > 0
+    r = torch.from_numpy(np.random.default_rng(37).standard_normal(shape[0]))
+    before = profiling.spans()
+    got = fact.solve(r)
+    assert _sweep_counts(before) == (0, 4)
+    assert torch.equal(got, _former_apply(fact.swell, 2, r))
+    with pytest.raises(ValueError, match="COO tail"):
+        swell_ops.swell_sweep(fact.swell.layout_l, r, r)
+
+
+def test_vectors_of_another_dtype_keep_the_separate_ops(monkeypatch):
+    ours, _ = _ilu_pair("aniso16", 2, monkeypatch, swell_min=0)
+    r = torch.from_numpy(np.random.default_rng(38).standard_normal(ours.l_plan.m)).float()
+    before = profiling.spans()
+    got = tri.sweep_apply_swell(ours.swell, 2, r)
+    assert _sweep_counts(before) == (0, 4) and got.dtype == torch.float32
+    assert torch.equal(got, _former_apply(ours.swell, 2, r))
+
+
+def test_swell_sweep_checks_inputs():
+    rp, ci, v, shape = MATRICES["spd80"]()
+    layout = swell_ops.get_swell_plan(CSR.from_numpy(rp, ci, v, shape))
+    x = torch.zeros(80, dtype=torch.float64)
+    for c, d, err in ((x[:79], None, ValueError), (x.float(), None, ValueError),
+                      (x, torch.zeros(160, dtype=torch.float64)[::2], ValueError),
+                      (np.zeros(80), None, TypeError), (x, np.zeros(80), TypeError)):
+        with pytest.raises(err):
+            swell_ops.swell_sweep(layout, x, c, d)
+    with pytest.raises(ValueError):
+        swell_ops.swell_sweep(layout, x[:79], x)
