@@ -1486,6 +1486,56 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
     records["tri_sweeps_f64"]["launches"] = launched[("f64", "sweeps")]
 
 
+def mg_phase(dev, card, loop_us):
+    """HPCG's multigrid V-cycle (``models/mg.py``) at 72^3, 4 levels (72^3 to
+    9^3, the grids and injection maps of ``perfbench/matrices/hpcg27mg.py``):
+    one V-cycle on the card within 1e-12 relative (max|diff| / max|plain|)
+    of its plain version, the same hierarchy on the CPU (``trisolve_plain``
+    and ``swell_sweep_plain``).  The fine level's widest hyperplane holds
+    (72/2)^2 = 1,296 rows, past F-3's 1,024-row block, so its four solves
+    take the cooperative grid and the coarse levels' ten the one-block
+    form: 14 F-3 launches a V-cycle.  Then device µs a V-cycle."""
+    import numpy as np
+    import torch
+
+    import spmv_acc_tpu_torch as port
+    from perfbench.matrices import hpcg27mg
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+
+    cfgs = hpcg27mg.coarse_cfgs({"nx": 72, "ny": 72, "nz": 72, "mg_levels": 4})
+    host = [port.CSR.from_numpy(*hpcg27mg.build(c)) for c in cfgs]
+    f2c = [torch.from_numpy(hpcg27mg.f2c(c)) for c in cfgs[:-1]]
+    t0 = time.perf_counter()
+    mg = port.mg_preconditioner([a.to(dev) for a in host], f2c)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    r = torch.from_numpy(np.random.default_rng(23).uniform(-1, 1, host[0].rows)).to(dev)
+    tri.LAUNCHES.clear()
+    got = mg(r)
+    torch.cuda.synchronize()
+    launched = dict(tri.LAUNCHES)
+    t0 = time.perf_counter()
+    want = port.mg_preconditioner(host, f2c)(r.cpu())
+    t_plain = time.perf_counter() - t0
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    again = mg(r)
+    torch.cuda.synchronize()
+    us = loop_us(lambda: mg(r), n=10)
+    widest = [lv.plan_dl.widest_level for lv in mg.levels]
+    levels = [lv.plan_dl.num_levels for lv in mg.levels]
+    phase("solver", f"mg 72^3, 4 levels {[c['nx'] for c in cfgs]}: widest hyperplanes {widest}, "
+          f"levels a sweep {levels}; set-up {t_setup!r} s; one V-cycle on the card against the "
+          f"plain version on the CPU ({t_plain!r} s): max rel {rel!r}; two launches the same "
+          f"bits: {torch.equal(got, again)}; F-3 launches {launched}; {us!r} us a V-cycle "
+          f"(device, loop of 10); card: {card}")
+    if rel > 1e-12:
+        fail("the V-cycle on the card is not within 1e-12 of its plain version")
+    if not torch.equal(got, again):
+        fail("two launches of the V-cycle on the card gave different bits")
+    if launched != {("f64", "levels_grid"): 4, ("f64", "levels_block"): 10}:
+        fail("the V-cycle did not take F-3's grid on the fine level and one block below it")
+
+
 def main() -> int:
     import torch
 
@@ -2628,6 +2678,7 @@ def smoke(plan_dir: str) -> int:
         fail("the captured exact-ILU CG did not run F-3's tri_levels")
     del ablock
     trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab)
+    mg_phase(dev, card, loop_us)
 
     # the JAX package's on-chip form: every matvec splits p into bf16 planes and
     # reads them in the plane-form swell kernel

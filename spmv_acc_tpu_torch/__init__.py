@@ -16,8 +16,9 @@ hand-written CUDA kernels on an NVIDIA Hopper card and their plain PyTorch
 versions on the CPU: ``swell`` (float64 and float32, BSR r x r micro-blocks, k
 right-hand sides; ``csrc/swell_spmv.cu``), ``adaptive_plus``
 (``csrc/tile_spmv.cu``) and ``vector_row`` (``csrc/ell_rowsum.cu``).  The
-solver path: ILU(0) and triangular solves (``ilu0``, ``trisolve``), CG
-(``models.cg_solve``) and ``spmv-solve``.  The JAX package's bf16 x planes
+solver path: ILU(0) and triangular solves (``ilu0``, ``trisolve``), HPCG's
+multigrid preconditioner (``mg_preconditioner``: the symmetric Gauss-Seidel
+V-cycle), CG (``models.cg_solve``) and ``spmv-solve``.  The JAX package's bf16 x planes
 (``ops.swell.prep_x``, ``csrc/plane_split.cu``) and the swell kernel's plane
 form are there too, off the default path.  The multi-device layer
 (``parallel``: row partitions, the all-gather and 1-hop halo SpMV, the swell
@@ -66,6 +67,7 @@ from .formats import (
     sparse_operation,
 )
 from .io import load_csr, load_matrix, read_bin2, read_csr_text, read_mtx, write_bin2
+from .models.mg import mg_preconditioner
 from .ops.bsr import bsr_spmm, bsr_spmv
 from .ops.golden import host_spmm, host_spmv
 from .ops.spgemm import spgemm
@@ -112,6 +114,7 @@ __all__ = [
     "spmm",
     "ilu0",
     "trisolve",
+    "mg_preconditioner",
     "Plan",
     "analyze",
     "get_plan",

@@ -32,6 +32,9 @@ Counterpart of ``spmv_acc_tpu/ops/trisolve.py``, with the same results:
   kernel (``ops/swell.py``) over the strict L and U parts, with the sweep's
   subtract and diagonal scale in the kernel's store (``swell_sweep``, one
   launch a sweep) where the factor's layout has no COO tail.
+* **Gauss-Seidel** (:func:`gauss_seidel_split`): F-3 plans of D + L and
+  D + U of a matrix itself, and its strict parts, for the symmetric
+  Gauss-Seidel smoother of ``models/mg.py``.
 
 Both kernels sum a row's products in plan order from 0 and round each
 multiply, add, subtract and divide as the plain version does (no contracted
@@ -59,7 +62,7 @@ from ..utils import profiling
 
 __all__ = ["ilu0_host", "TriSolvePlan", "analyze_trisolve", "trisolve", "trisolve_plain",
            "trisolve_sweeps", "trisolve_sweeps_plain", "SweepSwell", "sweep_apply_swell",
-           "ILU0", "ilu0", "ILU_SWELL_MIN", "ILU_AUTO_SWEEPS", "LAUNCHES"]
+           "ILU0", "ilu0", "gauss_seidel_split", "ILU_SWELL_MIN", "ILU_AUTO_SWEEPS", "LAUNCHES"]
 
 # chunk sizes of the exact schedule (dependencies / rows per iteration)
 _W = 4096
@@ -417,7 +420,8 @@ def _sweep(layout, v: torch.Tensor, c: torch.Tensor, d: Optional[torch.Tensor]) 
     factor's layout has no COO tail and holds c's dtype; else ``swell_ax`` and
     the separate subtract and multiply.  Counted when the host runs it (in
     a captured block, at capture) as ``ilu.sweeps.fused`` or
-    ``ilu.sweeps.unfused``."""
+    ``ilu.sweeps.unfused``, ILU(0)'s sweeps and ``models/mg.py``'s products
+    alike."""
     from .swell import swell_ax, swell_sweep
 
     if layout.tail_v.numel() == 0 and layout.dtype == c.dtype:
@@ -460,6 +464,33 @@ def _strict_part_csr(rp, ci, lu, shape, lower: bool, device) -> CSR:
     counts = np.bincount(rows_of[mask], minlength=m)
     nrp = np.concatenate([[0], np.cumsum(counts)])
     return CSR.from_numpy(nrp, ci[mask], lu[mask], (m, shape[1]), device=device)
+
+
+def gauss_seidel_split(csr: CSR):
+    """Gauss-Seidel's parts of ``csr`` itself, on its device: ``(plan_dl,
+    plan_du, lower, upper)``, the F-3 plans of D + L and D + U (D the
+    diagonal, L and U the strict lower and upper parts) and L and U as CSRs.
+    A forward sweep in natural row order solves (D + L) x = r - U x, a
+    backward one (D + U) x = r - L x.  Rows must hold sorted columns and a
+    nonzero diagonal entry."""
+    rp, ci, v, shape = csr.to_numpy()
+    rp = np.asarray(rp).astype(np.int64)
+    ci = np.asarray(ci).astype(np.int64)
+    m = shape[0]
+    if shape[0] != shape[1]:
+        raise ValueError(f"Gauss-Seidel needs a square matrix, got {shape[0]}x{shape[1]}")
+    rows_of = np.repeat(np.arange(m, dtype=np.int64), np.diff(rp))
+    on_diag = ci == rows_of
+    has = np.zeros(m, dtype=bool)
+    has[rows_of[on_diag & (v != 0)]] = True
+    if not has.all():
+        raise ValueError(f"Gauss-Seidel needs a nonzero diagonal; row "
+                         f"{int(np.flatnonzero(~has)[0])} has none")
+    dev = csr.device
+    return (analyze_trisolve(rp, ci, v, shape, lower=True, unit_diag=False, device=dev),
+            analyze_trisolve(rp, ci, v, shape, lower=False, unit_diag=False, device=dev),
+            _strict_part_csr(rp, ci, v, shape, True, dev),
+            _strict_part_csr(rp, ci, v, shape, False, dev))
 
 
 def ilu0(csr: CSR, sweeps: Optional[int] = None) -> ILU0:

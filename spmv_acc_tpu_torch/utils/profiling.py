@@ -13,7 +13,9 @@ thread), and each counter's sum, in one table per process that ``spans``
 copies and ``reset`` clears.  The solver, the captured loops and the plans
 open spans where their work happens (``cg.solve``, ``cg.eager``,
 ``cg.blocks``, ``graphs.capture``, ``swell.plan`` and its steps, ``ilu0``,
-``dist.shard``), never one an iteration; ``cg_solve`` and
+``dist.shard``, ``mg.setup``, ``mg.apply``), never one an iteration of a
+kernel loop; the multigrid preconditioner counts its V-cycles and
+triangular solves as it launches them (``mg.vcycles``, ``mg.tri_solves``); ``cg_solve`` and
 ``dist_swell_cg_solve`` count the solvers they keep and build
 (``cg.solvers.hit``, ``cg.solvers.built``, ``dist.solvers.hit``,
 ``dist.solvers.built``), and the distributed solve the bytes its halo
