@@ -117,6 +117,12 @@ F32_ULP = 2.0**-23
 # (NVIDIA's data sheet, outside the tensor cores; the plane split's bit operations)
 FP64_TFLOPS = 34.0
 F32_TFLOPS = 67.0
+# F-3's tri_levels in the form the flag walk replaced, a barrier a level:
+# device µs a call on an H100 80GB HBM3 at 700 W, each system's range over its
+# factors, copied from PERF.md's F-3 row (that form is gone, so no run
+# measures it again)
+F3_BARRIER_US = {"aniso 512^2": (1650.65, 1783.53), "dw4096-SPD": (586.23, 593.16),
+                 "af23560-SPD": (3983.11, 4174.59)}
 # the chunk caps the sweep times (slot rows a thread block walks at most)
 SWELL_SWEEP = (8, 16, 32, 64, 128, 256)
 TILE_SWEEP = (32, 64, 128, 256, 512)
@@ -1279,7 +1285,11 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
     level of ``tri_levels`` on a 4096-level chain of one row each), and
     PyTorch's ``torch.triangular_solve`` on the sparse CSR factor (cuSPARSE),
     or its refusal; the exact ILU apply at aniso against its plain version.
-    The main paths, their counts set to 0 just before: ``cg_solve`` with the
+    HPCG's Gauss-Seidel plans (D + L and D + U of the 27-point operator at
+    104^3, 52^3, 26^3 and 13^3, the levels of ``hpcg104mg.cg_mg``'s
+    V-cycle): ``trisolve`` bit for bit against ``trisolve_plain`` on a CPU
+    copy in float64, two launches the same bits, device µs a solve and a
+    level.  The main paths, their counts set to 0 just before: ``cg_solve`` with the
     exact ILU on dw4096-SPD and af23560-SPD (the ``trisolve_f64`` record's
     launches: dw4096-SPD's) and, at aniso, ``ilu0(sweeps=3)`` with
     ``ILU_SWELL_MIN`` raised past its factors (the gather sweeps:
@@ -1302,7 +1312,7 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
         """The plan with its tensors on the CPU (its own cast cache)."""
         tensors = {f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
                    if isinstance(getattr(plan, f.name), torch.Tensor)}
-        return dataclasses.replace(plan, _cast={}, **tensors)
+        return dataclasses.replace(plan, _cast={}, _walk={}, **tensors)
 
     def spd_system(name):
         rp, ci, v, (m, _) = gen.example_like(name).to_numpy()
@@ -1332,6 +1342,10 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
                           torch.cumsum(torch.bincount(rows, minlength=plan.m), 0)])
         return torch.sparse_csr_tensor(crow, cols[order], vals[order], size=(plan.m, plan.m))
 
+    def walk_form(plan):
+        form, in_flight = tri._walk_shape(plan)
+        return f"{form}, {in_flight} rows in flight"
+
     def library(plan, b, y):
         """(ms a call, text) of torch.triangular_solve on the CSR factor."""
         try:
@@ -1348,7 +1362,7 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
         except (RuntimeError, NotImplementedError, TypeError) as e:
             return None, f"torch.triangular_solve on the sparse CSR factor refused: {e}"
 
-    # the level chain: one row a level, one dependency a row, the one-block form
+    # the level chain: one row a level, one dependency a row, in one block
     nch = 4096
     rp_c = np.r_[0, 1, np.arange(3, 2 * nch, 2)]
     ci_c = np.r_[0, np.stack([np.arange(nch - 1), np.arange(1, nch)], 1).ravel()]
@@ -1358,9 +1372,37 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
         fail("the level chain's plan is not a chain")
     cb = torch.ones(nch, dtype=torch.float64, device=dev)
     us_level = graph_us(lambda: tri.trisolve(chain, cb), calls=5) / nch
-    phase("trisolve", f"the level chain: {nch} levels of one row, tri_levels (one block) "
-          f"{us_level * nch!r} us a call in a replayed graph of 5, {us_level!r} us a level; "
-          f"card: {card}")
+    phase("trisolve", f"the level chain: {nch} levels of one row, tri_levels "
+          f"({walk_form(chain)}) {us_level * nch!r} us a call in a replayed graph of 5, "
+          f"{us_level!r} us a level; card: {card}")
+
+    # HPCG's Gauss-Seidel plans at the V-cycle's four grids
+    from perfbench.matrices import hpcg27mg
+
+    grng = np.random.default_rng(24)
+    for nx in (104, 52, 26, 13):
+        gcsr = port.CSR.from_numpy(*hpcg27mg.build({"nx": nx, "ny": nx, "nz": nx})).to(dev)
+        for fname, plan in zip(("D + L", "D + U"), tri.gauss_seidel_split(gcsr)[:2]):
+            bh = torch.from_numpy(grng.uniform(-1, 1, plan.m))
+            want = tri.trisolve_plain(cpu_copy(plan), bh)
+            bd = bh.to(dev)
+            tri.LAUNCHES.clear()
+            y1, y2 = tri.trisolve(plan, bd), tri.trisolve(plan, bd)
+            torch.cuda.synchronize()
+            launched = dict(tri.LAUNCHES)
+            same = torch.equal(y1.cpu(), want) and torch.equal(y1, y2)
+            us = graph_us(lambda: tri.trisolve(plan, bd), calls=5)
+            phase("trisolve", f"hpcg {nx}^3 {fname} ({plan.m} rows, {plan.num_deps} "
+                  f"dependencies, {plan.num_levels} levels, widest {plan.widest_level}: "
+                  f"{walk_form(plan)}) f64: tri_levels bit for bit trisolve_plain on a CPU "
+                  f"copy, two launches the same bits: {same}; launches {launched}; {us!r} us a "
+                  f"call in a replayed graph of 5, {us / plan.num_levels!r} us a level; "
+                  f"card: {card}")
+            if not same:
+                fail(f"hpcg {nx}^3 {fname}: tri_levels differs from trisolve_plain")
+            if sum(launched.values()) != 2:
+                fail(f"hpcg {nx}^3 {fname}: F-3 did not launch once a solve")
+        del gcsr
 
     systems = {"aniso 512^2": (acsr, ab, None)}
     for name in ("dw4096", "af23560"):
@@ -1375,7 +1417,7 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
         for fname, plan in (("L", fact.l_plan), ("U", fact.u_plan)):
             cplan = cpu_copy(plan)
             bh = torch.from_numpy(rng.uniform(-1, 1, plan.m))
-            form = "grid" if plan.widest_level > tri._BLOCK_MAX else "one block"
+            form = walk_form(plan)
             for dtype in (torch.float64, torch.float32):
                 bc = bh.to(dtype)
                 bd = bc.to(dev)
@@ -1404,6 +1446,10 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
     # device µs a call beside the plain versions, the bounds and the library
     for label in ("aniso 512^2", "dw4096-SPD", "af23560-SPD"):
         fact = facts[label]
+        lo, hi = F3_BARRIER_US[label]
+        phase("trisolve", f"{label}: the former tri_levels, a barrier a level, took {lo}-{hi} "
+              f"us a call on these factors (PERF.md's F-3 row, copied, not measured in this "
+              f"run)")
         for fname, plan in (("L", fact.l_plan), ("U", fact.u_plan)):
             b = torch.from_numpy(rng.uniform(-1, 1, plan.m)).to(dev)
             lv = lambda: tri.trisolve(plan, b)  # noqa: E731
@@ -1419,7 +1465,8 @@ def trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab):
             bl, bs = bound_of(nbytes, ops, FP64_TFLOPS), bound_of(nbytes, 3 * ops, FP64_TFLOPS)
             chain_us = plan.num_levels * us_level
             phase("trisolve", f"{label} {fname} f64, device us a call in a replayed graph: "
-                  f"tri_levels {t_lv[0]!r} / {t_lv[1]!r} (plain, host-launched loop of 2: "
+                  f"tri_levels {t_lv[0]!r} / {t_lv[1]!r}, {t_lv[0] / plan.num_levels!r} us a "
+                  f"level ({walk_form(plan)}) (plain, host-launched loop of 2: "
                   f"{p_lv!r}), tri_sweeps (3) {t_sw[0]!r} / {t_sw[1]!r} (plain {p_sw!r}); "
                   f"bound {bl['bound_ms'] * 1e3!r} us by {bl['bound_by']} ({nbytes} B at the "
                   f"HBM rate), the level chain {chain_us!r} us ({plan.num_levels} levels x "
@@ -1491,15 +1538,21 @@ def mg_phase(dev, card, loop_us):
     9^3, the grids and injection maps of ``perfbench/matrices/hpcg27mg.py``):
     one V-cycle on the card within 1e-12 relative (max|diff| / max|plain|)
     of its plain version, the same hierarchy on the CPU (``trisolve_plain``
-    and ``swell_sweep_plain``).  The fine level's widest hyperplane holds
-    (72/2)^2 = 1,296 rows, past F-3's 1,024-row block, so its four solves
-    take the cooperative grid and the coarse levels' ten the one-block
-    form: 14 F-3 launches a V-cycle.  Then device µs a V-cycle."""
+    and ``swell_sweep_plain``), and bit for bit the V-cycle whose every F-3
+    solve is ``trisolve_plain`` on a CPU copy of the plan (the bits F-3
+    gave with a barrier a level, and must still give); two launches the
+    same bits, and a captured graph of M(r) replayed three times the eager
+    bits each time (each replay's solves take the next epoch).  14 F-3
+    launches a V-cycle, each plan's in the form ``_walk_shape`` gives it.
+    Then device µs a V-cycle."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     import spmv_acc_tpu_torch as port
     from perfbench.matrices import hpcg27mg
+    from spmv_acc_tpu_torch.models import mg as mg_mod
     from spmv_acc_tpu_torch.ops import trisolve as tri
 
     cfgs = hpcg27mg.coarse_cfgs({"nx": 72, "ny": 72, "nz": 72, "mg_levels": 4})
@@ -1520,20 +1573,61 @@ def mg_phase(dev, card, loop_us):
     rel = float((got.cpu() - want).abs().max() / want.abs().max())
     again = mg(r)
     torch.cuda.synchronize()
+    copies = {}
+
+    def plain_solve(plan, c):
+        """F-3's solve as trisolve_plain on a CPU copy of the plan."""
+        cp = copies.get(id(plan))
+        if cp is None:
+            tensors = {f.name: getattr(plan, f.name).cpu() for f in dataclasses.fields(plan)
+                       if isinstance(getattr(plan, f.name), torch.Tensor)}
+            cp = copies[id(plan)] = dataclasses.replace(plan, _cast={}, _walk={}, **tensors)
+        return tri.trisolve_plain(cp, c.cpu()).to(c.device)
+
+    was = mg_mod.trisolve
+    mg_mod.trisolve = plain_solve
+    try:
+        plain_bits = mg(r)
+    finally:
+        mg_mod.trisolve = was
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mg(r)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        zg = mg(r)
+    replays = []
+    for _ in range(3):
+        zg.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(torch.equal(zg, got))
     us = loop_us(lambda: mg(r), n=10)
+    planned = {}
+    for lv in mg.levels:
+        for plan in (lv.plan_dl, lv.plan_du):
+            key = ("f64", "levels_" + tri._walk_shape(plan)[0])
+            planned[key] = planned.get(key, 0) + (2 if lv.f2c is not None else 1)
     widest = [lv.plan_dl.widest_level for lv in mg.levels]
     levels = [lv.plan_dl.num_levels for lv in mg.levels]
+    same_plain = torch.equal(got, plain_bits)
     phase("solver", f"mg 72^3, 4 levels {[c['nx'] for c in cfgs]}: widest hyperplanes {widest}, "
           f"levels a sweep {levels}; set-up {t_setup!r} s; one V-cycle on the card against the "
-          f"plain version on the CPU ({t_plain!r} s): max rel {rel!r}; two launches the same "
-          f"bits: {torch.equal(got, again)}; F-3 launches {launched}; {us!r} us a V-cycle "
+          f"plain version on the CPU ({t_plain!r} s): max rel {rel!r}; bit for bit the V-cycle "
+          f"with trisolve_plain for F-3: {same_plain}; two launches the same bits: "
+          f"{torch.equal(got, again)}; a captured M(r) replayed 3 times the same bits: "
+          f"{replays}; F-3 launches {launched} (planned {planned}); {us!r} us a V-cycle "
           f"(device, loop of 10); card: {card}")
     if rel > 1e-12:
         fail("the V-cycle on the card is not within 1e-12 of its plain version")
-    if not torch.equal(got, again):
-        fail("two launches of the V-cycle on the card gave different bits")
-    if launched != {("f64", "levels_grid"): 4, ("f64", "levels_block"): 10}:
-        fail("the V-cycle did not take F-3's grid on the fine level and one block below it")
+    if not same_plain:
+        fail("the V-cycle's F-3 solves differ from trisolve_plain's bits")
+    if not torch.equal(got, again) or not all(replays):
+        fail("two launches or the replays of the V-cycle on the card gave different bits")
+    if launched != planned or sum(launched.values()) != 14:
+        fail("the V-cycle did not launch F-3 once a solve in the forms its plans ask for")
 
 
 def main() -> int:
@@ -2674,7 +2768,9 @@ def smoke(plan_dir: str) -> int:
           f"(the warm-up's and the replay's, 2 an apply) {f3}; card: {card}")
     if box[0].iters != 8 or not same:
         fail("the captured exact-ILU CG did not run its 8 iterations bit for bit")
-    if set(f3) != {("f64", "levels_block")} or f3[("f64", "levels_block")] < 2 * 9:
+    forms = {("f64", "levels_" + tri._walk_shape(plan)[0])
+             for plan in (afact.l_plan, afact.u_plan)}
+    if set(f3) != forms or sum(f3.values()) < 2 * 9:
         fail("the captured exact-ILU CG did not run F-3's tri_levels")
     del ablock
     trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab)

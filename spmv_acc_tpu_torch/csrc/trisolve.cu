@@ -9,24 +9,52 @@
 // small PyTorch launches per schedule step (2 x 1023 steps an ILU apply at
 // 512^2 anisotropic diffusion).  Two entries (spmv_acc_tpu_torch/ops/trisolve.py):
 //
-// tri_levels, the exact solve over the level schedule: for each level L in
-// order, every row of L (rows[level_ptr[L] .. level_ptr[L + 1])) computes
+// tri_levels, the exact solve over the level schedule: every row computes
 //   y[row] = (b[row] - s) / diag[row],  s = sum of vals[k] * y[cols[k]]
 // over its dependencies k = dep_start[row] .. + dep_len[row], in plan order
-// from 0.  A row reads only rows of earlier levels, so the levels are the
-// only order; between two levels every row of the first must be stored and
-// visible.  Two forms, chosen by the host from the plan's widest level:
-//   one block (widest <= kBlockMax rows): one thread a row of the level,
-//     levels separated by __syncthreads(); y is read with plain loads (rows
-//     of the same launch wrote it, and the block's barrier orders them);
-//   a cooperative grid (wider): as many resident blocks as cover the widest
-//     level, rows walked grid-stride, levels separated by grid.sync(); y is
-//     read through L2 (__ldcg), since another SM wrote it and this SM's L1
-//     may hold a line of y from an earlier level.
-// The static part of a row (its index, dependency range, b, diag and the
-// first kPre columns and values) does not depend on y, so a thread loads the
-// next level's row before the barrier and after it only the y it sums waits
-// on the previous level's stores.
+// from 0.  A row waits only on its own dependencies, each through that row's
+// ready flag, and never on the rest of their level: no barrier between
+// levels.
+//   the walk: threads take the positions of `rows` (the rows by level, as
+//     the plan sorts them) grid-stride.  A thread first loads what does not
+//     depend on y (the row, its range, b, diag, and its columns and values,
+//     kChunk at a time), then polls all those columns' slots at once, again
+//     until each has come, and sums their values in plan order.  It stores
+//     y[row] and publishes the row's value in its slot.  No atomics.
+//   the slots: a row's slot holds its value's bits beside the epoch of the
+//     launch that wrote them, in 64-bit words (the epoch in the high half;
+//     float64 takes two words), each stored and loaded whole by one relaxed
+//     access.  The epoch is the row's ready flag: a word that carries this
+//     launch's epoch holds this launch's bits, so the value comes with the
+//     poll that finds it ready, and neither side needs a fence.
+//   the lanes of a warp poll in step (__any_sync over the warp): a lane
+//     whose inputs have all come finishes its row while the others poll
+//     again.  A lane spinning on its own would hold the warp from the lane
+//     it waits on for as long as the scheduler lets it.
+//   why it cannot deadlock: every dependency of the row at position p has a
+//     lower level, so it lies at a position < p.  The unfinished row at the
+//     lowest position has every input published; its warp holds no earlier
+//     unfinished row, so it is polling for that row and finishes it.  Every
+//     thread of the launch is resident (one block, or a cooperative launch).
+//   the epoch: the plan keeps the slots and one epoch word, zeroed once when
+//     its first solve needs them.  Every thread reads the epoch e at its
+//     start and publishes with e + 1; after one last barrier one thread
+//     writes e + 1.  So a solve needs no reset pass and no host read, and a
+//     captured graph's replays, which pass the same arguments, each take the
+//     next epoch.  Two launches on one plan must not overlap: both would
+//     publish with the same epoch (the host orders a plan's solves, see
+//     ops/trisolve.py).
+// Two scopes, chosen by the host from the rows in flight that the plan's
+// shape asks for (ops/trisolve.py _walk_shape, from the crossover measured on
+// an H100):
+//   one block of up to kThreads threads, at CTA scope: the plan's slots
+//     through the SM's L1; the last barrier __syncthreads();
+//   a cooperative grid of kThreads-thread blocks, at most the resident ones,
+//     at GPU scope: the plan's slots, through L2; the last barrier
+//     grid.sync().
+// Either is sized by the rows the host wants in flight: a thread takes its
+// next row when its warp has finished the last, and threads past that only
+// poll.
 //
 // tri_sweeps, `sweeps` Jacobi sweeps in one cooperative launch: y0 = b / diag,
 // then each sweep y_new[row] = (b[row] - s) / diag[row], s summed as above
@@ -42,13 +70,13 @@
 // in float32, as the plain version does after casting the values.
 //
 // What bounds it on an H100: neither bytes nor operations.  The exact solve
-// must read the factor once (a few MB: ~3 us at 3.35 TB/s for 512^2 aniso),
-// but its levels form a chain: each level waits for the previous one's
-// stores, so the time is at least levels x (one dependent load and store
-// through the memory system + a barrier).  The design keeps that chain to
-// the y load after each barrier; the sweeps pay one grid barrier a sweep.
-// A synchronisation-free design (per-row ready flags, no barrier) is left
-// for later.
+// must read the factor once (a few MB: ~3 us at 3.35 TB/s for 512^2 aniso;
+// ~283 MB, ~84 us, for HPCG's 104^3 D + L), but its levels form a chain: a
+// row's value waits for its latest dependency's, so the time is at least
+// levels x (the producer's slot store reaching L2 or L1, the poll that finds
+// it, and the row's arithmetic).  The walk keeps every load that does not
+// depend on y off that chain, and no barrier or fence on it.  The sweeps pay
+// one grid barrier a sweep.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -58,9 +86,9 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kBlockMax = 1024;  // the one-block form's threads: the widest level it takes
-constexpr int kThreads = 256;    // the cooperative kernels' block
-constexpr int kPre = 4;          // dependencies of a row loaded ahead with its row
+constexpr int kThreads = 256;    // a block of every kernel: the one-block walk's most threads
+constexpr int kPre = 4;          // dependencies of a row the sweeps load with its row
+constexpr int kChunk = 16;       // dependencies the walk loads, waits on and sums at once
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -83,10 +111,10 @@ struct Factor {
   const T* __restrict__ b;
 };
 
-// The static part of one row: what does not depend on y.
+// The static part of one row of a sweep: what does not depend on y.
 template <typename T>
 struct Row {
-  int64_t row, start, len;
+  int64_t start, len;
   T b, d;
   int64_t col[kPre];
   T val[kPre];
@@ -94,7 +122,6 @@ struct Row {
 
 template <typename T>
 __device__ __forceinline__ void load_row(Row<T>& r, int64_t row, const Factor<T>& f) {
-  r.row = row;
   r.start = f.dep_start[row];
   r.len = f.dep_len[row];
   r.b = f.b[row];
@@ -107,76 +134,185 @@ __device__ __forceinline__ void load_row(Row<T>& r, int64_t row, const Factor<T>
     }
 }
 
-// y of the current iterate: a plain load (the one-block form) or through L2.
-template <bool kL2, typename T>
-__device__ __forceinline__ T ld_y(const T* y, int64_t i) {
-  if (kL2) return __ldcg(y + i);
-  return y[i];
-}
-
-// (b - s) / diag for one row, s its products in plan order from 0, over yin.
-template <bool kL2, typename T>
+// (b - s) / diag for one row of a sweep, s its products in plan order from 0,
+// over the previous iterate yin, read through L2 (another SM wrote it, and
+// this SM's L1 may hold an older line).
+template <typename T>
 __device__ __forceinline__ T solve_row(const Row<T>& r, const Factor<T>& f, const T* yin) {
   T s = T(0);
 #pragma unroll
   for (int q = 0; q < kPre; ++q)
-    if (q < r.len) s = add_rn(s, mul_rn(r.val[q], ld_y<kL2>(yin, r.col[q])));
+    if (q < r.len) s = add_rn(s, mul_rn(r.val[q], __ldcg(yin + r.col[q])));
   // unrolled so that the loads of several products issue before their adds
   // (the adds keep plan order: only the loads move)
 #pragma unroll 8
   for (int64_t k = r.start + kPre; k < r.start + r.len; ++k)
-    s = add_rn(s, mul_rn(f.vals[k], ld_y<kL2>(yin, f.cols[k])));
+    s = add_rn(s, mul_rn(f.vals[k], __ldcg(yin + f.cols[k])));
   return div_rn(sub_rn(r.b, s), r.d);
 }
 
-// The level walk of tri_levels for thread t of `stride` (the block's or the
-// grid's); Sync is the barrier between two levels.
-template <bool kL2, typename T, typename Sync>
-__device__ __forceinline__ void walk_levels(int64_t t, int64_t stride, int64_t num_levels,
-                                            const int64_t* __restrict__ level_ptr,
-                                            const int64_t* __restrict__ rows, const Factor<T>& f,
-                                            T* y, Sync sync) {
-  int64_t beg = level_ptr[0], end = level_ptr[1];
-  Row<T> r;
-  bool have = beg + t < end;
-  if (have) load_row(r, rows[beg + t], f);
-  for (int64_t lvl = 0; lvl < num_levels; ++lvl) {
-    if (have) y[r.row] = solve_row<kL2>(r, f, y);
-    for (int64_t i = beg + t + stride; i < end; i += stride) {
-      Row<T> w;
-      load_row(w, rows[i], f);
-      y[w.row] = solve_row<kL2>(w, f, y);
+// The flag walk's loads and stores of the slots (below) at CTA scope: one
+// block, whose threads meet in the SM's L1.
+struct CtaScope {
+  __device__ static __forceinline__ void load(const uint64_t* p, uint64_t& w) {
+    asm volatile("ld.relaxed.cta.global.u64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  }
+  __device__ static __forceinline__ void load(const uint64_t* p, uint64_t& w0, uint64_t& w1) {
+    asm volatile("ld.relaxed.cta.global.v2.u64 {%0, %1}, [%2];"
+                 : "=l"(w0), "=l"(w1) : "l"(p) : "memory");
+  }
+  __device__ static __forceinline__ void store(uint64_t* p, uint64_t w) {
+    asm volatile("st.relaxed.cta.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+  }
+  __device__ static __forceinline__ void store(uint64_t* p, uint64_t w0, uint64_t w1) {
+    asm volatile("st.relaxed.cta.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(w0), "l"(w1)
+                 : "memory");
+  }
+  __device__ static __forceinline__ void sync() { __syncthreads(); }
+};
+
+// ... and at GPU scope: a cooperative grid, whose blocks meet in L2.
+struct GpuScope {
+  __device__ static __forceinline__ void load(const uint64_t* p, uint64_t& w) {
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  }
+  __device__ static __forceinline__ void load(const uint64_t* p, uint64_t& w0, uint64_t& w1) {
+    asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+                 : "=l"(w0), "=l"(w1) : "l"(p) : "memory");
+  }
+  __device__ static __forceinline__ void store(uint64_t* p, uint64_t w) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+  }
+  __device__ static __forceinline__ void store(uint64_t* p, uint64_t w0, uint64_t w1) {
+    asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(w0), "l"(w1)
+                 : "memory");
+  }
+  __device__ static __forceinline__ void sync() { cg::this_grid().sync(); }
+};
+
+// A row's slot: its value's bits beside the epoch that wrote them, in 64-bit
+// words that one relaxed load reads whole, the epoch in the high 32 bits:
+// one word a float32 row (slots[row]), two a float64 row (slots[2 row], the
+// low and the high half).  A word that carries this launch's epoch holds
+// this launch's bits, so neither side needs a fence.
+__device__ __forceinline__ uint64_t tagged(unsigned bits, unsigned epoch) {
+  return uint64_t(epoch) << 32 | bits;
+}
+__device__ __forceinline__ unsigned tag_of(uint64_t w) { return unsigned(w >> 32); }
+
+template <typename Scope>
+__device__ __forceinline__ void publish(uint64_t* slots, int64_t row, float v, unsigned e) {
+  Scope::store(slots + row, tagged(__float_as_uint(v), e));
+}
+template <typename Scope>
+__device__ __forceinline__ void publish(uint64_t* slots, int64_t row, double v, unsigned e) {
+  const uint64_t bits = uint64_t(__double_as_longlong(v));
+  Scope::store(slots + 2 * row, tagged(unsigned(bits), e), tagged(unsigned(bits >> 32), e));
+}
+
+// The raw words of one slot as a poll reads them.
+template <typename T>
+struct Words;
+template <>
+struct Words<float> {
+  uint64_t w;
+  template <typename Scope>
+  __device__ __forceinline__ void load(const uint64_t* slots, int64_t row) {
+    Scope::load(slots + row, w);
+  }
+  __device__ __forceinline__ bool ready(unsigned e) const { return tag_of(w) == e; }
+  __device__ __forceinline__ float value() const { return __uint_as_float(unsigned(w)); }
+};
+template <>
+struct Words<double> {
+  uint64_t lo, hi;
+  template <typename Scope>
+  __device__ __forceinline__ void load(const uint64_t* slots, int64_t row) {
+    Scope::load(slots + 2 * row, lo, hi);
+  }
+  __device__ __forceinline__ bool ready(unsigned e) const {
+    return tag_of(lo) == e && tag_of(hi) == e;
+  }
+  __device__ __forceinline__ double value() const {
+    return __hiloint2double(int(unsigned(hi)), int(unsigned(lo)));
+  }
+};
+
+// The flag walk of tri_levels (header) for thread t of `stride` (a multiple
+// of 32): the rows at positions t, t + stride, ... of `rows`, each published
+// in its slot with epoch `want`.  The lanes of a warp poll in step: a lane
+// whose inputs have all come finishes its row while the others poll again,
+// so no lane spins on its own while a lane it waits on holds the warp.
+template <typename Scope, typename T>
+__device__ __forceinline__ void walk_flags(int64_t t, int64_t stride, int64_t m,
+                                           const int64_t* __restrict__ rows, const Factor<T>& f,
+                                           T* y, uint64_t* slots, unsigned want) {
+  const int64_t lane = threadIdx.x & 31;
+  for (int64_t p = t; p - lane < m; p += stride) {  // while the warp has a row
+    bool done = p >= m;
+    int64_t row = 0, k0 = 0, end = 0;
+    T b = T(0), d = T(1), s = T(0);
+    if (!done) {
+      row = rows[p];
+      k0 = f.dep_start[row];
+      end = k0 + f.dep_len[row];
+      b = f.b[row];
+      d = f.diag[row];
     }
-    if (lvl + 1 == num_levels) break;
-    beg = end;
-    end = level_ptr[lvl + 2];
-    have = beg + t < end;
-    if (have) load_row(r, rows[beg + t], f);  // ahead of the barrier: static
-    sync();
+    // the chunk at k0: its columns and values, the inputs still to come
+    int64_t col[kChunk];
+    T val[kChunk];
+    Words<T> in[kChunk];
+    int n = 0;
+    unsigned pending = 0;
+    bool loaded = false;
+    while (__any_sync(0xffffffffu, !done)) {
+      if (done) continue;
+      if (!loaded && k0 < end) {
+        n = end - k0 < kChunk ? int(end - k0) : kChunk;
+#pragma unroll
+        for (int q = 0; q < kChunk; ++q)
+          if (q < n) {
+            col[q] = f.cols[k0 + q];
+            val[q] = f.vals[k0 + q];
+          }
+        pending = (1u << n) - 1u;
+        loaded = true;
+      }
+      // every input still to come polled at once
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q)
+        if (pending >> q & 1u) in[q].template load<Scope>(slots, col[q]);
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q)
+        if ((pending >> q & 1u) && in[q].ready(want)) pending &= ~(1u << q);
+      if (pending) continue;
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q)
+        if (q < n) s = add_rn(s, mul_rn(val[q], in[q].value()));
+      k0 += kChunk;
+      n = 0;
+      loaded = false;
+      if (k0 < end) continue;
+      const T v = div_rn(sub_rn(b, s), d);
+      y[row] = v;
+      publish<Scope>(slots, row, v, want);
+      done = true;
+    }
   }
 }
 
-// The barriers between two levels.
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-struct GridSync {
-  __device__ __forceinline__ void operator()() const { cg::this_grid().sync(); }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kBlockMax)
-levels_block_kernel(int64_t num_levels, const int64_t* __restrict__ level_ptr,
-                    const int64_t* __restrict__ rows, Factor<T> f, T* y) {
-  walk_levels<false>(threadIdx.x, blockDim.x, num_levels, level_ptr, rows, f, y, BlockSync{});
-}
-
-template <typename T>
+// tri_levels' flag walk in either scope: one block (CtaScope) or a
+// cooperative grid (GpuScope).
+template <typename T, typename Scope>
 __global__ void __launch_bounds__(kThreads)
-levels_grid_kernel(int64_t num_levels, const int64_t* __restrict__ level_ptr,
-                   const int64_t* __restrict__ rows, Factor<T> f, T* y) {
-  walk_levels<true>(int64_t(blockIdx.x) * kThreads + threadIdx.x, int64_t(gridDim.x) * kThreads,
-                    num_levels, level_ptr, rows, f, y, GridSync{});
+levels_flags_kernel(int64_t m, const int64_t* __restrict__ rows, Factor<T> f, T* y,
+                    uint64_t* slots, unsigned* epoch) {
+  const unsigned want = *epoch + 1u;
+  walk_flags<Scope>(int64_t(blockIdx.x) * blockDim.x + threadIdx.x,
+                    int64_t(gridDim.x) * blockDim.x, m, rows, f, y, slots, want);
+  Scope::sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) *epoch = want;
 }
 
 template <typename T>
@@ -193,11 +329,11 @@ sweeps_kernel(int64_t m, int64_t sweeps, Factor<T> f, T* out, T* scratch) {
   for (int64_t s = 0; s < sweeps; ++s) {
     cg::this_grid().sync();
     T* nxt = cur == out ? scratch : out;
-    if (have) nxt[t] = solve_row<true>(r, f, cur);
+    if (have) nxt[t] = solve_row(r, f, cur);
     for (int64_t i = t + stride; i < m; i += stride) {
       Row<T> w;
       load_row(w, i, f);
-      nxt[i] = solve_row<true>(w, f, cur);
+      nxt[i] = solve_row(w, f, cur);
     }
     cur = nxt;
   }
@@ -255,19 +391,20 @@ Factor<T> factor_of(const void* dep_start, const void* dep_len, const void* cols
 }
 
 template <typename T>
-int launch_levels(int grid, int64_t widest, int64_t num_levels, const void* level_ptr,
-                  const void* rows, Factor<T> f, void* y, cudaStream_t st) {
-  const int64_t* lp = static_cast<const int64_t*>(level_ptr);
+int launch_levels(int form, int64_t in_flight, int64_t m, const void* rows, Factor<T> f, void* y,
+                  void* slots, void* epoch, cudaStream_t st) {
   const int64_t* rw = static_cast<const int64_t*>(rows);
   T* out = static_cast<T*>(y);
-  if (!grid) {
-    const int threads = int((widest + 31) / 32 * 32);
-    levels_block_kernel<T><<<1, threads, 0, st>>>(num_levels, lp, rw, f, out);
+  uint64_t* sl = static_cast<uint64_t*>(slots);
+  unsigned* ep = static_cast<unsigned*>(epoch);
+  if (form == 0) {
+    const int threads = int((in_flight + 31) / 32 * 32);
+    levels_flags_kernel<T, CtaScope><<<1, threads, 0, st>>>(m, rw, f, out, sl, ep);
     return int(cudaGetLastError());
   }
   static Residency cache[kMaxDevices];
-  return launch_coop(levels_grid_kernel<T>, cache, (widest + kThreads - 1) / kThreads, st,
-                     num_levels, lp, rw, f, out);
+  return launch_coop(levels_flags_kernel<T, GpuScope>, cache,
+                     (in_flight + kThreads - 1) / kThreads, st, m, rw, f, out, sl, ep);
 }
 
 template <typename T>
@@ -287,23 +424,24 @@ int launch_sweeps(int64_t m, int64_t sweeps, Factor<T> f, void* y, void* scratch
 // cudaErrorCooperativeLaunchTooLarge where the device cannot launch
 // cooperatively).
 
-// y = T^{-1} b exactly over the level schedule: num_levels levels,
-// level_ptr[num_levels + 1] into rows (the rows by level), `widest` the most
-// rows of a level.  form 0: one block (widest <= 1024), 1: a cooperative grid.
-extern "C" int tri_levels(int is_f64, int form, int64_t widest, int64_t num_levels,
-                          const void* level_ptr, const void* rows, const void* dep_start,
-                          const void* dep_len, const void* cols, const void* vals,
-                          const void* diag, const void* b, void* y, void* stream) {
-  if (num_levels <= 0 || widest <= 0 || (form != 0 && form != 1) ||
-      (form == 0 && widest > kBlockMax))
+// y = T^{-1} b exactly over m rows: `rows` the rows by level, `slots` (2 m
+// 64-bit words, 16-B aligned) and `epoch` (one 32-bit word) the plan's,
+// zeroed once and owned by this entry after.  form 0: one block of
+// `in_flight` threads (at most 256); 1: a cooperative grid of blocks enough
+// for `in_flight` threads, at most the resident ones.
+extern "C" int tri_levels(int is_f64, int form, int64_t in_flight, int64_t m, const void* rows,
+                          const void* dep_start, const void* dep_len, const void* cols,
+                          const void* vals, const void* diag, const void* b, void* y,
+                          void* slots, void* epoch, void* stream) {
+  if (m <= 0 || in_flight <= 0 || form < 0 || form > 1 || (form == 0 && in_flight > kThreads))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_levels<double>(form, widest, num_levels, level_ptr, rows,
+  return is_f64 ? launch_levels<double>(form, in_flight, m, rows,
                                         factor_of<double>(dep_start, dep_len, cols, vals, diag, b),
-                                        y, st)
-                : launch_levels<float>(form, widest, num_levels, level_ptr, rows,
+                                        y, slots, epoch, st)
+                : launch_levels<float>(form, in_flight, m, rows,
                                        factor_of<float>(dep_start, dep_len, cols, vals, diag, b),
-                                       y, st);
+                                       y, slots, epoch, st);
 }
 
 // `sweeps` Jacobi sweeps y <- (b - N y) / diag from y = b / diag over m rows,

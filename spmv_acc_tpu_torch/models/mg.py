@@ -14,13 +14,14 @@ SymGS is Gauss-Seidel in natural row order, a forward then a backward
 sweep, each x_i = (r_i - sum_{j != i} a_ij x_j) / a_ii with the newest x.
 As solves: (D + L) x = r - U x, then (D + U) x = r - L x (D the diagonal,
 L and U the strict lower and upper parts).  Each solve is exact and level
-scheduled: F-3 (``ops.trisolve.trisolve``; ``tri_levels`` on the card) on
-plans of D + L and D + U of the level's own operator
-(``ops.trisolve.gauss_seidel_split``), so the order is the natural order's,
-with no colouring.  Each ``r - N x`` is one launch of the swell kernel's
-sweep store (``ops.swell.swell_sweep`` without d) on N's swell layout, as is
-the restriction's residual on A's; a layout with a COO tail, or another
-dtype than r's, takes ``swell_ax`` and a separate subtract
+scheduled: F-3 (``ops.trisolve.trisolve``; on the card ``tri_levels``, in
+which each row waits only on its own dependencies' ready flags, with no
+barrier between levels) on plans of D + L and D + U of the level's own
+operator (``ops.trisolve.gauss_seidel_split``), so the order is the natural
+order's, with no colouring.  Each ``r - N x`` is one launch of the swell
+kernel's sweep store (``ops.swell.swell_sweep`` without d) on N's swell
+layout, as is the restriction's residual on A's; a layout with a COO tail,
+or another dtype than r's, takes ``swell_ax`` and a separate subtract
 (``ops.trisolve._sweep``), and CPU tensors run the plain versions.  The
 first forward sweep of a level starts from x = 0 and skips U x: r - U 0 is
 r, bit for bit.  Restriction is an ``index_select`` of the residual at f2c,

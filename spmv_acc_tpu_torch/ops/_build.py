@@ -59,7 +59,7 @@ SOURCES = {
         "cg_dot_p": [_I32, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     TRISOLVE_SRC: {
-        "tri_levels": [_I32, _I32, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "tri_levels": [_I32, _I32, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
         "tri_sweeps": [_I32, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }

@@ -14,10 +14,13 @@ Counterpart of ``spmv_acc_tpu/ops/trisolve.py``, with the same results:
   schedule (each iteration scatter-adds at most ``_W`` dependency products
   into partial sums, then finalises at most ``_R`` rows), with no Pallas
   kernel.  On the card the port runs it as F-3 (``csrc/trisolve.cu``, entry
-  ``tri_levels``): one launch per solve that walks the levels in order, each
-  row summing its dependencies in plan order, levels separated by
-  ``__syncthreads()`` in one block where the widest level fits one block
-  (``_BLOCK_MAX`` rows), else by ``grid.sync()`` in a cooperative launch.
+  ``tri_levels``): one launch per solve in which each row, in level order,
+  waits only on its own dependencies, each through that row's slot (its
+  value beside the epoch that wrote it: the plan's ready flags, made at its
+  first launch by :func:`_flags`), sums them in plan order and publishes
+  its own; no barrier between levels.  The launch holds the rows in flight
+  that the plan's shape asks for (:func:`_walk_shape`): one block, whose
+  rows meet in the SM's L1, or a cooperative grid, whose rows meet in L2.
   :func:`trisolve_plain` keeps the chunk schedule as a Python loop of PyTorch
   ops (its offsets and counts on the host, so it slices without the JAX
   package's static-shape padding: no ``_W`` / ``_R`` pad and no sink slot);
@@ -75,9 +78,14 @@ _EXACT_MAX_LEVELS = 4096
 ILU_SWELL_MIN = 100_000
 # Jacobi sweeps per solve when ilu0(sweeps=None) finds no exact schedule
 ILU_AUTO_SWEEPS = 6
-# the widest level (rows) the one-block form of tri_levels takes
-# (csrc/trisolve.cu kBlockMax); wider schedules take the cooperative grid
-_BLOCK_MAX = 1024
+# tri_levels' rows in flight: this many times the plan's widest level, so
+# that a row's loads that do not wait on y run levels ahead of the chain
+_AHEAD = 4
+# the most threads of tri_levels' one-block walk (csrc/trisolve.cu kThreads);
+# a plan that wants more rows in flight takes the cooperative grid
+_BLOCK_MAX = 256
+# tri_levels' forms by name (its C entry's codes)
+_FORMS = {"block": 0, "grid": 1}
 
 # F-3 launches in this process by (dtype, entry): ("f64" | "f32", "levels_block" |
 # "levels_grid" | "sweeps").  Only the launch sites add to it (and a captured
@@ -163,7 +171,11 @@ class TriSolvePlan:
     within one iteration the dependencies land before the rows read them, so
     the last dependency chunk of a level may share an iteration with its
     first row chunk.  ``rows_sorted``, ``level_ptr`` and the schedule are None
-    past ``_EXACT_MAX_LEVELS`` levels."""
+    past ``_EXACT_MAX_LEVELS`` levels.
+
+    F-3's ready flags live in ``_walk``, made by the plan's first
+    ``tri_levels`` launch (:func:`_flags`): a plan solved only on the CPU or
+    by sweeps carries none."""
 
     m: int
     lower: bool
@@ -185,6 +197,8 @@ class TriSolvePlan:
     row_cnt: Optional[np.ndarray]
     # dtype -> (dep_vals, diag) in that dtype, each cast made once
     _cast: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # tri_levels' ready flags (_flags) and the stream of its last launch (_order)
+    _walk: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_deps(self) -> int:
@@ -330,13 +344,18 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(entry: str, key: str, b: torch.Tensor, *args) -> None:
+def _launch(entry: str, key: str, b: torch.Tensor, *args, plan=None) -> None:
+    """One launch of ``entry`` on b's current stream, ordered after the
+    plan's last launch where ``plan`` is given (:func:`_order`)."""
     from ._build import TRISOLVE_SRC, load_lib
 
     lib = load_lib(TRISOLVE_SRC)
     with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        rc = getattr(lib, entry)(int(b.dtype == torch.float64), *args, ctypes.c_void_p(stream))
+        stream = torch.cuda.current_stream(b.device)
+        if plan is not None:
+            _order(plan, stream)
+        rc = getattr(lib, entry)(int(b.dtype == torch.float64), *args,
+                                 ctypes.c_void_p(stream.cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     LAUNCHES[(_DTYPES[b.dtype], key)] += 1
@@ -351,12 +370,53 @@ def _sweeps_kernel(plan: TriSolvePlan, b: torch.Tensor, sweeps: int) -> torch.Te
     return y
 
 
+def _walk_shape(plan: TriSolvePlan):
+    """``(form, in_flight)`` of ``tri_levels`` on ``plan``: ``_AHEAD`` times
+    the widest level's rows in flight, in one block ("block") where that
+    fits ``_BLOCK_MAX`` threads, else in a cooperative grid ("grid")."""
+    in_flight = _AHEAD * plan.widest_level
+    return ("grid" if in_flight > _BLOCK_MAX else "block"), in_flight
+
+
+def _flags(plan: TriSolvePlan):
+    """``(slots, epoch)``, ``tri_levels``' ready flags on ``plan``: two int64
+    words a row (a row's value beside the epoch that wrote it) and one int32
+    epoch, made zeroed on the plan's device at its first launch and kept on
+    it."""
+    got = plan._walk.get("flags")
+    if got is None:
+        dev = plan.diag.device
+        got = plan._walk["flags"] = (torch.zeros(2 * plan.m, dtype=torch.int64, device=dev),
+                                     torch.zeros(1, dtype=torch.int32, device=dev))
+    return got
+
+
+def _order(plan: TriSolvePlan, stream) -> None:
+    """Two launches on one plan must not overlap: both would publish with the
+    same epoch, and a row could take the other's value.  So a launch on
+    ``stream``, another stream than the plan's last, waits for that stream
+    first (``stream``'s device is the current one).  A capture orders
+    nothing: its graph's replays run where they are replayed, after whatever
+    ran before them there."""
+    last = plan._walk.get("stream")
+    if last != stream and not torch.cuda.is_current_stream_capturing():
+        if last is not None:
+            stream.wait_stream(last)
+        plan._walk["stream"] = stream
+
+
 def trisolve(plan: TriSolvePlan, b: torch.Tensor) -> torch.Tensor:
     """Solve T y = b exactly.  For a CUDA ``b``, one launch of F-3
-    (``csrc/trisolve.cu``): ``tri_levels`` over the level schedule (one block
-    where the widest level fits ``_BLOCK_MAX`` rows, else a cooperative
-    grid), or past ``_EXACT_MAX_LEVELS`` levels ``tri_sweeps`` with
-    ``num_levels`` sweeps.  For a CPU ``b``, :func:`trisolve_plain`."""
+    (``csrc/trisolve.cu``): ``tri_levels``, each row waiting only on its own
+    dependencies through the plan's ready flags, in one block or a
+    cooperative grid by :func:`_walk_shape`; or, past ``_EXACT_MAX_LEVELS``
+    levels, ``tri_sweeps`` with ``num_levels`` sweeps.  For a CPU ``b``,
+    :func:`trisolve_plain`.
+
+    The flags make a plan's exact solves one at a time: a solve on another
+    stream than the plan's last waits for that stream (:func:`_order`).  A
+    captured graph that solves on the plan must not be replayed while
+    another solve of the plan runs."""
     if _check("trisolve", plan, b) == "cpu":
         return trisolve_plain(plan, b)
     if plan.m == 0:
@@ -365,11 +425,12 @@ def trisolve(plan: TriSolvePlan, b: torch.Tensor) -> torch.Tensor:
         return _sweeps_kernel(plan, b, plan.num_levels)
     dep_vals, diag = plan.values(b.dtype)
     y = torch.empty_like(b)
-    grid = plan.widest_level > _BLOCK_MAX
-    _launch("tri_levels", "levels_grid" if grid else "levels_block", b, int(grid),
-            plan.widest_level, plan.num_levels, _ptr(plan.level_ptr), _ptr(plan.rows_sorted),
-            _ptr(plan.dep_start), _ptr(plan.dep_len), _ptr(plan.dep_cols), _ptr(dep_vals),
-            _ptr(diag), _ptr(b), _ptr(y))
+    form, in_flight = _walk_shape(plan)
+    slots, epoch = _flags(plan)
+    _launch("tri_levels", f"levels_{form}", b, _FORMS[form], in_flight, plan.m,
+            _ptr(plan.rows_sorted), _ptr(plan.dep_start), _ptr(plan.dep_len),
+            _ptr(plan.dep_cols), _ptr(dep_vals), _ptr(diag), _ptr(b), _ptr(y), _ptr(slots),
+            _ptr(epoch), plan=plan)
     return y
 
 

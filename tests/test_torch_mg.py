@@ -11,8 +11,8 @@ operators against HPCG's own loops (``GenerateCoarseProblem``,
 ``GenerateProblem``); M's symmetry; the counters; the argument checks.  On
 the card (``-m cuda``; the file imports nothing of JAX, so ``--noconftest``
 runs it there) the same V-cycle against its plain version on a CPU copy and
-against the reference, at 16^3 and at 72^3, whose fine level's widest
-hyperplane (1,296 rows) takes F-3's cooperative grid."""
+against the reference, at 16^3 and at 72^3, each level's F-3 plans in the
+form their shape gives them."""
 
 import itertools
 
@@ -178,8 +178,8 @@ def test_argument_checks():
 def test_vcycle_on_card(dims):
     """The V-cycle on the card (F-3's ``tri_levels`` and the sweep store)
     within 1e-12 of its plain version on a CPU copy of the hierarchy and of
-    the reference on the card; 14 F-3 launches a V-cycle, the fine level's
-    on the cooperative grid where its widest hyperplane passes 1,024 rows;
+    the reference on the card; 14 F-3 launches a V-cycle, each plan's in
+    the form ``_walk_shape`` gives it;
     at 16^3 the 50-iteration solve against the reference."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
@@ -195,9 +195,12 @@ def test_vcycle_on_card(dims):
     got = card(r)
     torch.cuda.synchronize()
     launched = dict(tri.LAUNCHES)
-    grid = card.levels[0].plan_dl.widest_level > tri._BLOCK_MAX
-    assert launched.get(("f64", "levels_grid"), 0) == (4 if grid else 0)
-    assert sum(launched.values()) == 14
+    planned = {}
+    for lv in card.levels:
+        for plan in (lv.plan_dl, lv.plan_du):
+            key = ("f64", "levels_" + tri._walk_shape(plan)[0])
+            planned[key] = planned.get(key, 0) + (2 if lv.f2c is not None else 1)
+    assert launched == planned and sum(launched.values()) == 14
     assert _gap(got, plain(r.cpu())) <= TOL
     assert _gap(got, ref(r)) <= TOL
     if dims == (16, 16, 16):

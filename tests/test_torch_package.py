@@ -1485,30 +1485,49 @@ def _f3_plan_pairs(name, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", ["aniso48", "dw4096-SPD", "wide"])
-@pytest.mark.parametrize("form", ["as planned", "grid"])
+@pytest.mark.parametrize("form", ["as planned", "grid", "block"])
 def test_f3_matches_plain_on_card(cuda_device, monkeypatch, dtype, name, form):
-    """tri_levels (one block where the widest level fits 1024 rows, else the
-    cooperative grid; "grid" forces the grid on every plan) and tri_sweeps
-    (0, 1, 3 sweeps) against the plain versions run on a CPU copy of the
-    plan: bit for bit, in both dtypes; a second launch gives the same bits;
-    one launch a call, counted by form."""
+    """tri_levels (the flag walk in one block or a cooperative grid, as
+    ``_walk_shape`` picks and sizes it from the plan; "grid" forces the grid
+    on every plan, "block" one block of 256) and tri_sweeps (0, 1, 3 sweeps)
+    against the plain versions run on a CPU copy of the plan: bit for bit,
+    in both dtypes; a second launch gives the same bits, and so does each of
+    three replays of a captured solve (each takes the next epoch) and a
+    solve on a side stream between two on the default one (each waits for
+    the plan's last); one launch a call, counted by form."""
     from spmv_acc_tpu_torch.ops import trisolve as tri
 
-    if form == "grid":
-        monkeypatch.setattr(tri, "_BLOCK_MAX", 0)
+    forced = {"grid": lambda plan: ("grid", tri._AHEAD * plan.widest_level),
+              "block": lambda plan: ("block", 256)}
+    if form in forced:
+        monkeypatch.setattr(tri, "_walk_shape", forced[form])
     dk = "f64" if dtype == torch.float64 else "f32"
     for plan, cplan in _f3_plan_pairs(name, cuda_device):
         if name == "dw4096-SPD":
             assert int(plan.dep_len.max()) >= 3
         b_host = torch.from_numpy(np.random.default_rng(plan.m).standard_normal(plan.m)).to(dtype)
         b = b_host.to(cuda_device)
-        key = "levels_grid" if plan.widest_level > tri._BLOCK_MAX else "levels_block"
+        key = "levels_" + tri._walk_shape(plan)[0]
         tri.LAUNCHES.clear()
         y1, y2 = tri.trisolve(plan, b), tri.trisolve(plan, b)
         torch.cuda.synchronize()
         assert dict(tri.LAUNCHES) == {(dk, key): 2}
         want = tri.trisolve_plain(cplan, b_host)
         assert y1.dtype == dtype and torch.equal(y1.cpu(), want) and torch.equal(y1, y2)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            yg = tri.trisolve(plan, b)
+        for _ in range(3):
+            yg.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(yg.cpu(), want)
+        side = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(side):
+            ys = tri.trisolve(plan, b)
+        y3 = tri.trisolve(plan, b)
+        torch.cuda.synchronize()
+        assert torch.equal(ys.cpu(), want) and torch.equal(y3.cpu(), want)
         for sweeps in (0, 1, 3):
             tri.LAUNCHES.clear()
             s1, s2 = tri.trisolve_sweeps(plan, b, sweeps), tri.trisolve_sweeps(plan, b, sweeps)
@@ -1568,7 +1587,8 @@ def test_cg_solve_launches_f3_on_card(cuda_device, monkeypatch, precond):
     csr, b = _cg_system(cuda_device)
     pre = tri.ilu0(csr, sweeps=0 if precond == "ilu exact" else 3)
     assert pre.swell is None
-    keys = ({("f64", "levels_block")} if precond == "ilu exact" else {("f64", "sweeps")})
+    keys = ({("f64", "levels_" + tri._walk_shape(plan)[0]) for plan in (pre.l_plan, pre.u_plan)}
+            if precond == "ilu exact" else {("f64", "sweeps")})
 
     def no_index_add(*a, **k):
         raise AssertionError("index_add_ on the ILU path")

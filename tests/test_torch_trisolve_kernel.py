@@ -13,6 +13,15 @@ row's ``dep_start`` / ``dep_len`` range of the level-sorted dependencies.  Here:
   plan order from 0, every operation rounded in the vector's dtype) gives
   the plain versions' bits, in float64 and float32: the arithmetic the
   kernels are held to bit for bit on the card;
+* ``tri_levels``' flag walk: every dependency of the row at position p of
+  ``rows_sorted`` lies at a position < p (so the walk cannot deadlock), on
+  Gauss-Seidel's D + L and D + U of HPCG's operator, on ILU(0) factors and
+  on a random triangle; a scalar emulation of the walk, threads taking the
+  positions grid-stride and ready rows finishing in a seeded random order,
+  from flags an earlier solve left, gives the plain version's bits; the
+  plan's ready flags (two int64 a row and one int32 epoch) are made zeroed
+  on its device only when a launch asks for them, and ``_walk_shape`` sizes
+  the walk from the plan;
 * CPU tensors run the plain version and never reach a launch, and the
   argument checks raise.
 
@@ -28,6 +37,7 @@ from spmv_acc_tpu.formats import banded_csr
 from spmv_acc_tpu.formats.convert import coo_to_csr_arrays, csr_to_dense
 from spmv_acc_tpu.formats.generate import aniso_laplacian_csr
 from spmv_acc_tpu.ops import trisolve as ref_tri
+from perfbench.matrices import hpcg27mg
 from spmv_acc_tpu_torch.dispatch import clear_caches
 from spmv_acc_tpu_torch.formats.containers import CSR
 from spmv_acc_tpu_torch.ops import trisolve as tri
@@ -320,3 +330,179 @@ def test_launch_counters_hold_f3():
     from spmv_acc_tpu_torch.utils.graphs import launch_counters
 
     assert any(c is tri.LAUNCHES for c in launch_counters())
+
+
+def _gs_plans(nx, lower):
+    """Gauss-Seidel's plan of D + L (``lower``) or D + U of HPCG's 27-point
+    operator on nx^3, as ``models/mg.py`` builds them."""
+    csr = CSR.from_numpy(*hpcg27mg.build({"nx": nx, "ny": nx, "nz": nx}))
+    dl, du, _, _ = tri.gauss_seidel_split(csr)
+    return dl if lower else du
+
+
+# the flag walk's plans by name and lower: D + L / D + U at 16^3 and 13^3, the
+# ILU(0) factors of aniso 24^2, and a random lower triangle (its upper part
+# has no dependencies)
+WALK_PLANS = {
+    "hpcg16": lambda lower: _gs_plans(16, lower),
+    "hpcg13": lambda lower: _gs_plans(13, lower),
+    "aniso24": lambda lower: _plans("aniso24", lower)[0],
+    "tri90": lambda lower: _plans("tri90", lower)[0],
+}
+WALK_CASES = [(name, lower) for name in sorted(WALK_PLANS) for lower in (True, False)
+              if (name, lower) != ("tri90", False)]
+
+
+@pytest.mark.parametrize("name,lower", WALK_CASES)
+def test_flag_walk_dependencies_lie_earlier(name, lower):
+    """Every dependency of the row at position p of rows_sorted lies at a
+    position < p: the unfinished row at the lowest position always has its
+    inputs, so tri_levels' walk cannot deadlock."""
+    plan = WALK_PLANS[name](lower)
+    pos = np.empty(plan.m, dtype=np.int64)
+    pos[plan.rows_sorted.numpy()] = np.arange(plan.m)
+    dep_rows, dep_cols = plan.dep_rows.numpy(), plan.dep_cols.numpy()
+    assert plan.num_deps > 0 and (pos[dep_cols] < pos[dep_rows]).all()
+    if name.startswith("hpcg"):
+        assert int(plan.dep_len.max()) == 13  # the 27-point stencil's half
+
+
+def _flag_walk(plan, b, threads, warp, seed, epoch):
+    """tri_levels' flag walk as scalar numpy in b's dtype: thread t takes
+    positions t, t + threads, ... of rows_sorted in turn, and its warp (the
+    ``warp`` threads beside it) takes its next round of rows only when all
+    its lanes have finished this one.  At every step one thread whose row
+    has all its inputs flagged epoch + 1, drawn from the seed, sums the row
+    in plan order and publishes it.  y starts as NaN, so a value read before
+    its flag shows; flags start at ``epoch``, as an earlier solve leaves
+    them.  Returns y and the flags."""
+    dt = b.dtype
+    vals = plan.dep_vals.numpy().astype(dt)
+    diag = plan.diag.numpy().astype(dt)
+    cols, start, length = (t.numpy() for t in (plan.dep_cols, plan.dep_start, plan.dep_len))
+    rows = plan.rows_sorted.numpy()
+    ready = np.full(plan.m, epoch, dtype=np.int64)
+    want = epoch + 1
+    y = np.full(plan.m, np.nan, dtype=dt)
+    done = [0] * threads  # rows each thread has finished
+
+    def pos(t):
+        return t + done[t] * threads
+
+    def inputs_in(t):
+        row = rows[pos(t)]
+        return (ready[cols[start[row]:start[row] + length[row]]] == want).all()
+
+    def can_run():
+        """The threads with a row, no lane of their warp at an earlier round,
+        and every input of the row flagged."""
+        can = []
+        for w0 in range(0, threads, warp):
+            lanes = [u for u in range(w0, w0 + warp) if pos(u) < plan.m]
+            if lanes:
+                now = min(done[u] for u in lanes)
+                can += [u for u in lanes if done[u] == now and inputs_in(u)]
+        return can
+
+    rng = np.random.default_rng(seed)
+    for _ in range(plan.m):
+        can = can_run()
+        assert can, "the walk deadlocked"
+        t = can[rng.integers(len(can))]
+        row = rows[pos(t)]
+        s = dt.type(0)
+        for k in range(start[row], start[row] + length[row]):
+            s = dt.type(s + dt.type(vals[k] * y[cols[k]]))
+        y[row] = dt.type(dt.type(b[row] - s) / diag[row])
+        ready[row] = want
+        done[t] += 1
+    assert all(pos(t) >= plan.m for t in range(threads))
+    return y, ready
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("threads,warp", [(1, 1), (8, 4), (64, 32)])
+@pytest.mark.parametrize("name,lower", WALK_CASES)
+def test_flag_walk_gives_the_plain_bits(name, lower, threads, warp, dtype):
+    """Rows finishing in any order their flags and warps allow, each summed
+    in plan order from 0, give trisolve_plain's bits, from fresh flags and
+    from the flags an earlier solve left (its epoch + 1 marks every row)."""
+    plan = WALK_PLANS[name](lower)
+    b = np.random.default_rng(threads).standard_normal(plan.m).astype(dtype)
+    want = tri.trisolve_plain(plan, torch.from_numpy(b)).numpy()
+    y, ready = _flag_walk(plan, b, threads, warp, seed=threads, epoch=0)
+    assert np.array_equal(y, want) and (ready == 1).all()
+    again, ready = _flag_walk(plan, b, threads, warp, seed=threads + 1, epoch=1)
+    assert np.array_equal(again, want) and (ready == 2).all()
+
+
+@pytest.mark.parametrize("name", ["spd80", "chain40", "diag30"])
+def test_plan_ready_flags_zeroed_at_build(name):
+    """A plan is built without F-3's ready flags, and solves on the CPU (exact
+    or by sweeps) make none.  The first ``_flags`` makes them zeroed on the
+    plan's device: slots of two int64 words a row (a row's value beside its
+    epoch) and one int32 epoch; later calls return the same tensors."""
+    ours, _ = _plans(name, True)
+    b = torch.ones(ours.m, dtype=torch.float64)
+    tri.trisolve(ours, b)
+    tri.trisolve_sweeps(ours, b, 2)
+    tri.ilu0(CSR.from_numpy(*CASES[name]()), sweeps=0).solve(b)
+    assert ours._walk == {}
+    slots, epoch = tri._flags(ours)
+    assert slots.shape == (2 * ours.m,) and epoch.shape == (1,)
+    assert slots.dtype == torch.int64 and epoch.dtype == torch.int32
+    for t in (slots, epoch):
+        assert t.device == ours.diag.device and t.is_contiguous() and not t.any()
+    again = tri._flags(ours)
+    assert again[0] is slots and again[1] is epoch
+    rp, ci, v, shape = CASES[name]()
+    meta = tri.analyze_trisolve(rp, ci, v, shape, lower=False, unit_diag=False, device="meta")
+    assert meta._walk == {}
+    mslots, mepoch = tri._flags(meta)
+    assert mslots.device.type == mepoch.device.type == "meta"
+    assert mslots.shape == (2 * meta.m,) and mslots.dtype == torch.int64
+    dl, du, _, _ = tri.gauss_seidel_split(CSR.from_numpy(rp, ci, v, shape))
+    for plan in (dl, du):
+        assert plan._walk == {}
+        slots, epoch = tri._flags(plan)
+        assert slots.shape == (2 * plan.m,) and not slots.any() and not epoch.any()
+
+
+def test_plan_past_the_level_cap_has_no_ready_flags(monkeypatch):
+    """A plan past the level cap solves by sweeps and never makes flags."""
+    monkeypatch.setattr(tri, "_EXACT_MAX_LEVELS", 4)
+    ours, _ = _plans("aniso24", True)
+    tri.trisolve(ours, torch.ones(ours.m, dtype=torch.float64))
+    assert ours.rows_sorted is None and ours._walk == {}
+
+
+def _banded(m, offsets):
+    """The plan of a lower triangle with the diagonal and the diagonals at
+    ``offsets`` below it."""
+    rr = np.concatenate([np.arange(m)] + [np.arange(k, m) for k in offsets])
+    cc = np.concatenate([np.arange(m)] + [np.arange(m - k) for k in offsets])
+    vals = np.r_[np.full(m, 4.0), np.full(len(rr) - m, -0.1)]
+    return tri.analyze_trisolve(*coo_to_csr_arrays(rr, cc, vals, (m, m)), (m, m), lower=True,
+                                unit_diag=False)
+
+
+@pytest.mark.parametrize("name,widest,form,in_flight", [
+    ("chain", 1, "block", 4),              # one row a level, one dependency
+    ("two chains", 2, "block", 8),
+    ("band of five", 1, "block", 4),       # five dependencies a row
+    ("four chains", 4, "block", 16),
+    ("hpcg16", 64, "block", 256),          # Gauss-Seidel's D + L at 16^3
+    ("64 chains", 64, "block", 256),       # the most one block takes
+    ("65 chains", 65, "grid", 260),
+])
+def test_walk_shape_from_the_plan(name, widest, form, in_flight):
+    """tri_levels' rows in flight come from the plan's widest level alone:
+    _AHEAD times it, in one block up to _BLOCK_MAX threads, else in the
+    cooperative grid."""
+    plan = {"chain": lambda: _banded(256, [1]), "two chains": lambda: _banded(256, [2]),
+            "band of five": lambda: _banded(256, [1, 2, 3, 4, 5]),
+            "four chains": lambda: _banded(256, [4]), "hpcg16": lambda: _gs_plans(16, True),
+            "64 chains": lambda: _banded(64 * 8, [64]),
+            "65 chains": lambda: _banded(65 * 8, [65])}[name]()
+    assert plan.widest_level == widest
+    assert tri._walk_shape(plan) == (form, in_flight)
