@@ -6,7 +6,8 @@
 Run from the repo root on a machine with a Hopper card, ``nvcc`` and a C++
 compiler.  It builds the seven kernel sources of ``spmv_acc_tpu_torch/csrc``
 (swell with its plane form, tile, ELL row sum, plane split, the chain's
-feedback F-1, the CG update F-2, the triangular solves F-3; one nvcc each,
+feedback F-1, the CG update F-2, the triangular solves F-3 and the ILU(0)
+factor F-4; one nvcc each,
 all at once), holds every
 variant the port launches against its plain PyTorch version (swell at
 float64 and float32, BSR r = 1..4, k = 1, 3, 8 columns; the
@@ -56,7 +57,12 @@ for bit against its plain versions on the exact ILU(0) factors of aniso
 512^2, dw4096-SPD and af23560-SPD in both dtypes, times both beside the
 bounds and ``torch.triangular_solve`` on the sparse factor, and drives
 ``cg_solve`` with the exact ILU on dw4096-SPD and af23560-SPD and with
-``ilu0(sweeps=3)`` gather sweeps on aniso.  Every swell layout the
+``ilu0(sweeps=3)`` gather sweeps on aniso.  The ``refactor`` phase holds F-4
+(``ilu0_refactor``, ``ILU0.refactor`` on the card) bit for bit against the host
+factor after ``replace_values`` on HPCG's 104^3 grid with a coefficient field,
+aniso 512^2, dw4096-SPD and af23560-SPD, from two launches and a captured
+graph's replays, counts its launches in one request of ``hpcg104vc.refactor``'s
+path, and times it beside its bound.  Every swell layout the
 run builds goes to the disk plan cache in a fresh directory under ``build/``
 that the run deletes at its end: the ``plan-cache`` phase drops the process's
 caches and runs boneS10 and TSOPF_RS_b2383 again from the saved layouts (the
@@ -1630,6 +1636,140 @@ def mg_phase(dev, card, loop_us):
         fail("the V-cycle did not launch F-3 once a solve in the forms its plans ask for")
 
 
+def refactor_phase(dev, card, records, bound_of, loop_us):
+    """F-4 (``csrc/trisolve.cu``, entry ``ilu0_refactor``: ``ILU0.refactor``'s
+    numeric ILU(0) on the card) on HPCG's 104^3 27-point grid with a
+    coefficient field (``perfbench/matrices/hpcg27vc.py``), aniso 512^2,
+    dw4096-SPD and af23560-SPD, each an ``ilu0(sweeps=3)`` handle: after
+    ``replace_values`` with new values on the pattern (a new field, or D A D
+    for a positive diagonal D), every value tensor of the handle bit for
+    bit a fresh ``ilu0`` of those values (the host factor), one F-4 launch a
+    refactor and none on the host; two launches and three replays of a
+    captured refactor the same bits.  Then device µs a factor (a loop of 10)
+    and a level, beside the bytes bound (A's values read, the factor
+    written, the pattern's indices read once).  On the 104^3 grid one request
+    of ``hpcg104vc.refactor``'s path (``replace_values``, ``refactor``,
+    ``cg_solve`` on swell with the handle) must launch F-4 once: its count is
+    the record's ``launches``."""
+    import numpy as np
+    import torch
+
+    import spmv_acc_tpu_torch as port
+    from perfbench.matrices import hpcg27vc
+    from spmv_acc_tpu_torch.cli.solve import spdize
+    from spmv_acc_tpu_torch.formats import generate as gen
+    from spmv_acc_tpu_torch.ops import trisolve as tri
+    from spmv_acc_tpu_torch.utils import profiling
+
+    grid = {"nx": 104, "ny": 104, "nz": 104}
+
+    def field(seed):
+        u = np.random.default_rng(seed).uniform(-1.0, 1.0, 104 ** 3)
+        return torch.from_numpy(1.0 + 0.5 * u)
+
+    def scaled(arrays, seed):
+        rp, ci, v, (m, _) = arrays
+        d = np.random.default_rng(seed).uniform(0.5, 1.5, m)
+        return v * d[np.repeat(np.arange(m), np.diff(rp.astype(np.int64)))] * d[ci]
+
+    def spd(name):
+        rp, ci, v, (m, _) = gen.example_like(name).to_numpy()
+        return spdize(rp.astype(np.int64), ci.astype(np.int64), v, m) + ((m, m),)
+
+    systems = {
+        "hpcg104 field": (lambda: hpcg27vc.build(grid, field(1)),
+                          lambda a, s: hpcg27vc.build(grid, field(s))[2]),
+        "aniso 512^2": (lambda: gen.aniso_laplacian_csr(512, 512).to_numpy(), scaled),
+        "dw4096-SPD": (lambda: spd("dw4096"), scaled),
+        "af23560-SPD": (lambda: spd("af23560"), scaled),
+    }
+
+    def tensors(ilu):
+        out = [ilu.l_plan.dep_vals, ilu.u_plan.dep_vals, ilu.u_plan.diag]
+        if ilu.swell is not None:
+            out += [ilu.swell.layout_l.vals, ilu.swell.layout_u.vals, ilu.swell.inv_diag]
+        return out
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))
+
+    for label, (first, values) in systems.items():
+        arrays = first()
+        rp, ci, _, shape = arrays
+        csr = port.CSR.from_numpy(*arrays, device=dev)
+        ilu = tri.ilu0(csr, sweeps=3)
+        v = values(arrays, 2)
+        host = profiling.spans().get("ilu.refactor.host")
+        t0 = time.perf_counter()
+        port.replace_values(csr, torch.from_numpy(v).to(dev))
+        ilu.refactor(csr)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        fresh = tri.ilu0(port.CSR.from_numpy(rp, ci, v, shape, device=dev), sweeps=3)
+        bits = same(ilu, fresh)
+        launches = tri.LAUNCHES[("f64", "factor")]
+        ilu.refactor(csr)
+        torch.cuda.synchronize()
+        again = same(ilu, fresh) and tri.LAUNCHES[("f64", "factor")] == launches + 1
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ilu.refactor(csr)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ilu.refactor(csr)
+        replays = []
+        for seed in (3, 4, 5):
+            vr = values(arrays, seed)
+            port.replace_values(csr, torch.from_numpy(vr).to(dev))
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(same(ilu, tri.ilu0(port.CSR.from_numpy(rp, ci, vr, shape, device=dev),
+                                              sweeps=3)))
+        on_host = profiling.spans().get("ilu.refactor.host") != host
+        t0 = time.perf_counter()
+        tri.ilu0_host(rp, ci, v, shape)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        st = ilu._numeric["state"]
+        factor_us = loop_us(lambda: tri._factor_kernel(st, csr.values), n=10)
+        whole_us = loop_us(lambda: ilu.refactor(csr), n=10)
+        levels = ilu.l_plan.num_levels
+        nnz = int(rp[-1])
+        nbytes = 16 * nnz + 4 * (nnz + shape[0] + 1)
+        bound = bound_of(nbytes, 0, FP64_TFLOPS)
+        phase("refactor", f"{label} ({shape[0]} rows, {nnz} nnz, {levels} levels, widest "
+              f"{ilu.l_plan.widest_level}): F-4 bit for bit ilu0's host factor: {bits}; a "
+              f"second launch the same bits: {again}; a captured refactor replayed after 3 "
+              f"new values, each the fresh factor's bits: {replays}; host factors: "
+              f"{on_host}; first replace_values + refactor (value maps, state) {t_first!r} s; "
+              f"F-4 {factor_us!r} us a factor ({factor_us / levels!r} us a level), the whole "
+              f"refactor (F-4 and the value rewrites) {whole_us!r} us (device, loop of 10); "
+              f"the host factor ilu0_host {plain_ms!r} ms; bound {bound['bound_ms'] * 1e3!r} "
+              f"us ({nbytes} B at the HBM rate); card: {card}")
+        if not (bits and again and all(replays)) or on_host:
+            fail(f"{label}: F-4 did not give the host factor's bits, or ran on the host")
+        if label == "hpcg104 field":
+            # one request of hpcg104vc.refactor's path, its F-4 launches counted
+            del graph
+            b = torch.from_numpy(np.random.default_rng(6).uniform(-1.0, 1.0, shape[0])).to(dev)
+            tri.LAUNCHES.clear()
+            port.replace_values(csr, torch.from_numpy(values(arrays, 6)).to(dev))
+            ilu.refactor(csr)
+            res = port.models.cg_solve(csr, b, None, 1e-8, 2000, "swell", ilu)
+            torch.cuda.synchronize()
+            launches = tri.LAUNCHES[("f64", "factor")]
+            phase("refactor", f"{label}: a request (replace_values, refactor, cg_solve on "
+                  f"swell with the handle): {launches} F-4 launches, {int(res.iters)} "
+                  f"iterations")
+            if launches != 1 or not int(res.iters) < 2000:
+                fail(f"{label}: a request launched F-4 {launches} times, not once, or its "
+                     f"solve did not converge")
+            records["ilu0_refactor_f64"] = {"max_abs_err": 0.0, "ms": factor_us / 1e3,
+                                            "plain_ms": plain_ms, "library_ms": None,
+                                            "launches": launches, **bound}
+
+
 def main() -> int:
     import torch
 
@@ -2775,6 +2915,7 @@ def smoke(plan_dir: str) -> int:
     del ablock
     trisolve_phase(dev, card, records, bound_of, loop_us, acsr, ab)
     mg_phase(dev, card, loop_us)
+    refactor_phase(dev, card, records, bound_of, loop_us)
 
     # the JAX package's on-chip form: every matvec splits p into bf16 planes and
     # reads them in the plane-form swell kernel
@@ -3221,7 +3362,9 @@ def smoke(plan_dir: str) -> int:
             # F-3 neither: XLA's loops of the triangular solves (trisolve's
             # fori_loop; trisolve_sweeps' fori_loop)
             ("trisolve_f64", "trisolve.cu", "spmv_acc_tpu/ops/trisolve.py:224"),
-            ("tri_sweeps_f64", "trisolve.cu", "spmv_acc_tpu/ops/trisolve.py:263")):
+            ("tri_sweeps_f64", "trisolve.cu", "spmv_acc_tpu/ops/trisolve.py:263"),
+            # F-4 neither: the JAX package factors on the host only (ilu0_host)
+            ("ilu0_refactor_f64", "trisolve.cu", "spmv_acc_tpu/ops/trisolve.py:53")):
         rec = records[name]
         if set(rec) != keys or rec["launches"] < 1:
             fail(f"{name} was not launched on the main path or not timed")

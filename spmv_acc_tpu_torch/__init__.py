@@ -16,7 +16,9 @@ hand-written CUDA kernels on an NVIDIA Hopper card and their plain PyTorch
 versions on the CPU: ``swell`` (float64 and float32, BSR r x r micro-blocks, k
 right-hand sides; ``csrc/swell_spmv.cu``), ``adaptive_plus``
 (``csrc/tile_spmv.cu``) and ``vector_row`` (``csrc/ell_rowsum.cu``).  The
-solver path: ILU(0) and triangular solves (``ilu0``, ``trisolve``), HPCG's
+solver path: ILU(0) and triangular solves (``ilu0``, ``trisolve``; new values
+on one pattern through ``replace_values`` and ``ILU0.refactor``, the factor
+redone on the card), HPCG's
 multigrid preconditioner (``mg_preconditioner``: the symmetric Gauss-Seidel
 V-cycle), CG (``models.cg_solve``) and ``spmv-solve``.  The JAX package's bf16 x planes
 (``ops.swell.prep_x``, ``csrc/plane_split.cu``) and the swell kernel's plane
@@ -64,6 +66,7 @@ from .formats import (
     powerlaw_csr,
     random_csr,
     random_x_y,
+    replace_values,
     sparse_operation,
 )
 from .io import load_csr, load_matrix, read_bin2, read_csr_text, read_mtx, write_bin2
@@ -99,6 +102,7 @@ __all__ = [
     "powerlaw_csr",
     "random_csr",
     "random_x_y",
+    "replace_values",
     "sparse_operation",
     "load_csr",
     "load_matrix",

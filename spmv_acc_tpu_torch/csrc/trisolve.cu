@@ -1,5 +1,7 @@
 // F-3, the ILU(0) preconditioner's sparse triangular solves, one launch per
-// factor solve, no atomics: two launches on the same data give the same bits.
+// factor solve, and F-4, the ILU(0) factor's numeric phase on the card, one
+// launch a factor; no atomics: two launches on the same data give the same
+// bits.
 //
 // Replaces XLA's loops of the JAX package's triangular solves, which have no
 // Pallas kernel of their own: spmv_acc_tpu/ops/trisolve.py::trisolve (the
@@ -7,7 +9,7 @@
 // (the Jacobi sweeps' fori_loop, :263-283).  XLA compiles each loop into one
 // device program; launched from the host the same exact solve is about eight
 // small PyTorch launches per schedule step (2 x 1023 steps an ILU apply at
-// 512^2 anisotropic diffusion).  Two entries (spmv_acc_tpu_torch/ops/trisolve.py):
+// 512^2 anisotropic diffusion).  Two entries of F-3 (spmv_acc_tpu_torch/ops/trisolve.py):
 //
 // tri_levels, the exact solve over the level schedule: every row computes
 //   y[row] = (b[row] - s) / diag[row],  s = sum of vals[k] * y[cols[k]]
@@ -68,6 +70,35 @@
 // (index_add_ of the products into zeros, then (b - sums) / diag), which on
 // the CPU adds a row's products in plan order.  Float32 multiplies and adds
 // in float32, as the plain version does after casting the values.
+//
+// F-4, ilu0_refactor, the numeric ILU(0) factor of new values on the pattern
+// the handle was made from (ops/trisolve.py ILU0.refactor).  The JAX package
+// factors on the host only (spmv_acc_tpu/ops/trisolve.py::ilu0_host), so F-4
+// has no TPU counterpart; it computes ilu0_host's IKJ factor
+// (native/spmv_native.cpp ilu0_factor) bit for bit: row i copies its values,
+// then for each strict-lower entry q (column k) in ascending column order
+//   l = lu[q] / lu[diag k],  lu[q] = l,
+//   lu[t] -= l * lu[s] for each later entry t of row i whose column row k
+//   holds after its diagonal, at s,
+// with __ddiv_rn / __dmul_rn / __dsub_rn, nothing contracted.  The pairs
+// (t, s) of each q are the symbolic factor, listed once at a handle's first
+// refactor (ops/trisolve.py _ikj_updates, torch ops on the card).
+//   the walk: a warp a row, the rows in the L-solve's level order taken
+//     warp-stride; the row's entries in global memory, its updates of one q
+//     spread over the lanes (each t at most once a q, so no two lanes write
+//     one entry; __syncwarp() between the q's).  A row waits on row k only
+//     where its entry q needs it: the lanes poll the flags of 32 of the
+//     row's lower entries at once (a ballot), so a row's early columns are
+//     done while its latest dependencies (the previous levels' rows) come,
+//     and the steps whose rows came together run with no poll between
+//     them.  A flag is one 32-bit word; a row's lanes fence their stores,
+//     meet at __syncwarp(), and one stores the flag with release; a poll is
+//     relaxed, and the poll that finds q's row ready is followed by an
+//     acquire fence and __syncwarp(), after which row k's values are read
+//     through L2 (__ldcg).  Every strict-lower column of a row lies at an
+//     earlier position, so the unfinished row at the lowest position has its
+//     inputs and its warp (which holds no other row) finishes it: no
+//     deadlock.  The epoch works as tri_levels'.
 //
 // What bounds it on an H100: neither bytes nor operations.  The exact solve
 // must read the factor once (a few MB: ~3 us at 3.35 TB/s for 512^2 aniso;
@@ -315,6 +346,72 @@ levels_flags_kernel(int64_t m, const int64_t* __restrict__ rows, Factor<T> f, T*
   if (blockIdx.x == 0 && threadIdx.x == 0) *epoch = want;
 }
 
+__device__ __forceinline__ unsigned load_flag(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void publish_flag(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void fence_acq_rel() { asm volatile("fence.acq_rel.gpu;" ::: "memory"); }
+
+// F-4 (header): a warp a row, the rows at the positions of `rows` taken
+// warp-stride on a cooperative grid; lu (the pattern's nnz) gets the factor
+// of a.  Row i's strict-lower entry q makes the updates up[q] .. up[q + 1]
+// of the lists (ut, us): lu[ut] -= l * lu[us], ut in row i, us in row k.
+__global__ void __launch_bounds__(kThreads)
+ilu0_factor_kernel(int64_t m, const int64_t* __restrict__ rows, const int* __restrict__ rp,
+                   const int* __restrict__ ci, const int* __restrict__ dpos,
+                   const int64_t* __restrict__ up, const int* __restrict__ ut,
+                   const int* __restrict__ us, const double* __restrict__ a, double* lu,
+                   unsigned* flags, unsigned* epoch) {
+  const unsigned want = *epoch + 1u;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
+  for (int64_t p = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5; p < m; p += warps) {
+    const int64_t row = rows[p];
+    const int r0 = rp[row], dg = dpos[row], r1 = rp[row + 1];
+    for (int t = r0 + lane; t < r1; t += 32) lu[t] = a[t];
+    unsigned ready = 0;  // of the 32 strict-lower entries from `base`, those whose row is flagged
+    int base = r0 - 32;
+    for (int q = r0; q < dg; ++q) {
+      const int k = ci[q], kd = dpos[k];
+      const int64_t u0 = up[q], u1 = up[q + 1];
+      int t0 = -1, s0 = 0;  // this lane's first update, loaded before the wait
+      if (u0 + lane < u1) {
+        t0 = ut[u0 + lane];
+        s0 = us[u0 + lane];
+      }
+      if (q >= base + 32) {
+        base = q;
+        ready = 0;
+      }
+      if (!(ready >> (q - base) & 1u)) {  // poll the chunk's rows, each lane one, until q's
+        const int e = base + lane;
+        const int fk = e < dg ? ci[e] : -1;
+        do {
+          ready = __ballot_sync(0xffffffffu, fk < 0 || load_flag(flags + fk) == want);
+        } while (!(ready >> (q - base) & 1u));
+        fence_acq_rel();  // acquire what each lane saw; the barrier passes it to the warp
+      }
+      __syncwarp();
+      const double l = div_rn(lu[q], __ldcg(lu + kd));
+      if (t0 >= 0) lu[t0] = sub_rn(lu[t0], mul_rn(l, __ldcg(lu + s0)));
+      for (int64_t u = u0 + 32 + lane; u < u1; u += 32)
+        lu[ut[u]] = sub_rn(lu[ut[u]], mul_rn(l, __ldcg(lu + us[u])));
+      __syncwarp();
+      if (lane == 0) lu[q] = l;
+    }
+    fence_acq_rel();  // release the row's values, each lane its own stores
+    __syncwarp();
+    if (lane == 0) publish_flag(flags + row, want);
+  }
+  cg::this_grid().sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) *epoch = want;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sweeps_kernel(int64_t m, int64_t sweeps, Factor<T> f, T* out, T* scratch) {
@@ -458,4 +555,28 @@ extern "C" int tri_sweeps(int is_f64, int64_t m, int64_t sweeps, const void* dep
                 : launch_sweeps<float>(m, sweeps,
                                        factor_of<float>(dep_start, dep_len, cols, vals, diag, b),
                                        y, scratch, st);
+}
+
+// F-4: lu = the ILU(0) factor of a (float64, the pattern's nnz) over m rows
+// of the CSR pattern row_ptr / col_idx (int32, sorted columns, a diagonal a
+// row at diag_pos), the rows taken in the order of `rows` (int64: any order
+// in which each row's strict-lower columns come earlier).  upd_ptr (nnz + 1,
+// int64) and upd_t / upd_s (int32) are the IKJ updates of each entry (none
+// but a strict-lower one's), upd_t ascending within one.  `flags` (m 32-bit
+// words) and `epoch` (one) zeroed once and owned by this entry after.  A
+// cooperative grid of blocks enough for `in_flight` warps, at most the
+// resident ones.
+extern "C" int ilu0_refactor(int64_t in_flight, int64_t m, const void* rows, const void* row_ptr,
+                             const void* col_idx, const void* diag_pos, const void* upd_ptr,
+                             const void* upd_t, const void* upd_s, const void* a, void* lu,
+                             void* flags, void* epoch, void* stream) {
+  if (m <= 0 || in_flight <= 0) return int(cudaErrorInvalidValue);
+  static Residency cache[kMaxDevices];
+  return launch_coop(ilu0_factor_kernel, cache, (32 * in_flight + kThreads - 1) / kThreads,
+                     static_cast<cudaStream_t>(stream), m, static_cast<const int64_t*>(rows),
+                     static_cast<const int*>(row_ptr), static_cast<const int*>(col_idx),
+                     static_cast<const int*>(diag_pos), static_cast<const int64_t*>(upd_ptr),
+                     static_cast<const int*>(upd_t), static_cast<const int*>(upd_s),
+                     static_cast<const double*>(a), static_cast<double*>(lu),
+                     static_cast<unsigned*>(flags), static_cast<unsigned*>(epoch));
 }

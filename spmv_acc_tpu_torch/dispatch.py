@@ -21,7 +21,7 @@ import torch
 
 from .config import (DEFAULT_TUNE, FLAT_NNZ, IMBALANCE_RATIO, SHORT_ROW_AVG_NNZ,
                      SMALL_NNZ, TuneConfig)
-from .formats.containers import CSR, ELL, sparse_operation
+from .formats.containers import CSR, ELL, drop_held, on_replace_values, sparse_operation
 from .formats.convert import csr_to_ell, csr_transpose_arrays
 from .ops import xla as _xla
 from .plan import Plan, get_plan
@@ -71,6 +71,7 @@ _ELL_MAX_CELLS = 1 << 27
 # matrix's transpose.
 _T_CACHE: dict = {}
 _ELL_CACHE: dict = {}
+on_replace_values(lambda csr: drop_held(_T_CACHE, csr) + drop_held(_ELL_CACHE, csr))
 
 
 def _get_ell(csr: CSR, tune: TuneConfig) -> ELL:

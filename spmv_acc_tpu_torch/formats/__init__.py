@@ -1,6 +1,6 @@
 """Sparse formats: the CSR, COO, BSR and ELL containers, conversions and generators."""
 
-from .containers import BSR, COO, CSR, ELL, sparse_operation
+from .containers import BSR, COO, CSR, ELL, replace_values, sparse_operation
 from .convert import (
     coo_to_csr,
     coo_to_csr_arrays,
@@ -29,6 +29,7 @@ __all__ = [
     "BSR",
     "ELL",
     "sparse_operation",
+    "replace_values",
     "coo_to_csr",
     "coo_to_csr_arrays",
     "csr_to_bsr",

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["CSR", "COO", "BSR", "ELL", "sparse_operation"]
+__all__ = ["CSR", "COO", "BSR", "ELL", "sparse_operation", "replace_values"]
 
 
 class sparse_operation:
@@ -105,6 +105,72 @@ class CSR:
             self.values.cpu().numpy(),
             self.shape,
         )
+
+
+def held_by(cache: dict, csr: CSR) -> list:
+    """The keys of ``cache``'s entries made from ``csr``: the port's caches
+    keyed on a CSR's tensor ids hold those tensors first in each entry."""
+    return [k for k, e in cache.items()
+            if e[0] is csr.row_ptr and e[1] is csr.col_idx and e[2] is csr.values]
+
+
+def drop_held(cache: dict, csr: CSR) -> int:
+    """Delete ``cache``'s entries made from ``csr`` (:func:`held_by`); returns
+    how many went."""
+    keys = held_by(cache, csr)
+    for k in keys:
+        del cache[k]
+    return len(keys)
+
+
+# replace_values' hooks: the structures made from a CSR's values, then the
+# solvers built on them.  Each module that keeps such things registers its hook
+# when it is imported (on_replace_values), so this layer names none of them.
+_ON_REPLACE: Tuple[list, list] = ([], [])
+
+
+def on_replace_values(hook, solvers: bool = False) -> None:
+    """Register ``hook(csr) -> int`` with :func:`replace_values`, which calls it
+    after writing new values into ``csr.values``: it refreshes in place, or
+    drops, what its module keeps made from ``csr``'s old values, and returns
+    how many entries it dropped.  Hooks with ``solvers`` run after the others:
+    a kept solver stays only where what it runs on took the new values."""
+    _ON_REPLACE[solvers].append(hook)
+
+
+def replace_values(csr: CSR, values: torch.Tensor) -> None:
+    """Give ``csr`` new values on its pattern: copies ``values`` (a tensor of
+    ``csr.values``' length, dtype and device, else ValueError) into
+    ``csr.values`` in place, so the matrix keeps its tensors.  Then every
+    structure the port keeps for ``csr`` answers for the new values at its
+    next use, through the hooks its modules registered
+    (:func:`on_replace_values`): its swell layouts take them in place
+    (``ops.swell.revalue_plans``), so a kept ``cg_solve`` solver on the swell
+    matvec keeps its captured graphs; its transposes, ELL slabs, tile layouts
+    and packs are dropped, with every other kept solver on it, the
+    distributed ones too (made again at their next use; every rank of a mesh
+    calls this).  A preconditioner made from ``csr`` (``ilu0``,
+    ``jacobi_preconditioner``, ``mg_preconditioner``) keeps the values it was
+    made from: refresh an ILU(0) handle with ``ILU0.refactor(csr)``.  An edit
+    of ``csr.values`` made any other way is not seen by those structures.
+
+    Span ``csr.replace_values`` (the layouts' value maps, made at the first
+    call, in ``swell.value_map``); counter ``csr.revalue.dropped``, the
+    entries and solvers dropped."""
+    if not isinstance(values, torch.Tensor):
+        raise TypeError(f"replace_values takes a torch.Tensor, got {type(values).__name__}")
+    old = csr.values
+    if values.shape != old.shape or values.dtype != old.dtype or values.device != old.device:
+        raise ValueError(f"replace_values: values of shape {tuple(values.shape)}, "
+                         f"{values.dtype} on {values.device}; the matrix holds "
+                         f"{tuple(old.shape)}, {old.dtype} on {old.device}")
+    from ..utils import profiling
+
+    with profiling.span("csr.replace_values"):
+        old.copy_(values)
+        dropped = sum(hook(csr) for hooks in _ON_REPLACE for hook in hooks)
+        if dropped:
+            profiling.count("csr.revalue.dropped", dropped)
 
 
 @dataclasses.dataclass(frozen=True)

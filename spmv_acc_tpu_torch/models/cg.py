@@ -60,7 +60,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..formats.containers import CSR
+from ..formats.containers import CSR, on_replace_values
 from ..ops import cg_update
 from ..ops.cg_update import Work
 from ..utils import profiling
@@ -220,13 +220,18 @@ class CGBlocks:
     solves with the same arguments (``utils.graphs.Loop``).  ``on_matvecs``,
     where given, is called with ``n`` each time ``n`` more matvecs have run:
     the start's one, the plain iterations, and each block's iterations, a
-    replayed block's too, which runs no Python."""
+    replayed block's too, which runs no Python.  ``current``, where given,
+    says whether ``matvec`` reads the new values that
+    ``formats.containers.replace_values`` wrote into its matrix; a kept
+    solver without it holds the old ones and is dropped there."""
 
     def __init__(self, matvec: Callable, precond: Optional[Callable], b: torch.Tensor,
                  block: int = CG_BLOCK, reduce: Optional[Callable] = None,
                  eager_iters: int = CG_EAGER_ITERS,
-                 on_matvecs: Optional[Callable[[int], None]] = None):
+                 on_matvecs: Optional[Callable[[int], None]] = None,
+                 current: Optional[Callable[[], bool]] = None):
         self.matvec = matvec
+        self.current = current or (lambda: False)
         self.M = precond if precond is not None else Jacobi(None)
         self.reduce = reduce
         self.block = block
@@ -303,6 +308,23 @@ def dist_solvers_kept() -> int:
         return sum(bool(k[0]) for k in _SOLVERS)
 
 
+def _drop_solvers(csr: CSR) -> int:
+    """``formats.containers.replace_values``' hook: drop the solvers kept on
+    ``csr``'s arrays, of one device or of a mesh, but those whose matvec read
+    the new values in place (:attr:`CGBlocks.current`).  Returns how many
+    went."""
+    with _SOLVERS_LOCK:
+        gone = [key for key, (held, solver) in _SOLVERS.items()
+                if held[0] is csr.row_ptr and held[1] is csr.col_idx and held[2] is csr.values
+                and not (isinstance(solver, CGBlocks) and solver.current())]
+        for key in gone:
+            del _SOLVERS[key]
+    return len(gone)
+
+
+on_replace_values(_drop_solvers, solvers=True)
+
+
 @contextlib.contextmanager
 def kept_solver(held: tuple, spec: tuple, build: Callable, mesh=None):
     """The solver kept under the ids of ``held`` (held by the entry, so no id
@@ -338,18 +360,22 @@ def _new_solver(csr: CSR, chosen: str, precond, b: torch.Tensor) -> CGBlocks:
     from ..dispatch import spmv
     from ..ops.trisolve import ILU0
 
+    current = None
     if chosen == "swell":
-        from ..ops.swell import get_swell_plan, swell_ax
+        from ..ops.swell import get_swell_plan, in_plan_cache, swell_ax
 
         layout, dtype = get_swell_plan(csr), b.dtype
 
         def matvec(v):
             return swell_ax(layout, v.to(layout.dtype)).to(dtype)
+
+        def current():  # replace_values refreshes a cached layout in place
+            return in_plan_cache(layout)
     else:
         def matvec(v):
             return spmv(csr, v, strategy=chosen)
     return CGBlocks(matvec, precond.solve if isinstance(precond, ILU0) else precond, b,
-                    block=CG_BLOCK, eager_iters=CG_EAGER_ITERS)
+                    block=CG_BLOCK, eager_iters=CG_EAGER_ITERS, current=current)
 
 
 def cg_solve(csr: CSR, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: float = 1e-8,

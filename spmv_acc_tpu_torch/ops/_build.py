@@ -61,6 +61,7 @@ SOURCES = {
     TRISOLVE_SRC: {
         "tri_levels": [_I32, _I32, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
         "tri_sweeps": [_I32, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "ilu0_refactor": [_I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

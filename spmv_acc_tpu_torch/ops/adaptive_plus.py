@@ -28,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..formats.containers import drop_held, on_replace_values
 from .swell import _device_schedule, _torch_dtype
 from .swell_plan import ChunkSchedule
 from .tile_plan import COL_WINDOW, LANES, TilePlan, build_tile_plan, build_tile_schedule
@@ -120,8 +121,10 @@ def rescheduled(dp: DeviceTilePlan, max_rows: int) -> DeviceTilePlan:
 # Plan cache.  Each entry holds the CSR's three tensors and is returned only when
 # they are the very objects passed in, so neither a recycled id() nor a CSR that
 # shares row_ptr with new values is served a stale plan.  In-place edits of a
-# cached CSR's tensors are not seen: build a new CSR (or call clear_tile_cache).
+# cached CSR's tensors are not seen: build a new CSR (or call clear_tile_cache);
+# formats.containers.replace_values drops the CSR's entries.
 _TILE_CACHE: dict = {}
+on_replace_values(lambda csr: drop_held(_TILE_CACHE, csr))
 
 
 def clear_tile_cache() -> None:

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import LANES, cache_dir
+from ..formats.containers import held_by, on_replace_values
 from ..utils import profiling
 from .bsr_block import bsr_condense, detect_block_size
 from .swell_plan import (ChunkSchedule, SwellLayout, _canonicalize, build_swell_layout,
@@ -47,7 +48,8 @@ from .xla import axpby_finish
 __all__ = ["DeviceSwellLayout", "SWELL_MAX_SLOTS", "LAUNCHES", "get_swell_plan", "plan_steps",
            "swell_plan_within_cap", "clear_swell_cache", "kernel_group",
            "rescheduled", "swell_ax", "swell_amx", "swell_ax_plain", "swell_amx_plain",
-           "swell_sweep", "swell_sweep_plain", "prep_x",
+           "swell_sweep", "swell_sweep_plain", "value_map", "revalue", "revalue_plans",
+           "in_plan_cache", "prep_x",
            "prep_x_plain", "swell_ax_planes", "swell_ax_planes_plain", "spmv_swell",
            "make_swell_run", "make_swell_amx_run"]
 
@@ -95,6 +97,9 @@ class DeviceSwellLayout:
     sched: torch.Tensor          # schedule.packed() on the device: what the kernel reads
     # (node row, node col) of every slot, derived at the plain version's first use
     _plain_idx: tuple | None = dataclasses.field(default=None, repr=False)
+    # value_map of the CSR the layout was cached for, made at its first
+    # revalue_plans (() where it has none)
+    _value_map: tuple | None = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -152,8 +157,9 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 # Plan cache.  Each entry holds the keyed tensors themselves and is returned only
 # when they are the very objects passed in, so a recycled id() can never serve
-# another matrix's plan.  In-place edits of a cached CSR's tensors are not seen:
-# build a new CSR (or call clear_swell_cache) after changing one.
+# another matrix's plan.  In-place edits of a cached CSR's tensors are not seen,
+# except new values written by ``formats.containers.replace_values``, which
+# calls revalue_plans (its hook).
 _SWELL_CACHE: dict = {}
 
 
@@ -323,6 +329,88 @@ def _plan(csr, dtype, r):
                             sched)
     _SWELL_CACHE[key] = (csr.row_ptr, csr.col_idx, csr.values, layout, cells)
     return layout, cells
+
+
+def _repeats(rp, ci, m: int, n: int) -> bool:
+    """Whether a (row, column) of the CSR pattern repeats."""
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(rp))
+    if not (np.diff(ci)[rows[1:] == rows[:-1]] <= 0).any():
+        return False  # columns strictly ascending in every row
+    keys = rows * n + ci
+    return len(np.unique(keys)) != len(keys)
+
+
+def value_map(layout: DeviceSwellLayout, row_ptr, col_idx, shape):
+    """Where each value of ``layout`` comes from in the CSR pattern it was laid
+    out from (host ``row_ptr``, ``col_idx`` and ``shape``): ``(cells, tail)``,
+    int32 on the layout's device, for each value cell and COO tail entry the
+    CSR position + 1 of the entry it holds, 0 for a padded cell.  Found by
+    laying the pattern out again with each entry's position + 1 as its value
+    (float64, exact), so the layout's own code places them.  None where a
+    (row, column) repeats: a cell then holds a sum.  Host work of the size of
+    a plan build, in the span ``swell.value_map``."""
+    with profiling.span("swell.value_map"):
+        rp = np.asarray(row_ptr, dtype=np.int64)
+        ci = np.asarray(col_idx, dtype=np.int64)
+        if _repeats(rp, ci, int(shape[0]), int(shape[1])):
+            return None
+        pos = np.arange(1, int(rp[-1]) + 1, dtype=np.float64)
+        lay = build_swell_layout(_slabs(rp, ci, pos, shape, torch.float64, layout.r))
+        dev = layout.device
+        if (len(lay.vals) != layout.vals.numel() or len(lay.tail_v) != layout.tail_v.numel()
+                or not torch.equal(torch.from_numpy(lay.lidx).to(dev), layout.lidx)):
+            raise ValueError("value_map: the pattern is not the one the layout was laid out "
+                             "from")
+        return (torch.from_numpy(lay.vals.astype(np.int32)).to(dev),
+                torch.from_numpy(lay.tail_v.astype(np.int32)).to(dev))
+
+
+def revalue(layout: DeviceSwellLayout, values: torch.Tensor, vmap: tuple) -> None:
+    """Write new values into ``layout`` in place, cast to its dtype:
+    ``values`` on its device is a 0 and then the CSR's values in CSR order,
+    ``vmap`` the CSR's :func:`value_map`.  Every holder of the layout, a
+    captured graph too, reads them from then on.  Counts ``swell.revalues``."""
+    cells, tail = vmap
+    if layout.vals.dtype == values.dtype:
+        torch.index_select(values, 0, cells, out=layout.vals)
+    else:
+        layout.vals.copy_(values.index_select(0, cells))
+    if tail.numel():
+        layout.tail_v.copy_(values.index_select(0, tail))
+    profiling.count("swell.revalues")
+
+
+def revalue_plans(csr) -> int:
+    """After new values were written into ``csr.values`` in place, every
+    cached layout of ``csr`` takes them (:func:`revalue`, through a
+    :func:`value_map` made at its first call and kept on the layout), or is
+    dropped from the cache where it has none.  Returns the entries dropped."""
+    padded, pattern, dropped = None, None, 0
+    for key in held_by(_SWELL_CACHE, csr):
+        layout = _SWELL_CACHE[key][3]
+        if layout is None:  # past the cap: nothing laid out
+            continue
+        if layout._value_map is None:
+            if pattern is None:
+                pattern = (csr.row_ptr.cpu().numpy(), csr.col_idx.cpu().numpy())
+            layout._value_map = value_map(layout, *pattern, csr.shape) or ()
+        if not layout._value_map:
+            del _SWELL_CACHE[key]
+            dropped += 1
+            continue
+        if padded is None:
+            padded = torch.cat([csr.values.new_zeros(1), csr.values])
+        revalue(layout, padded, layout._value_map)
+    return dropped
+
+
+on_replace_values(revalue_plans)
+
+
+def in_plan_cache(layout: DeviceSwellLayout) -> bool:
+    """Whether ``layout`` is in the plan cache: after ``replace_values`` on
+    its CSR, whether it took the new values (:func:`revalue_plans`)."""
+    return any(e[3] is layout for e in _SWELL_CACHE.values())
 
 
 def swell_plan_within_cap(csr, dtype=None, r=None):

@@ -38,6 +38,15 @@ Counterpart of ``spmv_acc_tpu/ops/trisolve.py``, with the same results:
 * **Gauss-Seidel** (:func:`gauss_seidel_split`): F-3 plans of D + L and
   D + U of a matrix itself, and its strict parts, for the symmetric
   Gauss-Seidel smoother of ``models/mg.py``.
+* **Refactor** (:meth:`ILU0.refactor`): the numeric factor of new values on
+  the pattern a handle was made from, written into the handle's own tensors
+  (both plans' values and diagonal, the sweep layouts' value cells,
+  ``inv_diag``), so a kept solver's captured graphs read it.  On the card
+  one launch of F-4 (``csrc/trisolve.cu``, entry ``ilu0_refactor``):
+  ``ilu0_host``'s IKJ factor bit for bit, a warp a row on ready flags as
+  F-3's walk, waiting on a lower row only where it needs it, the updates
+  from the symbolic factor :func:`_ikj_updates` lists once; on the CPU
+  ``ilu0_host``.
 
 Both kernels sum a row's products in plan order from 0 and round each
 multiply, add, subtract and divide as the plain version does (no contracted
@@ -87,9 +96,10 @@ _BLOCK_MAX = 256
 # tri_levels' forms by name (its C entry's codes)
 _FORMS = {"block": 0, "grid": 1}
 
-# F-3 launches in this process by (dtype, entry): ("f64" | "f32", "levels_block" |
-# "levels_grid" | "sweeps").  Only the launch sites add to it (and a captured
-# graph's replays, utils/graphs.py); set to 0 with ``.clear()`` to count a run.
+# F-3 and F-4 launches in this process by (dtype, entry): ("f64" | "f32",
+# "levels_block" | "levels_grid" | "sweeps"), and ("f64", "factor") for F-4.
+# Only the launch sites add to it (and a captured graph's replays,
+# utils/graphs.py); set to 0 with ``.clear()`` to count a run.
 LAUNCHES: collections.Counter = collections.Counter()
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
@@ -500,12 +510,17 @@ class ILU0:
     ``sweeps`` > 0 makes both solves Jacobi-sweep approximations; 0 means the
     exact solves.  On the card each factor solve is one F-3 launch;
     ``swell`` (set by :func:`ilu0` on large factors) runs each sweep's N @ y
-    on the swell kernel instead."""
+    on the swell kernel instead.  ``pattern`` is the ``(row_ptr, col_idx,
+    shape)`` of the CSR :func:`ilu0` factored, which :meth:`refactor` takes
+    new values on."""
 
     l_plan: TriSolvePlan
     u_plan: TriSolvePlan
     sweeps: int = 0
     swell: Optional[SweepSwell] = None
+    pattern: Optional[tuple] = dataclasses.field(default=None, compare=False)
+    # refactor's state (_Numeric under "state"), made at its first call
+    _numeric: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def solve(self, r: torch.Tensor) -> torch.Tensor:
         if self.swell is not None and self.sweeps > 0:
@@ -515,6 +530,223 @@ class ILU0:
             return trisolve_sweeps(self.u_plan, z, self.sweeps)
         z = trisolve(self.l_plan, r)     # L z = r (unit lower)
         return trisolve(self.u_plan, z)  # U y = z
+
+    def refactor(self, csr: CSR) -> None:
+        """Factor ``csr``'s current values into this handle: the numeric
+        ILU(0) of a matrix on the pattern the handle was made from (else
+        ValueError), bit for bit what :func:`ilu0` of those values holds,
+        written in place into every value tensor the handle holds (the plans'
+        ``dep_vals`` and ``diag`` and their casts, the sweep layouts' value
+        cells, ``inv_diag``).  So a solver kept with this handle, its
+        captured graphs too, preconditions with the new factor.  On the card
+        one launch of F-4 on the current stream, no host read; on the CPU
+        ``ilu0_host``.  The positions it writes from, and on the card F-4's
+        arguments and library, are made at the first call (span
+        ``ilu0.refactor.setup``, with the layouts' ``swell.value_map``).  A
+        captured refactor rewrites the tensors the handle held when it was
+        captured (a cast to another dtype made later is not among them).
+
+        Span ``ilu0.refactor``; counters ``ilu.refactors``,
+        ``ilu.refactor.host`` (factors on the host), ``ilu.refactor.rows``
+        and ``ilu.refactor.nnz`` (the pattern's, summed over refactors)."""
+        with profiling.span("ilu0.refactor"):
+            _refactor(self, csr)
+
+
+@dataclasses.dataclass
+class _Numeric:
+    """:meth:`ILU0.refactor`'s state on a handle.  ``lu`` holds a 0 and then
+    the factor in CSR order (float64); ``l_pos``, ``u_pos`` and ``diag_pos``
+    (int32) say where in ``lu`` each value of ``l_plan.dep_vals``,
+    ``u_plan.dep_vals`` and ``u_plan.diag`` lies, ``maps`` the sweep layouts'
+    value maps into ``lu`` (None without them).  On the card ``kernel``
+    holds F-4's arguments: the rows in the L-solve's level order, the
+    pattern (int32), each row's diagonal position, the symbolic factor
+    (:func:`_ikj_updates`), the ready flags and epoch, the rows in flight;
+    ``_walk`` the stream of its last launch (:func:`_order`).  On the CPU
+    ``host`` holds the pattern's host arrays."""
+
+    lu: torch.Tensor
+    l_pos: torch.Tensor
+    u_pos: torch.Tensor
+    diag_pos: torch.Tensor
+    maps: Optional[tuple]
+    kernel: Optional[tuple]
+    host: Optional[tuple]
+    _walk: dict = dataclasses.field(default_factory=dict)
+
+
+def _same_pattern(ilu: ILU0, csr: CSR) -> None:
+    """Raise unless ``csr`` is on the handle's device and has its pattern."""
+    if ilu.pattern is None:
+        raise ValueError("refactor: this ILU0 was not made by ilu0, so it has no pattern")
+    rp, ci, shape = ilu.pattern
+    if csr.device != ilu.u_plan.diag.device:
+        raise ValueError(f"refactor: the CSR is on {csr.device}, the factor on "
+                         f"{ilu.u_plan.diag.device}")
+    if (csr.row_ptr is rp and csr.col_idx is ci) or (
+            tuple(csr.shape) == tuple(shape) and csr.row_ptr.shape == rp.shape
+            and csr.col_idx.shape == ci.shape
+            and torch.equal(csr.row_ptr.long(), rp.long())
+            and torch.equal(csr.col_idx.long(), ci.long())):
+        return
+    raise ValueError("refactor: the CSR's pattern is not the one this factor was made from")
+
+
+# candidate updates a chunk of _ikj_updates examines at once (bounds its memory)
+_IKJ_CHUNK = 1 << 24
+
+
+def _ikj_updates(row_ptr: torch.Tensor, col_idx: torch.Tensor, diag: torch.Tensor, n: int):
+    """The symbolic ILU(0) factor of a CSR pattern (sorted columns, no
+    repeats, a diagonal a row at ``diag``), as torch ops on the pattern's
+    device: each strict-lower entry q (row i, column k) updates lu[t] -=
+    l * lu[s] for every later entry t of row i whose column row k holds after
+    its diagonal, at s (``ilu0_host``'s merge).  Returns ``(ptr, t, s)``: q's
+    pairs at ``ptr[q] .. ptr[q + 1]`` (int64, over all nnz + 1 positions;
+    none but a strict-lower entry's), ``t`` ascending within one (int32)."""
+    rp, ci, dg = row_ptr.long(), col_idx.long(), diag.long()
+    m, nnz, dev = rp.numel() - 1, ci.numel(), ci.device
+    rows = torch.repeat_interleave(torch.arange(m, device=dev), rp.diff())
+    keys = rows * n + ci  # ascending: rows in order, columns sorted in each
+    lower = torch.nonzero(ci < rows).squeeze(1)
+    first = dg[ci[lower]] + 1  # row k's entries after its diagonal
+    count = rp[ci[lower] + 1] - first
+    ends = torch.cumsum(count, 0)
+    per_q = torch.zeros(nnz, dtype=torch.int64, device=dev)
+    ts = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    ss = list(ts)
+    a = 0
+    while a < lower.numel():
+        done = int(ends[a - 1]) if a else 0
+        b = max(a + 1, int(torch.searchsorted(ends, done + _IKJ_CHUNK, right=True)))
+        c = count[a:b]
+        which = torch.repeat_interleave(torch.arange(a, b, device=dev), c)
+        start = torch.cumsum(c, 0) - c
+        s = first[which] + torch.arange(int(c.sum()), device=dev) - start.repeat_interleave(c)
+        want = rows[lower[which]] * n + ci[s]
+        t = torch.searchsorted(keys, want).clamp_(max=nnz - 1)
+        hit = keys[t] == want
+        per_q += torch.bincount(lower[which][hit], minlength=nnz)
+        ts.append(t[hit].to(torch.int32))
+        ss.append(s[hit].to(torch.int32))
+        a = b
+    ptr = torch.zeros(nnz + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(per_q, 0, out=ptr[1:])
+    return ptr, torch.cat(ts), torch.cat(ss)
+
+
+def _numeric(ilu: ILU0, csr: CSR) -> _Numeric:
+    """The handle's refactor state, made at its first call from ``csr``'s
+    pattern (host numpy; on the card the symbolic factor by torch ops there),
+    in the span ``ilu0.refactor.setup``."""
+    st = ilu._numeric.get("state")
+    if st is not None:
+        return st
+    from .swell import value_map
+
+    with profiling.span("ilu0.refactor.setup"):
+        rp = csr.row_ptr.cpu().numpy().astype(np.int64)
+        ci = csr.col_idx.cpu().numpy().astype(np.int64)
+        m, dev = csr.rows, csr.device
+        rows_of = np.repeat(np.arange(m, dtype=np.int64), np.diff(rp))
+
+        def t(a, dtype=np.int32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+        def dep_pos(plan, mask):
+            # analyze_trisolve's order: by level of the row, stable
+            pos = np.flatnonzero(mask)
+            return pos[np.argsort(plan.level_of_row[rows_of[pos]], kind="stable")]
+
+        def layout_map(layout, mask):
+            # the strict part's value map (ilu0's _strict_part_csr pattern), into lu
+            pos = np.flatnonzero(mask)
+            srp = np.concatenate([[0], np.cumsum(np.bincount(rows_of[pos], minlength=m))])
+            vmap = value_map(layout, srp, ci[pos], csr.shape)
+            if vmap is None:
+                raise ValueError("refactor: a (row, column) of the pattern repeats")
+            into_lu = t(np.concatenate([[0], pos + 1]))
+            return tuple(into_lu[v.long()] for v in vmap)
+
+        lower, upper, on_diag = ci < rows_of, ci > rows_of, ci == rows_of
+        diag = np.zeros(m, dtype=np.int64)
+        diag[rows_of[on_diag]] = np.flatnonzero(on_diag)
+        maps = None
+        if ilu.swell is not None:
+            maps = (layout_map(ilu.swell.layout_l, lower), layout_map(ilu.swell.layout_u, upper))
+        kernel = host = None
+        if dev.type == "cuda":
+            from ._build import TRISOLVE_SRC, load_lib
+
+            load_lib(TRISOLVE_SRC)  # F-4's library: built here, at the first call
+            plan = ilu.l_plan
+            rows = plan.rows_sorted if plan.rows_sorted is not None else torch.arange(
+                m, device=dev)  # past the level cap: natural order, also a dependency order
+            rp32 = ilu.pattern[0].to(torch.int32).contiguous()
+            ci32 = ilu.pattern[1].to(torch.int32).contiguous()
+            dpos = t(diag)
+            kernel = (rows, rp32, ci32, dpos, *_ikj_updates(rp32, ci32, dpos, csr.cols),
+                      torch.zeros(m, dtype=torch.int32, device=dev),
+                      torch.zeros(1, dtype=torch.int32, device=dev),
+                      _AHEAD * max(plan.widest_level, 1))
+        else:
+            host = (rp, ci)
+        st = ilu._numeric["state"] = _Numeric(
+            lu=torch.zeros(csr.nnz + 1, dtype=torch.float64, device=dev),
+            l_pos=t(dep_pos(ilu.l_plan, lower) + 1), u_pos=t(dep_pos(ilu.u_plan, upper) + 1),
+            diag_pos=t(diag + 1), maps=maps, kernel=kernel, host=host)
+    return st
+
+
+def _factor_kernel(st: _Numeric, values: torch.Tensor) -> None:
+    """F-4 on ``values`` (the CSR's, on the card) into ``st.lu``: one launch
+    on the current stream, after the state's last launch (:func:`_order`)."""
+    from ._build import TRISOLVE_SRC, load_lib
+
+    rows, rp, ci, diag, up, ut, us, flags, epoch, in_flight = st.kernel
+    a = values.to(torch.float64).contiguous()
+    lib = load_lib(TRISOLVE_SRC)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device)
+        _order(st, stream)
+        rc = lib.ilu0_refactor(in_flight, int(rows.shape[0]), _ptr(rows), _ptr(rp), _ptr(ci),
+                               _ptr(diag), _ptr(up), _ptr(ut), _ptr(us), _ptr(a),
+                               _ptr(st.lu[1:]), _ptr(flags), _ptr(epoch),
+                               ctypes.c_void_p(stream.cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"ilu0_refactor kernel launch failed: CUDA error {rc}")
+    LAUNCHES[("f64", "factor")] += 1
+
+
+def _refactor(ilu: ILU0, csr: CSR) -> None:
+    from .swell import revalue
+
+    _same_pattern(ilu, csr)
+    st = _numeric(ilu, csr)
+    profiling.count("ilu.refactors")
+    profiling.count("ilu.refactor.rows", csr.rows)
+    profiling.count("ilu.refactor.nnz", csr.nnz)
+    if csr.rows == 0:
+        return
+    if st.kernel is not None:
+        _factor_kernel(st, csr.values)
+    else:
+        profiling.count("ilu.refactor.host")
+        rp, ci = st.host
+        st.lu[1:].copy_(torch.from_numpy(ilu0_host(rp, ci, csr.values.cpu().numpy(), csr.shape)))
+    lu = st.lu
+    torch.index_select(lu, 0, st.l_pos, out=ilu.l_plan.dep_vals)
+    torch.index_select(lu, 0, st.u_pos, out=ilu.u_plan.dep_vals)
+    torch.index_select(lu, 0, st.diag_pos, out=ilu.u_plan.diag)
+    for plan in (ilu.l_plan, ilu.u_plan):
+        for dep_vals, diag in plan._cast.values():
+            dep_vals.copy_(plan.dep_vals)
+            diag.copy_(plan.diag)
+    if ilu.swell is not None:
+        revalue(ilu.swell.layout_l, lu, st.maps[0])
+        revalue(ilu.swell.layout_u, lu, st.maps[1])
+        ilu.swell.inv_diag.copy_(1.0 / ilu.u_plan.diag)
 
 
 def _strict_part_csr(rp, ci, lu, shape, lower: bool, device) -> CSR:
@@ -590,4 +822,5 @@ def _ilu0(csr: CSR, sweeps: Optional[int]) -> ILU0:
         layout_l = get_swell_plan(_strict_part_csr(rp, ci, lu, shape, True, dev))
         layout_u = get_swell_plan(_strict_part_csr(rp, ci, lu, shape, False, dev))
         swell = SweepSwell(layout_l, layout_u, 1.0 / u_plan.diag)
-    return ILU0(l_plan, u_plan, sweeps=sweeps, swell=swell)
+    return ILU0(l_plan, u_plan, sweeps=sweeps, swell=swell,
+                pattern=(csr.row_ptr, csr.col_idx, csr.shape))

@@ -29,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from ..formats.containers import drop_held, on_replace_values
 from .xla import axpby_finish
 
 __all__ = ["spmv_thread_row", "spmv_wf_row", "spmv_block_row", "spmv_light",
@@ -46,7 +47,9 @@ ROUND_NNZ = 1 << 16
 # Packs by (matrix, kind).  Each entry holds the CSR's three tensors and is used
 # only when they are the very objects passed in, so neither a recycled id() nor
 # a CSR that shares row_ptr with new values is served a stale pack.
+# formats.containers.replace_values drops the CSR's entries.
 _PACK_CACHE: dict = {}
+on_replace_values(lambda csr: drop_held(_PACK_CACHE, csr))
 
 
 def clear_pack_cache() -> None:

@@ -13,9 +13,15 @@ thread), and each counter's sum, in one table per process that ``spans``
 copies and ``reset`` clears.  The solver, the captured loops and the plans
 open spans where their work happens (``cg.solve``, ``cg.eager``,
 ``cg.blocks``, ``graphs.capture``, ``swell.plan`` and its steps, ``ilu0``,
-``dist.shard``, ``mg.setup``, ``mg.apply``), never one an iteration of a
-kernel loop; the multigrid preconditioner counts its V-cycles and
-triangular solves as it launches them (``mg.vcycles``, ``mg.tri_solves``); ``cg_solve`` and
+``dist.shard``, ``mg.setup``, ``mg.apply``, ``csr.replace_values``,
+``ilu0.refactor`` with ``ilu0.refactor.setup``, ``swell.value_map``), never
+one an iteration of a kernel loop; the multigrid preconditioner counts its
+V-cycles and triangular solves as it launches them (``mg.vcycles``,
+``mg.tri_solves``); new values on a pattern count the layouts refreshed
+(``swell.revalues``), the cache entries and solvers dropped
+(``csr.revalue.dropped``), and the refactors, those on the host, and their
+rows and nnz (``ilu.refactors``, ``ilu.refactor.host``,
+``ilu.refactor.rows``, ``ilu.refactor.nnz``); ``cg_solve`` and
 ``dist_swell_cg_solve`` count the solvers they keep and build
 (``cg.solvers.hit``, ``cg.solvers.built``, ``dist.solvers.hit``,
 ``dist.solvers.built``), and the distributed solve the bytes its halo
